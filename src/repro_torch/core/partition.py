@@ -1,0 +1,242 @@
+"""Build_Bisim (Algorithm 1): k-bisimulation partition construction.
+
+The port of `repro.core.partition`.  Bottom-up over iterations j = 0..k
+(Prop. 1): iteration 0 dense-ranks node labels; iteration j folds sig_j
+from pid_{j-1} (through the Hopper `sig_fold` kernel on the card) and
+dense-ranks the signatures.  The early-stop rule of §3.2/App. A.3 — two
+consecutive iterations with an equal number of partition blocks mean the
+full bisimulation partition has been reached — applies by default.
+
+The JAX package runs the fused build as one `lax.while_loop` program with
+a single device->host sync.  Eager PyTorch has no device-side loop (a CUDA
+graph would be the tool), so here both routes run the same loop body, one
+dispatched iteration at a time, and every iteration leaves its partition
+count and a convergence flag (count_j == count_{j-1}) on the device.  The
+host drains them in one transfer every ``sync_every`` iterations and stops
+at the fixpoint; up to ``sync_every - 1`` iterations dispatched past it are
+trimmed, so the result is identical to a per-iteration check.  The routes
+differ only in what they sync and keep:
+
+* **fused** (default for ``with_store=False``): iteration 0's count joins
+  the first drain; no signature lanes are kept.
+* **staged** (``with_store=True`` or ``fused=False``): iteration 0's count
+  is synced at once, as in the JAX package, and each level's (hi, lo)
+  lanes are kept for the signature stores.
+
+Every device->host transfer emits a ``build.sync`` tracer event and every
+dispatched iteration a ``build.dispatch`` event, so ``--trace`` shows what
+the port really does; the JAX package's one-sync contract does not carry
+over.  Pid histories, counts, convergence, store columns and the
+`IterationStats` byte columns equal the JAX package's exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..graph.storage import Graph
+from ..obs import tracer as obs
+from . import signatures as sig
+from .sig_store import SigStore
+
+# bytes of sort keys per edge, per mode (Table-7-style accounting)
+_KEY_BYTES = {"sorted": 12, "dedup_hash": 12, "multiset": 0}
+
+
+@dataclasses.dataclass
+class IterationStats:
+    iteration: int
+    num_partitions: int
+    seconds: float
+    # Bytes touched by the bulk operators this iteration — the analogue of
+    # the paper's STXXL I/O volume column in Table 7.
+    bytes_sorted: int
+    bytes_scanned: int
+
+
+@dataclasses.dataclass
+class BisimResult:
+    pids: np.ndarray                # int32 [k_eff+1, N] pid history (Table 3)
+    counts: list                    # partitions per iteration
+    stats: list                     # list[IterationStats]
+    converged_at: Optional[int]     # iteration where counts stabilized, or None
+    k_requested: int
+    # Signature store S per level (sorted u64-key -> pid arrays); level 0
+    # keyed by node label — only when with_store=True (maintenance, §4).
+    stores: Optional[list] = None
+    next_pid: Optional[list] = None
+
+    @property
+    def k_effective(self) -> int:
+        return self.pids.shape[0] - 1
+
+    def pid_at(self, j: int) -> np.ndarray:
+        """pId_j with the paper's Change-k semantics: past the convergence
+        point the partition no longer changes (Prop. 7)."""
+        return self.pids[min(j, self.k_effective)]
+
+
+def bisim_step(pid0, src, dst, elabel, pid_prev, *, num_nodes: int,
+               mode: str, elabel_range=None):
+    """One sig_j -> dense-rank iteration on device tensors.
+
+    Returns (pid_new int32 [N], count int32 0-dim, hi, lo) without a host
+    sync.  Eager PyTorch needs no buffer donation, so unlike the JAX
+    package's step no aliased ``pid_prev`` comes back.
+    """
+    hi, lo = sig.signature_hashes(pid0, src, dst, elabel, pid_prev,
+                                  num_nodes=num_nodes, mode=mode,
+                                  elabel_range=elabel_range)
+    pid_new, count = sig.dense_rank_pairs(hi, lo)
+    return pid_new, count, hi, lo
+
+
+def build_bisim(graph: Graph, k: int, *, mode: str = "sorted",
+                early_stop: bool = True, with_store: bool = False,
+                sync_every: int = 2, fused: Optional[bool] = None,
+                device=None) -> BisimResult:
+    """Compute the k-bisimulation partition of `graph` on ``device``.
+
+    mode: 'sorted' (paper-faithful), 'dedup_hash' (exact, cheaper sort) or
+          'multiset' (sort-free counting-bisimulation refinement).
+    device: ``cuda`` unless ``"cpu"`` is asked for; raises without a card.
+
+    ``fused=None`` picks the fused route whenever ``with_store`` is off;
+    ``fused=True`` with ``with_store=True`` raises, because the stores
+    need each level's signature lanes.  Convergence is drained every
+    ``sync_every`` iterations on both routes.
+    """
+    if sync_every < 1:
+        raise ValueError("sync_every must be >= 1")
+    if fused and with_store:
+        raise ValueError("fused build cannot materialize per-level stores; "
+                         "use the staged sync_every path (fused=None/False)")
+    if mode not in _KEY_BYTES:
+        raise ValueError(f"unknown signature mode: {mode}")
+    dev = resolve_device(device)
+    if fused is None:
+        fused = not with_store
+    path = "fused" if fused else "staged"
+    n = graph.num_nodes
+    node_labels, src, dst, elabel = (
+        torch.from_numpy(x).to(dev)
+        for x in (graph.node_labels, graph.src, graph.dst, graph.elabel))
+    elabel_range = ((int(graph.elabel.min()), int(graph.elabel.max()))
+                    if graph.num_edges else (0, 0))
+    esize = max(graph.num_edges, 1)
+    step_bytes = dict(bytes_sorted=_KEY_BYTES[mode] * esize + 8 * n,
+                      bytes_scanned=12 * esize + 8 * n)
+
+    t0 = time.perf_counter()
+    obs.event("build.dispatch", path=path, what="iteration0")
+    pid0, count0 = sig.dense_rank_ints(node_labels)
+    stats, counts = [], []
+    # (iteration, count, convergence flag, dispatch seconds), on device
+    pending = [(0, count0, count0 != count0, time.perf_counter() - t0)]
+    converged_at = None
+
+    def drain() -> bool:
+        """One host transfer for all pending (count, flag) scalars."""
+        nonlocal converged_at
+        if not pending:
+            return converged_at is not None
+        t_sync = time.perf_counter()
+        obs.event("build.sync", path=path, what="drain",
+                  batched=len(pending))
+        host = torch.stack([torch.stack([c, f.to(c.dtype)])
+                            for _, c, f, _ in pending]).tolist()
+        # the wait is where the drained steps' device work is paid for;
+        # amortize it so per-iteration seconds sum to the wall time
+        dt_sync = (time.perf_counter() - t_sync) / len(pending)
+        for (j, _, _, dt), (c, f) in zip(pending, host):
+            counts.append(c)
+            stats.append(IterationStats(
+                j, c, dt + dt_sync,
+                **(step_bytes if j else dict(bytes_sorted=4 * n,
+                                             bytes_scanned=4 * n))))
+            if early_stop and converged_at is None and f:
+                converged_at = j
+        pending.clear()
+        return converged_at is not None
+
+    if not fused:
+        drain()  # the count0 sync of the JAX package's staged path
+    history = [pid0]
+    sig_pairs = []
+    pid_prev, count_prev = pid0, count0
+    for j in range(1, k + 1):
+        t0 = time.perf_counter()
+        obs.event("build.dispatch", path=path, what="step", iteration=j)
+        pid_prev, count, hi, lo = bisim_step(
+            pid0, src, dst, elabel, pid_prev, num_nodes=n, mode=mode,
+            elabel_range=elabel_range)
+        history.append(pid_prev)
+        if with_store:
+            sig_pairs.append(torch.stack([hi, lo]))
+        pending.append((j, count, count == count_prev,
+                        time.perf_counter() - t0))
+        count_prev = count
+        if early_stop and j % sync_every == 0 and drain():
+            break
+    drain()
+    if converged_at is not None:
+        # Trim iterations dispatched past the fixpoint (Prop. 7: the
+        # partition no longer changes, so dropping them loses nothing).
+        keep = converged_at + 1
+        history = history[:keep]
+        counts = counts[:keep]
+        stats = stats[:keep]
+        sig_pairs = sig_pairs[:keep - 1]
+
+    # one bulk host transfer of the pid history (+ signatures if stored)
+    obs.event("build.sync", path=path, what="history")
+    pids = torch.stack(history).cpu().numpy()
+    stores, next_pid = None, None
+    if with_store:
+        # level 0 keyed by node label, level j by the sig_j hash
+        stores = [SigStore.from_labels(graph.node_labels, pids[0])]
+        if sig_pairs:
+            host = torch.stack(sig_pairs).cpu().numpy()
+            for j, (h, l) in enumerate(host, start=1):
+                stores.append(SigStore.from_hash_pairs(h, l, pids[j]))
+        next_pid = list(counts[: len(stores)])
+
+    return BisimResult(
+        pids=pids, counts=counts, stats=stats,
+        converged_at=converged_at, k_requested=k, stores=stores,
+        next_pid=next_pid)
+
+
+def partition_blocks(pids: np.ndarray) -> dict:
+    """Group node ids by partition id (small-graph helper for tests)."""
+    blocks = {}
+    for node, p in enumerate(np.asarray(pids).tolist()):
+        blocks.setdefault(p, []).append(node)
+    return blocks
+
+
+def same_partition(a: np.ndarray, b: np.ndarray) -> bool:
+    """Do two pid labelings induce the same partition (up to renaming)?"""
+    a = np.asarray(a)
+    b = np.asarray(b)
+    if a.shape != b.shape:
+        return False
+    fwd, bwd = {}, {}
+    for x, y in zip(a.tolist(), b.tolist()):
+        if fwd.setdefault(x, y) != y or bwd.setdefault(y, x) != x:
+            return False
+    return True
+
+
+def refines(fine: np.ndarray, coarse: np.ndarray) -> bool:
+    """Is partition `fine` a refinement of `coarse`?"""
+    m = {}
+    for f, c in zip(np.asarray(fine).tolist(), np.asarray(coarse).tolist()):
+        if m.setdefault(f, c) != c:
+            return False
+    return True

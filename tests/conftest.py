@@ -17,3 +17,9 @@ except ModuleNotFoundError:
 else:
     settings.register_profile("repro", max_examples=15, deadline=None)
     settings.load_profile("repro")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels have no CPU "
+        "mode); skips without one")
