@@ -10,16 +10,26 @@ Phases, each printing one JSON line:
              and print ``-Xptxas -v``'s summary and the card's name and
              power limit;
 2. kernels — every kernel against its plain PyTorch version on the card,
-             on the layouts the tests use and at the full build's shapes;
+             on the layouts the tests use and at the main paths' shapes
+             (``sig_fold``, then ``chunk_sig_fold`` at 2^10..2^22 lanes);
              integer outputs, so the tolerance is exact equality;
 3. parity  — the port's ``build_bisim`` on the card against the port on
              the CPU (3 modes x fused/staged/with_store), and small builds
              against the exact oracle;
-4. full    — the launcher's build of an 8M-node / 64M-requested-edge
+4. oocore_parity — the port's ``build_bisim_oocore`` on the card against
+             the port on the CPU (3 modes, plus a checkpointed build killed
+             at a fault point and resumed): pid files, counts,
+             ``converged_at`` and ``IOStats`` equal;
+5. full    — the launcher's build of an 8M-node / 64M-requested-edge
              powerlaw graph at k=10 in every mode, with the kernel launch
              counts set to 0 just before and read just after;
-5. profile — device time by kernel for the full ``sorted`` build, under
-             `torch.profiler`.
+6. profile — device time by kernel for the full ``sorted`` build, under
+             `torch.profiler`;
+7. oocore  — the launcher's ``--oocore`` build of the same graph
+             (``sorted``, k=10, 2^20-edge chunks), its ``chunk_sig_fold``
+             count set to 0 just before and read just after, with the
+             fold's and the uploads' CUDA-event time; its counts and last
+             partition must equal the in-memory build's.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Any failure raises and exits non-zero.  It needs one card and imports
@@ -28,6 +38,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -37,6 +48,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 FULL = dict(nodes=8_000_000, edges=64_000_000, k=10)
 PARITY = dict(nodes=200_000, edges=1_000_000, k=10)
+OOCORE = dict(chunk_edges=1 << 20, parity_chunk_edges=1 << 16)
+WORKDIR = ROOT / "build" / "oocore-smoke"  # git-ignored; removed at exit
 DEVICE = "cuda"
 MODES = ("sorted", "dedup_hash", "multiset")
 
@@ -215,6 +228,166 @@ def phase_kernels(full_lanes) -> dict:
     return out
 
 
+def _chunk_lanes(rng, n, chunk_edges, layout, big):
+    """One chunk as the out-of-core build lays it out: ``n`` lanes of a
+    (src, eLabel, pId)-sorted stream with dense ascending seg, padded to
+    ``chunk_edges`` with seg = chunk_edges - 1 and valid False.  Layouts:
+    ``distinct`` (every lane its own segment), ``mixed`` (duplicate
+    triples, segments of a few lanes), ``hub`` (one segment)."""
+    import numpy as np
+    import torch
+    if layout == "distinct":
+        src = np.arange(n)
+    elif layout == "hub":
+        src = np.zeros(n, np.int64)
+    else:
+        src = np.sort(rng.integers(0, max(n // 4, 1), n))
+    a = rng.integers(0, 3, n)
+    b = rng.integers(0, 5 if layout != "distinct" else 1 << 20, n)
+    if big:  # u32 values >= 2^31 (negative as int32)
+        a, b = a - 2 ** 31 + 5, b + 2 ** 31 - 7
+    order = np.lexsort((b, a, src))
+    src, a, b = src[order], a[order], b[order]
+    new = np.ones(n, bool)
+    new[1:] = src[1:] != src[:-1]
+    lanes = np.zeros((3, chunk_edges), np.int32)
+    lanes[0, :n] = a.astype(np.int64).astype(np.int32)
+    lanes[1, :n] = b.astype(np.int64).astype(np.int32)
+    lanes[2, :n] = np.cumsum(new) - 1
+    lanes[2, n:] = chunk_edges - 1
+    dev = torch.device(DEVICE)
+    lanes = torch.from_numpy(lanes).to(dev)
+    return (lanes[0], lanes[1], lanes[2],
+            torch.arange(chunk_edges, device=dev) < n)
+
+
+def phase_chunk_kernels() -> dict:
+    """chunk_sig_fold on the card vs chunk_sig_fold_plain on the card,
+    exact, over chunk sizes 2^10..2^22; timed at the build's 2^20."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sig_fold import (chunk_sig_fold,
+                                              chunk_sig_fold_plain)
+    rng = np.random.default_rng(1)
+    cases, worst, timing = [], 0, {}
+    for log2 in (10, 16, 20, 22):
+        ce = 1 << log2
+        shapes = [("full", ce, layout, layout != "distinct")
+                  for layout in ("distinct", "mixed", "hub")]
+        shapes += [("partial", ce - ce // 7 - 1, "mixed", True),
+                    ("partial", ce // 3, "hub", False),
+                    ("all-invalid", 0, "mixed", False)]
+        for fill, n, layout, big in shapes:
+            lanes = _chunk_lanes(rng, n, ce, layout, big)
+            for dedup, keep0 in ((True, True), (True, False),
+                                 (False, True), (False, False)):
+                kw = dict(num_segments=ce, dedup=dedup)
+                got = chunk_sig_fold(*lanes, keep0, **kw)
+                want = chunk_sig_fold_plain(*lanes, keep0, **kw)
+                torch.cuda.synchronize()
+                err = _exact(got, want)
+                cases.append({"case": f"2^{log2} {fill} {layout} big={big} "
+                                      f"dedup={dedup} keep0={keep0}",
+                              "max_abs_err": err})
+                worst = max(worst, err)
+            if log2 == 20 and fill == "full" and layout == "mixed":
+                kw = dict(num_segments=ce, dedup=True)
+                timing["ms"] = cuda_ms(
+                    lambda: chunk_sig_fold(*lanes, True, **kw), 20)
+                timing["plain_ms"] = cuda_ms(
+                    lambda: chunk_sig_fold_plain(*lanes, True, **kw), 5)
+                timing["bound_ms"] = ((13 * ce + 8 * ce) / HBM_BYTES_PER_S
+                                      * 1e3)
+                timing["shape"] = {"lanes": ce, "num_segments": ce,
+                                   "dedup": True, "layout": layout}
+    out = {"phase": "kernels", "kernel": "chunk_sig_fold",
+           "replaces": "src/repro/kernels/sig_fold.py:221 (_chunk_kernel "
+                       "via chunk_sig_fold :279)",
+           "cases": len(cases),
+           "mismatches": [c for c in cases if c["max_abs_err"]],
+           "max_abs_err": worst, **timing, "bound_by": "bytes",
+           "library_ms": None}
+    emit(out)
+    if worst:
+        raise SystemExit("chunk_sig_fold disagrees with its plain version")
+    return out
+
+
+def _same_oocore(a, b) -> bool:
+    import numpy as np
+    return (a.counts == b.counts and a.converged_at == b.converged_at
+            and a.io.to_dict() == b.io.to_dict()
+            and len(a.pid_paths) == len(b.pid_paths)
+            and all(np.array_equal(np.load(x), np.load(y))
+                    for x, y in zip(a.pid_paths, b.pid_paths)))
+
+
+def phase_oocore_parity() -> dict:
+    """The out-of-core build on the card equals the CPU's, in every mode,
+    and a checkpointed card build killed at a fault point resumes to the
+    CPU's clean result."""
+    import numpy as np
+    from repro_torch.core import faults
+    from repro_torch.exmem import build_bisim_oocore
+    from repro_torch.graph import generators as gen
+    from repro_torch.kernels.sig_fold import chunk_sig_fold
+    t0 = time.perf_counter()
+    g = gen.powerlaw_graph(PARITY["nodes"], PARITY["edges"], 4, 3, seed=0)
+    k, ce = PARITY["k"], OOCORE["parity_chunk_edges"]
+    runs, cpu_sorted = [], None
+    for mode in MODES:
+        before = chunk_sig_fold.launches
+        card = build_bisim_oocore(g, k, mode=mode, chunk_edges=ce,
+                                  workdir=str(WORKDIR / f"card-{mode}"),
+                                  device=DEVICE)
+        launches = chunk_sig_fold.launches - before
+        cpu = build_bisim_oocore(g, k, mode=mode, chunk_edges=ce,
+                                 workdir=str(WORKDIR / f"cpu-{mode}"),
+                                 device="cpu")
+        runs.append({"mode": mode, "counts": card.counts,
+                     "converged_at": card.converged_at,
+                     "io": card.io.to_dict(), "launches": launches,
+                     "equal": _same_oocore(card, cpu) and launches > 0})
+        if mode == "sorted":
+            cpu_sorted = cpu
+    # checkpoint/resume on the card: count the fault points of a clean
+    # checkpointed build, kill a second one halfway, resume it, and hold
+    # it to the CPU's clean build (IOStats differ by design: a resumed
+    # build also pays its recovery scans)
+    kw = dict(chunk_edges=ce, io_threads=0, checkpoint=True, device=DEVICE)
+    with faults.install_fault_plan(faults.FaultPlan()) as seen:
+        build_bisim_oocore(g, k, workdir=str(WORKDIR / "ckpt-clean"), **kw)
+    kill_at = seen.points_seen // 2
+    crashed = False
+    with faults.install_fault_plan(faults.FaultPlan(crash_at=kill_at)):
+        try:
+            build_bisim_oocore(g, k, workdir=str(WORKDIR / "ckpt"), **kw)
+        except faults.InjectedCrash:
+            crashed = True
+    resumed = build_bisim_oocore(g, k, workdir=str(WORKDIR / "ckpt"),
+                                 resume=True, **kw)
+    resume_equal = (crashed and resumed.counts == cpu_sorted.counts
+                    and resumed.converged_at == cpu_sorted.converged_at
+                    and len(resumed.pid_paths) == len(cpu_sorted.pid_paths)
+                    and all(np.array_equal(np.load(a), np.load(b))
+                            for a, b in zip(resumed.pid_paths,
+                                            cpu_sorted.pid_paths)))
+    out = {"phase": "oocore_parity",
+           "graph": {"generator": "powerlaw", "nodes": g.num_nodes,
+                     "edges": g.num_edges},
+           "k": k, "chunk_edges": ce, "card_vs_cpu": runs,
+           "checkpoint": {"fault_points": seen.points_seen,
+                          "killed_at": kill_at, "crashed": crashed,
+                          "resumed_counts": resumed.counts,
+                          "equal_to_cpu_clean": resume_equal},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    shutil.rmtree(WORKDIR, ignore_errors=True)
+    if not (all(r["equal"] for r in runs) and resume_equal):
+        raise SystemExit("card oocore build differs from the CPU's")
+    return out
+
+
 def _same_result(a, b) -> bool:
     import numpy as np
     if not (np.array_equal(a.pids, b.pids) and a.counts == b.counts
@@ -343,7 +516,7 @@ def phase_full(args, g, gen_seconds) -> dict:
     emit(out)
     if not ok:
         raise SystemExit("modes disagree at full size")
-    return out
+    return out, results["sorted"]
 
 
 def phase_profile(args, g) -> dict:
@@ -373,6 +546,87 @@ def phase_profile(args, g) -> dict:
     return out
 
 
+def _timed(fn, log: list):
+    """``fn`` with CUDA events recorded around each call into ``log``."""
+    import torch
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        log.append((start, end))
+        return out
+    return timed
+
+
+def phase_oocore(args, g, inmem) -> dict:
+    """The launcher's ``--oocore`` build at full width.  The fold wrapper
+    and the chunk upload of `repro_torch.exmem.build` are wrapped with
+    CUDA events for the run (the wrapped kernel still counts its own
+    launches); the result must equal the in-memory ``sorted`` build."""
+    import argparse
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.exmem import build as oocore
+    from repro_torch.kernels.sig_fold import chunk_sig_fold
+    from repro_torch.launch import bisim as launcher
+    args = argparse.Namespace(**{
+        **vars(args), "oocore": True, "mode": "sorted",
+        "chunk_edges": OOCORE["chunk_edges"], "io_threads": 1,
+        "workdir": str(WORKDIR / "full")})
+    fold_ev, upload_ev = [], []
+    saved = oocore.chunk_sig_fold, oocore._upload
+    oocore.chunk_sig_fold = _timed(saved[0], fold_ev)
+    oocore._upload = _timed(saved[1], upload_ev)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        chunk_sig_fold.launches = 0
+        with obs.tracing() as tracer:
+            res, wall = launcher.run_build(args, g)
+        launches = chunk_sig_fold.launches
+    finally:
+        oocore.chunk_sig_fold, oocore._upload = saved
+    peak = torch.cuda.max_memory_allocated()
+    launcher.report(args, res, wall)
+    torch.cuda.synchronize()
+    folds = len(tracer.find("build.fold"))
+    phases = obs.MetricsReport.from_tracer(tracer).as_dict()["phases"]
+    last = np.load(res.pid_paths[-1])
+    same_last = (np.unique(last.astype(np.int64) << 32
+                           | inmem.pids[-1].astype(np.int64)).shape[0]
+                 == np.unique(last).shape[0]
+                 == np.unique(inmem.pids[-1]).shape[0])
+    out = {"phase": "oocore", "mode": "sorted",
+           "graph": {"generator": "powerlaw", "nodes": g.num_nodes,
+                     "edges_requested": FULL["edges"],
+                     "edges": g.num_edges},
+           "k": FULL["k"], "chunk_edges": args.chunk_edges,
+           "io_threads": args.io_threads, "wall_s": wall,
+           "level_s": [st.seconds for st in res.stats],
+           "counts": res.counts, "converged_at": res.converged_at,
+           "io": res.io.to_dict(), "aio": res.aio.as_dict(),
+           "chunk_sig_fold_launches": launches, "chunks_folded": folds,
+           "fold_event_ms": sum(a.elapsed_time(b) for a, b in fold_ev),
+           "upload_event_ms": sum(a.elapsed_time(b) for a, b in upload_ev),
+           "peak_bytes": peak,
+           "span_total_s": {name: ph["total_s"]
+                            for name, ph in phases.items()},
+           "counts_equal_inmemory": res.counts == inmem.counts,
+           "last_level_same_partition": bool(same_last)}
+    emit(out)
+    res.cleanup()
+    if launches == 0 or launches != folds:
+        raise SystemExit(f"oocore: {launches} chunk_sig_fold launches for "
+                         f"{folds} chunks folded")
+    if not (out["counts_equal_inmemory"] and same_last):
+        raise SystemExit("oocore build differs from the in-memory build")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -391,10 +645,16 @@ def main() -> int:
     gen_seconds = time.perf_counter() - t0
     print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges "
           f"({gen_seconds:.1f} s to generate)", flush=True)
-    kern = phase_kernels({m: _build_lanes(g, m) for m in MODES})
-    phase_parity()
-    full = phase_full(args, g, gen_seconds)
-    phase_profile(args, g)
+    try:
+        kern = phase_kernels({m: _build_lanes(g, m) for m in MODES})
+        chunk = phase_chunk_kernels()
+        phase_parity()
+        phase_oocore_parity()
+        full, inmem = phase_full(args, g, gen_seconds)
+        phase_profile(args, g)
+        ooc = phase_oocore(args, g, inmem)
+    finally:
+        shutil.rmtree(WORKDIR, ignore_errors=True)
     emit({"kernels": [{
         "name": "sig_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sig_fold.cu",
@@ -402,6 +662,13 @@ def main() -> int:
         "launches": full["runs"][0]["sig_fold_launches"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "chunk_sig_fold", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/chunk_sig_fold.cu",
+        "replaces": "src/repro/kernels/sig_fold.py:221",
+        "launches": ooc["chunk_sig_fold_launches"],
+        "max_abs_err": chunk["max_abs_err"], "ms": chunk["ms"],
+        "plain_ms": chunk["plain_ms"], "bound_ms": chunk["bound_ms"],
         "bound_by": "bytes", "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ copies used by the maintenance algorithms).
 
 The port keeps its own copy of `repro.graph.storage` (host-side numpy
 input, identical canonicalisation) so that it imports nothing of the JAX
-package; the out-of-core spill (`to_ooc`) arrives with that slice.
+package.
 """
 from __future__ import annotations
 
@@ -98,6 +98,14 @@ class Graph:
     def load(path: str) -> "Graph":
         z = np.load(path)
         return Graph(z["node_labels"], z["src"], z["dst"], z["elabel"])
+
+    def to_ooc(self, root: str, *, chunk_nodes: int = 1 << 16,
+               chunk_edges: int = 1 << 16):
+        """Spill to chunked on-disk N_t/E_t tables
+        (`repro_torch.exmem.OocGraph`); inverse of `OocGraph.to_memory()`."""
+        from ..exmem.tables import OocGraph  # avoid circular import
+        return OocGraph.from_graph(self, root, chunk_nodes=chunk_nodes,
+                                   chunk_edges=chunk_edges)
 
     # --------------------------------------------------------------- edits
     def with_edges_added(self, src, dst, elabel) -> "Graph":

@@ -28,6 +28,9 @@ SIGNATURES = {
         "sig_fold_flat": [_P] * 6 + [_LL, _LL, _I, _I, _P],
         "sig_fold_bitonic": [_P] * 6 + [_LL, _LL, _I, _P],
     },
+    "chunk_sig_fold": {
+        "chunk_sig_fold": [_P] * 6 + [_LL, _I, _I, _I, _P],
+    },
 }
 
 

@@ -1,5 +1,5 @@
-"""The signature fold (Algorithm 1 lines 14-15) as a hand-written Hopper
-kernel, with its plain PyTorch version.
+"""The signature fold (Algorithm 1 lines 14-15) as hand-written Hopper
+kernels, with their plain PyTorch versions.
 
 Port of `repro.kernels.sig_fold._kernel` (reached through `sig_fold` and
 `frontier_sig_fold`).  For each lane i of block ``i // edges_per_block``:
@@ -11,9 +11,14 @@ previous lane's in its block (bitonic-sorting the block first unless
 outside ``[0, nodes_per_block)`` fall out, as the reference's broadcast
 compare drops them.
 
-On a CUDA tensor `sig_fold` launches the kernel in ``csrc/sig_fold.cu``
-(built at first use by `_build`) or raises; only a tensor on the CPU takes
-`sig_fold_plain`.  Outputs are u32 lanes carried in int64.
+`chunk_sig_fold` ports `repro.kernels.sig_fold._chunk_kernel`, the
+out-of-core build's per-chunk fold: dense ascending segment ids, the
+host's cross-chunk ``keep0`` bit, adjacent-compare dedup, then the same
+hash and wrap-add per segment.
+
+On a CUDA tensor each wrapper launches its kernel in ``csrc/`` (built at
+first use by `_build`) or raises; only a tensor on the CPU takes the plain
+version.  Outputs are u32 lanes carried in int64.
 """
 from __future__ import annotations
 
@@ -165,3 +170,89 @@ def frontier_sig_fold(elabel, pid_tgt, seg, valid, *, num_sigs: int,
     return sig_fold(elabel, pid_tgt, seg.to(torch.int32), valid,
                     nodes_per_block=num_sigs, edges_per_block=n,
                     dedup=dedup, presorted=presorted)
+
+
+def _check_chunk(elabel, pid_tgt, seg, valid, num_segments: int) -> int:
+    n = elabel.numel()
+    for name, t, dt in zip(("elabel", "pid_tgt", "seg", "valid"),
+                           (elabel, pid_tgt, seg, valid),
+                           (torch.int32,) * 3 + (torch.bool,)):
+        if t.dtype != dt or t.dim() != 1 or t.numel() != n:
+            raise ValueError(f"chunk_sig_fold: {name} must be a 1-D {dt} "
+                             f"tensor of {n} lanes, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != elabel.device:
+            raise ValueError("chunk_sig_fold: all lanes must lie on one "
+                             "device")
+    if not 0 <= num_segments < 2 ** 31:
+        raise ValueError(f"chunk_sig_fold: num_segments={num_segments} "
+                         "must lie in [0, 2^31)")
+    return n
+
+
+def chunk_sig_fold_plain(elabel, pid_tgt, seg, valid, keep0: bool, *,
+                         num_segments: int, dedup: bool = True):
+    """The chunk fold in plain PyTorch ops: same arguments, same bits as
+    the kernel.  Used by the CPU route and as the card's comparison."""
+    n = _check_chunk(elabel, pid_tgt, seg, valid, num_segments)
+    dev = elabel.device
+    s = seg.to(torch.int64)
+    a, b = elabel.to(torch.int64), pid_tgt.to(torch.int64)
+    keep = valid
+    if dedup:
+        differs = torch.ones(n, dtype=torch.bool, device=dev)
+        differs[1:] = (s[1:] != s[:-1]) | (a[1:] != a[:-1]) | (b[1:] != b[:-1])
+        differs[:1] = bool(keep0)
+        keep = keep & differs
+    keep = keep & (s >= 0) & (s < num_segments)
+    hi, lo = hash_pair(a, b)
+    rows = torch.where(keep, s, 0)
+    zero = torch.zeros(max(num_segments, 1), dtype=torch.int64, device=dev)
+    out_hi = zero.index_add(0, rows, torch.where(keep, hi, 0))
+    out_lo = zero.index_add(0, rows, torch.where(keep, lo, 0))
+    return (out_hi[:num_segments] & MASK32, out_lo[:num_segments] & MASK32)
+
+
+def chunk_sig_fold(elabel, pid_tgt, seg, valid, keep0: bool, *,
+                   num_segments: int, dedup: bool = True):
+    """Out-of-core per-chunk fold: dedup + hash + segment combine.
+
+    One chunk of the (src, eLabel, pId)-sorted stream per call: ``seg``
+    holds dense ascending local source ids, ``valid`` masks the tail
+    padding and ``keep0`` is the host's cross-chunk boundary decision —
+    False when the chunk's first triple equals the previous chunk's last
+    (it applies only with ``dedup``).  Lanes with ``seg`` outside
+    ``[0, num_segments)`` add nothing.
+
+    elabel/pid_tgt/seg: int32 [E]; valid: bool [E]; keep0: a Python bool.
+    Returns (seg_hi, seg_lo): u32 lanes in int64 [num_segments].
+    """
+    if elabel.device.type == "cpu":
+        return chunk_sig_fold_plain(elabel, pid_tgt, seg, valid, keep0,
+                                    num_segments=num_segments, dedup=dedup)
+    n = _check_chunk(elabel, pid_tgt, seg, valid, num_segments)
+    if elabel.device.type != "cuda":
+        raise ValueError(f"chunk_sig_fold: no kernel for device "
+                         f"{elabel.device}")
+    cols = (elabel, pid_tgt, seg, valid)
+    if not all(t.is_contiguous() for t in cols):
+        raise ValueError("chunk_sig_fold: lanes must be contiguous")
+    from ._build import load
+    out = torch.zeros((2, num_segments), dtype=torch.int32,
+                      device=elabel.device)
+    if n and num_segments:
+        lib = load("chunk_sig_fold")
+        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*cols, *out)]
+        with torch.cuda.device(elabel.device):
+            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+            err = lib.chunk_sig_fold(*ptrs, n, num_segments, int(dedup),
+                                     int(bool(keep0)), stream)
+        if err:
+            raise RuntimeError(f"chunk_sig_fold: kernel launch failed with "
+                               f"CUDA error {err}")
+        chunk_sig_fold.launches += 1
+    hi, lo = out.to(torch.int64) & MASK32
+    return hi, lo
+
+
+chunk_sig_fold.launches = 0  # kernel launches made through the wrapper

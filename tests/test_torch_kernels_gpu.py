@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 from repro_torch.core import build_bisim  # noqa: E402
+from repro_torch.exmem import build_bisim_oocore  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.kernels import sig_fold as tfold  # noqa: E402
 
@@ -89,3 +90,57 @@ def test_card_build_equals_cpu_build(cuda, mode):
     for a, b in zip(card.stores, cpu.stores):
         np.testing.assert_array_equal(a.keys, b.keys)
         np.testing.assert_array_equal(a.pids, b.pids)
+
+
+def _chunk_lanes(seed, n, chunk_edges, *, hub=False):
+    """One sorted chunk as the out-of-core build lays it out: dense
+    ascending seg over n real lanes, padding seg = chunk_edges - 1,
+    eLabel/pId >= 2^31 as u32, duplicate triples."""
+    rng = np.random.default_rng(seed)
+    src = np.zeros(n, np.int64) if hub else np.sort(rng.integers(0, n, n))
+    a = rng.integers(0, 3, n) - 2 ** 31 + 5
+    b = rng.integers(0, 5, n) + 2 ** 31 - 7
+    order = np.lexsort((b, a, src))
+    src, a, b = src[order], a[order], b[order]
+    new = np.ones(n, bool)
+    new[1:] = src[1:] != src[:-1]
+    lanes = np.zeros((3, chunk_edges), np.int32)
+    lanes[0, :n] = a.astype(np.int32)
+    lanes[1, :n] = b.astype(np.int32)
+    lanes[2, :n] = np.cumsum(new) - 1
+    lanes[2, n:] = chunk_edges - 1
+    return [torch.from_numpy(x) for x in lanes] + [
+        torch.arange(chunk_edges) < n]
+
+
+@pytest.mark.parametrize("n,chunk_edges,hub", [
+    (1 << 10, 1 << 10, False), (1000, 1 << 10, True),
+    ((1 << 16) - 5, 1 << 16, False), (0, 1 << 12, False)])
+@pytest.mark.parametrize("dedup,keep0", [(True, True), (True, False),
+                                         (False, True)])
+def test_chunk_kernel_matches_plain(cuda, n, chunk_edges, hub, dedup, keep0):
+    lanes = [x.to(cuda) for x in _chunk_lanes(n, n, chunk_edges, hub=hub)]
+    kw = dict(num_segments=chunk_edges, dedup=dedup)
+    before = tfold.chunk_sig_fold.launches
+    got = tfold.chunk_sig_fold(*lanes, keep0, **kw)
+    torch.cuda.synchronize()
+    assert tfold.chunk_sig_fold.launches == before + 1
+    for g, w in zip(got, tfold.chunk_sig_fold_plain(*lanes, keep0, **kw)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["sorted", "dedup_hash", "multiset"])
+def test_card_oocore_equals_cpu_oocore(cuda, tmp_path, mode):
+    g = gen.powerlaw_graph(3000, 15000, 4, 3, seed=1)
+    kw = dict(mode=mode, chunk_edges=1 << 11, spill_threshold=1 << 10)
+    before = tfold.chunk_sig_fold.launches
+    card = build_bisim_oocore(g, 6, workdir=str(tmp_path / "card"),
+                              device=cuda, **kw)
+    assert tfold.chunk_sig_fold.launches > before
+    cpu = build_bisim_oocore(g, 6, workdir=str(tmp_path / "cpu"),
+                             device="cpu", **kw)
+    assert card.counts == cpu.counts
+    assert card.converged_at == cpu.converged_at
+    assert card.io.to_dict() == cpu.io.to_dict()
+    for a, b in zip(card.pid_paths, cpu.pid_paths):
+        np.testing.assert_array_equal(np.load(a), np.load(b))
