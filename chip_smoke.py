@@ -29,7 +29,27 @@ Phases, each printing one JSON line:
              (``sorted``, k=10, 2^20-edge chunks), its ``chunk_sig_fold``
              count set to 0 just before and read just after, with the
              fold's and the uploads' CUDA-event time; its counts and last
-             partition must equal the in-memory build's.
+             partition must equal the in-memory build's;
+8. attention — ``flash_attention`` against its plain PyTorch version on
+             the card (2e-5 in f32, 2e-2 in bf16) on the JAX package's
+             attention test cases, odd lengths and gemma2-9b's prefill
+             shape (bf16, head_dim 256, 8192 tokens, softcap 50, with and
+             without the 4096 window), timed beside its bound and beside
+             `scaled_dot_product_attention` without the softcap (a
+             yardstick of a neighbouring function; the port never calls
+             it);
+9. serve_parity — a 4-layer, d_model-512 gemma2 in f32 served by
+             ``ServeEngine`` on the card and on the CPU from one seeded
+             init: equal tokens, the card's prefill logits within 1e-4 of
+             the CPU's float64 evaluation, and ``flash_attention``
+             launched once a layer a prefill wave;
+10. serve  — the serving launcher's defaults on gemma2-9b at full width
+             (42 layers, bf16, random weights from seed 0): 16 requests
+             of 4..63 tokens, 32 new tokens each, waves of up to 8, with
+             the ``flash_attention`` count set to 0 just before and read
+             just after (it must be 42 x waves);
+11. serve_profile — device time by kernel and the device's idle share
+             for one wave of that server, under `torch.profiler`.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Any failure raises and exits non-zero.  It needs one card and imports
@@ -46,6 +66,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+# H100 SXM dense peaks (data sheet): bf16 tensor cores, f32 CUDA cores
+FLOP_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 FULL = dict(nodes=8_000_000, edges=64_000_000, k=10)
 PARITY = dict(nodes=200_000, edges=1_000_000, k=10)
 OOCORE = dict(chunk_edges=1 << 20, parity_chunk_edges=1 << 16)
@@ -528,20 +550,9 @@ def phase_profile(args, g) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = launcher.run_build(args, g)
-    kernels = []
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        ms = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0)) / 1e3
-        kernels.append({"kernel": ev.key[:90], "ms": ms, "calls": ev.count})
-    kernels.sort(key=lambda k: -k["ms"])
-    device_ms = sum(k["ms"] for k in kernels)
-    out = {"phase": "profile", "mode": "sorted", "wall_ms": wall * 1e3,
-           "device_ms": device_ms, "busy_share": device_ms / (wall * 1e3),
-           "top": kernels[:12]}
+    out = {"phase": "profile", "mode": "sorted", **_device_top(prof, wall)}
     emit(out)
-    if not kernels:
+    if not out["top"]:
         raise SystemExit("the profiler saw no device time")
     return out
 
@@ -627,6 +638,286 @@ def phase_oocore(args, g, inmem) -> dict:
     return out
 
 
+# b, hq, hkv, sq, skv, d, causal, window, softcap, dtype: the JAX
+# package's attention test cases (`tests/test_kernels.py::ATTN_CASES`),
+# then odd lengths as serving prompts have them (the Pallas wrapper
+# refuses them), at head_dims 64 and 256
+ATTN_CASES = [
+    (2, 4, 2, 128, 128, 64, True, None, None, "float32"),
+    (1, 8, 1, 256, 256, 32, True, None, 30.0, "float32"),
+    (2, 2, 2, 128, 256, 64, True, 64, None, "float32"),
+    (1, 4, 4, 128, 128, 128, False, None, None, "float32"),
+    (1, 2, 1, 128, 128, 64, True, None, None, "bfloat16"),
+    (1, 2, 2, 64, 64, 16, True, 32, 20.0, "float32"),
+] + [case for sq, skv in ((37, 37), (1, 300), (37, 300)) for case in (
+    (2, 4, 2, sq, skv, 64, True, None, None, "float32"),
+    (2, 16, 8, sq, skv, 256, True, 16, 50.0, "bfloat16"),
+    (1, 16, 8, sq, skv, 256, True, 16, 50.0, "float32"))]
+# gemma2-9b's prefill attention: one sequence of 8192 tokens in bf16
+GEMMA_ATTN = dict(b=1, hq=16, hkv=8, s=8192, d=256, softcap=50.0,
+                  window=4096)
+# the serve-parity model: gemma2 cut to 4 layers at a moderate width
+PARITY_LM = dict(num_layers=4, d_model=512, num_heads=8, num_kv_heads=4,
+                 head_dim=64, d_ff=2048, vocab_size=32768, local_window=32)
+
+
+def phase_attention() -> dict:
+    """flash_attention on the card vs flash_attention_plain on the card,
+    each case timed beside its bound and beside SDPA without softcap."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ref import attention_mask
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def measure(b, hq, hkv, sq, skv, d, causal, window, softcap, dtype):
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                   .to(getattr(torch, dtype))
+                   for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2e-2 if dtype == "bfloat16" else 2e-5
+        keep = attention_mask(sq, skv, causal=causal, window=window,
+                              device=dev)
+        pairs = int(keep.sum())  # unmasked (query, key) pairs of a head
+        flop_ms = 4 * b * hq * d * pairs / FLOP_PER_S[dtype] * 1e3
+        byte_ms = (q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+                   / HBM_BYTES_PER_S * 1e3)
+        # the yardstick: one SDPA call, same mask, no softcap (SDPA has
+        # none); its is_causal aligns queries top-left, so a boolean mask
+        # carries the right-aligned causal and window masks
+        sdpa = dict(enable_gqa=True)
+        if causal and window is None and sq == skv:
+            sdpa["is_causal"] = True
+        elif causal or window is not None:
+            sdpa["attn_mask"] = keep
+        row = {"case": dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
+                            causal=causal, window=window, softcap=softcap,
+                            dtype=dtype),
+               "max_abs_err": err, "tol": tol, "ok": err < tol,
+               "pairs_per_head": pairs,
+               "ms": cuda_ms(lambda: flash_attention(q, k, v, **kw), 10),
+               "plain_ms": cuda_ms(
+                   lambda: flash_attention_plain(q, k, v, **kw), 10),
+               "library_ms": cuda_ms(
+                   lambda: F.scaled_dot_product_attention(q, k, v, **sdpa),
+                   10),
+               "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
+               "bound_ms": max(flop_ms, byte_ms),
+               "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+        del q, k, v, got, want, keep, sdpa
+        torch.cuda.empty_cache()
+        return row
+
+    cases = [measure(*case) for case in ATTN_CASES]
+    g = GEMMA_ATTN
+    timing = {name: measure(g["b"], g["hq"], g["hkv"], g["s"], g["s"],
+                            g["d"], True, window, g["softcap"], "bfloat16")
+              for name, window in (("global", None),
+                                   ("local", g["window"]))}
+    rows = cases + list(timing.values())
+    ptxas = [ln.strip() for ln in _build.ptxas_report("flash_attention")
+             .splitlines() if "Used" in ln or "spill" in ln]
+    bad = [c for c in rows if not c["ok"]]
+    out = {"phase": "attention", "kernel": "flash_attention",
+           "replaces": "src/repro/kernels/flash_attention.py:26 (_kernel "
+                       "via flash_attention :78, pallas_call :104)",
+           "library": "scaled_dot_product_attention without softcap, "
+                      "boolean mask where the mask is not top-left causal",
+           "cases": cases, "mismatches": bad,
+           "max_abs_err": max(c["max_abs_err"] for c in rows),
+           "gemma2_9b_prefill": timing, "ptxas": ptxas}
+    emit(out)
+    if bad:
+        raise SystemExit("flash_attention disagrees with its plain version")
+    return out
+
+
+def _host_cpu() -> str:
+    """The host's architecture, CPU model and core count."""
+    import os
+    import platform
+    info = Path("/proc/cpuinfo").read_text().splitlines()
+    names = sorted({ln.split(":", 1)[1].strip() for ln in info
+                    if ln.split(":")[0].strip() in ("model name", "CPU part")})
+    return f"{platform.machine()} {' / '.join(names)} x{os.cpu_count()}"
+
+
+def phase_serve_parity() -> dict:
+    """A small gemma2 served on the card (prefill attention through the
+    kernel) and on the CPU (plain version) from one init: equal tokens,
+    one launch a layer a prefill wave, and the card's prefill logits
+    within 1e-4 of the CPU's plain route evaluated in float64.  (Card and
+    CPU in f32 each lie ~2e-5 from float64 on this model, but their f32
+    gap depends on the host: 3.1e-5 on most machines, 9.2e-4 on one, so
+    it is reported beside the host's CPU and not held to 1e-4.)"""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import Model
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    t0 = time.perf_counter()
+    cfg = get_config("gemma2_9b").scaled(**PARITY_LM)
+    card = Model(cfg).init(0, torch.float32, DEVICE)
+    cpu = Model(cfg).load(tree_map(lambda t: t.cpu(), card.params))
+    cpu64 = Model(cfg).load(tree_map(lambda t: t.double(), cpu.params))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 70)))
+    logits = {"card": card.prefill(toks.to(DEVICE))[0].cpu().double(),
+              "cpu": cpu.prefill(toks)[0].double(),
+              "f64": cpu64.prefill(toks)[0]}
+    err = {f"{a}_vs_{b}": float((logits[a] - logits[b]).abs().max())
+           for a, b in (("card", "f64"), ("cpu", "f64"), ("card", "cpu"))}
+    # prompts longer than the window of 32, in five length buckets
+    reqs = [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in (5, 40, 40, 70, 33, 100, 40, 12, 40, 40, 40)]
+    kw = dict(max_batch=4, max_seq=160)
+    flash_attention.launches = 0
+    eng = ServeEngine(card, **kw)
+    got = eng.serve(reqs, max_new=16)
+    launches = flash_attention.launches
+    cpu_eng = ServeEngine(cpu, **kw)
+    want = cpu_eng.serve(reqs, max_new=16)
+    out = {"phase": "serve_parity", "config": PARITY_LM, "dtype": "float32",
+           "requests": len(reqs), "prompt_lengths": [len(r) for r in reqs],
+           "prefill_logit_max_abs_err": err, "host_cpu": _host_cpu(),
+           "tokens_equal": got == want, "stats": vars(eng.stats),
+           "stats_equal": eng.stats == cpu_eng.stats,
+           "flash_attention_launches": launches,
+           "layers_x_waves": cfg.num_layers * eng.stats.waves,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if not (got == want and eng.stats == cpu_eng.stats
+            and err["card_vs_f64"] < 1e-4
+            and launches == cfg.num_layers * eng.stats.waves):
+        raise SystemExit("card serving differs from the CPU's")
+    return out
+
+
+def _timed_host(fn, log: list, finite: list):
+    """``fn`` timed by the host clock between two synchronizes (ms into
+    ``log``), with whether its first output (logits) is finite."""
+    import torch
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0) * 1e3)
+        finite.append(bool(torch.isfinite(out[0]).all()))
+        return out
+    return timed
+
+
+def phase_serve():
+    """The serving launcher's defaults on gemma2-9b at full width."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve as launcher
+    args = launcher.build_parser().parse_args(["--arch", "gemma2_9b",
+                                               "--device", DEVICE])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = launcher.make_engine(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model, cfg = eng.model, eng.model.cfg
+    reqs = launcher.make_requests(cfg, args.requests)
+    prefill_ms, decode_ms, finite = [], [], []
+    model.prefill = _timed_host(model.prefill, prefill_ms, finite)
+    model.decode_step = _timed_host(model.decode_step, decode_ms, finite)
+    try:
+        flash_attention.launches = 0
+        outs, wall = launcher.run_serve(args, eng, reqs)
+        launches = flash_attention.launches
+    finally:
+        del model.prefill, model.decode_step
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    st = eng.stats
+    shapes_ok = (len(outs) == len(reqs)
+                 and all(len(o) == args.max_new for o in outs)
+                 and all(0 <= t < cfg.padded_vocab for o in outs for t in o))
+    out = {"phase": "serve", "arch": cfg.name,
+           "dtype": str(eng.dtype).removeprefix("torch."),
+           "layers": cfg.num_layers, "params": model.num_params(),
+           "requests": len(reqs), "prompt_lengths": [len(r) for r in reqs],
+           "max_new": args.max_new, "max_batch": args.max_batch,
+           "max_seq": args.max_seq, "init_s": init_s, "wall_s": wall,
+           "generated_tokens": st.generated_tokens,
+           "tokens_per_s": st.generated_tokens / wall,
+           "waves": st.waves, "prefill_tokens": st.prefill_tokens,
+           "decode_steps": st.decode_steps, "prefill_ms": prefill_ms,
+           "decode_ms_median": float(np.median(decode_ms)),
+           "decode_ms_mean": float(np.mean(decode_ms)),
+           "flash_attention_launches": launches,
+           "layers_x_waves": cfg.num_layers * st.waves,
+           "logits_finite": all(finite), "outputs_well_formed": shapes_ok,
+           "peak_bytes": peak, "peak_share": peak / card, "card_bytes": card,
+           "host_cpu": _host_cpu(), "first_output": outs[0][:8]}
+    emit(out)
+    if launches != cfg.num_layers * st.waves or launches == 0:
+        raise SystemExit(f"serve: {launches} flash_attention launches for "
+                         f"{st.waves} waves of {cfg.num_layers} layers")
+    if not (all(finite) and shapes_ok):
+        raise SystemExit("serve: non-finite logits or malformed outputs")
+    return out, eng, reqs
+
+
+def _device_top(prof, wall_s: float, n: int = 12) -> dict:
+    """Device time by kernel name from a profile, and its busy share."""
+    kernels = []
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        ms = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0)) / 1e3
+        kernels.append({"kernel": ev.key[:90], "ms": ms, "calls": ev.count})
+    kernels.sort(key=lambda k: -k["ms"])
+    device_ms = sum(k["ms"] for k in kernels)
+    return {"wall_ms": wall_s * 1e3, "device_ms": device_ms,
+            "busy_share": device_ms / (wall_s * 1e3), "top": kernels[:n]}
+
+
+def phase_serve_profile(eng, reqs) -> dict:
+    """Device time by kernel and the idle share of one wave of the
+    full-width server, under `torch.profiler`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    wave = [r for r in reqs if len(r) == len(reqs[0])][:eng.max_batch]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.serve(wave, max_new=32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    top = _device_top(prof, wall)
+    flash = [ev for ev in prof.key_averages() if "flash_fwd" in ev.key]
+    out = {"phase": "serve_profile", "arch": eng.model.cfg.name,
+           "wave_rows": len(wave), "prompt_len": len(wave[0]),
+           "max_new": 32, **top, "idle_share": 1 - top["busy_share"],
+           "flash_attention_device_ms": sum(
+               getattr(ev, "self_device_time_total", 0) for ev in flash)
+           / 1e3,
+           "flash_attention_calls": sum(ev.count for ev in flash)}
+    emit(out)
+    if not top["top"]:
+        raise SystemExit("the profiler saw no device time")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -655,6 +946,13 @@ def main() -> int:
         ooc = phase_oocore(args, g, inmem)
     finally:
         shutil.rmtree(WORKDIR, ignore_errors=True)
+    del g, inmem
+    attn = phase_attention()
+    phase_serve_parity()
+    serve, eng, reqs = phase_serve()
+    phase_serve_profile(eng, reqs)
+    del eng
+    glob = attn["gemma2_9b_prefill"]["global"]
     emit({"kernels": [{
         "name": "sig_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sig_fold.cu",
@@ -669,7 +967,14 @@ def main() -> int:
         "launches": ooc["chunk_sig_fold_launches"],
         "max_abs_err": chunk["max_abs_err"], "ms": chunk["ms"],
         "plain_ms": chunk["plain_ms"], "bound_ms": chunk["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]})
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "launches": serve["flash_attention_launches"],
+        "max_abs_err": attn["max_abs_err"], "ms": glob["ms"],
+        "plain_ms": glob["plain_ms"], "bound_ms": glob["bound_ms"],
+        "bound_by": glob["bound_by"], "library_ms": glob["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,9 +1,10 @@
 """repro_torch — the PyTorch/CUDA port of `repro` for one NVIDIA H100.
 
 The package mirrors `repro`'s layout and names (``core``, ``graph``,
-``kernels``, ``obs``, ``launch``) so each module's counterpart is easy to
-find, but it imports nothing of `repro` and never imports JAX: it keeps its
-own copies of the host-side numpy modules it needs.
+``exmem``, ``kernels``, ``obs``, ``models``, ``configs``, ``serve``,
+``launch``) so each module's counterpart is easy to find, but it imports
+nothing of `repro` and never imports JAX: it keeps its own copies of the
+host-side numpy modules it needs.
 
 Every entry point takes an explicit ``device``.  It runs on ``cuda`` unless
 the caller asks for ``cpu`` (as the CPU tests do); without a card and

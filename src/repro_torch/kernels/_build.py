@@ -21,7 +21,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
 # argtypes of every entry point, by library
 SIGNATURES = {
     "sig_fold": {
@@ -30,6 +31,10 @@ SIGNATURES = {
     },
     "chunk_sig_fold": {
         "chunk_sig_fold": [_P] * 6 + [_LL, _I, _I, _I, _P],
+    },
+    "flash_attention": {
+        "flash_attention_fwd": [_P] * 4 + [ctypes.POINTER(_LL), _I, _I, _I,
+                                           _LL, _I, _F, _F, _I, _I, _P],
     },
 }
 

@@ -1,8 +1,9 @@
 """Plain-PyTorch oracles for the port's kernel functions (the port of
-`repro.kernels.ref`, without the attention oracle, which arrives with the
-attention kernel), and `chunk_fold_ref`, the twin of the JAX package's
+`repro.kernels.ref`), and `chunk_fold_ref`, the twin of the JAX package's
 host keep mask plus `repro.exmem.build._fold_chunk`."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -59,3 +60,41 @@ def chunk_fold_ref(elabel, pid_tgt, src, n: int, keep0: bool, *,
     seg_hi = zero.index_add(0, seg, torch.where(keep, e_hi, 0))
     seg_lo = zero.index_add(0, seg, torch.where(keep, e_lo, 0))
     return seg_hi & sig.MASK32, seg_lo & sig.MASK32
+
+
+def attention_mask(sq: int, skv: int, *, causal: bool, window, device):
+    """[sq, skv] bool, True where query row i may see key j: queries
+    right-aligned (qpos = i + skv - sq), causal qpos >= kpos, window
+    qpos - kpos < window."""
+    qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window=None,
+                  softcap=None, scale=None):
+    """Oracle for kernels.flash_attention: materialized logits, masked
+    with -inf, softmax in f32.
+
+    q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] with Hq % Hkv == 0.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kk = torch.repeat_interleave(k, group, dim=1)
+    vv = torch.repeat_interleave(v, group, dim=1)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          device=q.device)
+    logits = torch.where(mask, logits, -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vv.float())
+    return out.to(q.dtype)

@@ -1,0 +1,46 @@
+"""Per-layer blocks of the port (the port of `repro.models.blocks`, for
+the block kinds of the ported architectures)."""
+from __future__ import annotations
+
+import torch
+
+from . import layers
+
+ATTN_KINDS = ("dense", "local", "global")
+
+
+def _check_kind(cfg, kind):
+    if kind not in ATTN_KINDS or cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"block kind {kind!r} with {cfg.attention} attention is not "
+            f"ported yet (ROADMAP.md, queue 1 item 13: the other "
+            f"architectures); ported: {ATTN_KINDS} with gqa")
+
+
+def block_specs(cfg, kind):
+    _check_kind(cfg, kind)
+    d = cfg.d_model
+    return {"ln_attn": layers.norm_spec(d), "attn": layers.gqa_specs(cfg),
+            "ln_mlp": layers.norm_spec(d), "mlp": layers.mlp_specs(cfg)}
+
+
+def apply_block(p, x, cfg, block_kind, *, kind, positions, cache=None,
+                index=None):
+    """Returns (x, new_cache_for_this_block)."""
+    _check_kind(cfg, block_kind)
+    a, c = layers.apply_gqa(
+        p["attn"], layers.rms_norm(x, p["ln_attn"], cfg.norm_eps), cfg,
+        kind=kind, layer_kind=block_kind, positions=positions,
+        cache=None if cache is None else cache["attn"], index=index)
+    x = x + a
+    x = x + layers.apply_mlp(p["mlp"],
+                             layers.rms_norm(x, p["ln_mlp"], cfg.norm_eps))
+    return x, {"attn": c}
+
+
+def cache_struct(cfg, block_kind, batch: int, seq: int, dtype, device):
+    """Zero-initialized cache tree for one block."""
+    _check_kind(cfg, block_kind)
+    shape = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"attn": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device)}}

@@ -1,0 +1,82 @@
+"""Top-level model of the port: config -> specs, parameters, prefill and
+decode (the port of `repro.models.model.Model`'s serving half)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .. import resolve_device
+from . import lm, params as P
+from .config import ModelConfig
+
+
+def _register(module: nn.Module, tree: dict) -> dict:
+    """Register ``tree``'s tensors as frozen parameters of nested
+    submodules of ``module``; returns the same tree of parameters."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            sub = nn.Module()
+            module.add_module(key, sub)
+            out[key] = _register(sub, val)
+        else:
+            out[key] = nn.Parameter(val, requires_grad=False)
+            module.register_parameter(key, out[key])
+    return out
+
+
+class Model(nn.Module):
+    """A decoder LM holding its parameter tree (``self.params``: nested
+    dicts with the JAX package's keys, registered as frozen parameters).
+
+    ``init`` or ``load`` gives it parameters; `prefill` and `decode_step`
+    then run on the parameters' device.
+    """
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.params = None
+
+    def param_specs(self):
+        return lm.lm_specs(self.cfg)
+
+    def num_params(self) -> int:
+        return P.count_params(self.param_specs())
+
+    def init(self, seed: int = 0, dtype=torch.float32, device=None):
+        """Random parameters from ``seed`` on ``device`` (the card unless
+        ``cpu`` is asked)."""
+        gen = torch.Generator(device=resolve_device(device))
+        gen.manual_seed(seed)
+        return self.load(P.init_params(self.param_specs(), gen, dtype))
+
+    def load(self, params):
+        """Take a parameter tree (for example `params_from_jax`'s), after
+        checking it against the specs."""
+        want = P.tree_map(lambda s: tuple(s.shape), self.param_specs())
+        if P.tree_map(lambda t: tuple(t.shape), params) != want:
+            raise ValueError(f"parameter tree does not fit {self.cfg.name}")
+        self.params = _register(self, params)
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed"].device
+
+    def prefill(self, tokens):
+        """tokens: [B, S] integer. Returns (logits [B, S, V], cache)."""
+        return lm.lm_forward(self.params, self.cfg, tokens)
+
+    def decode_step(self, cache, token, index: int):
+        return lm.lm_decode_step(self.params, self.cfg, cache, token, index)
+
+    def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16):
+        return lm.init_cache(self.cfg, batch, seq, dtype, self.device)
+
+    def pad_cache(self, cache, batch: int, max_seq: int, dtype=torch.bfloat16):
+        """Right-pad a prefill cache (prompt length) to decode capacity."""
+        def pad(leaf, tmpl):
+            tmpl[tuple(slice(0, n) for n in leaf.shape)] = leaf
+            return tmpl
+        return P.tree_map(pad, cache, self.init_cache(batch, max_seq, dtype))

@@ -144,3 +144,99 @@ def test_card_oocore_equals_cpu_oocore(cuda, tmp_path, mode):
     assert card.io.to_dict() == cpu.io.to_dict()
     for a, b in zip(card.pid_paths, cpu.pid_paths):
         np.testing.assert_array_equal(np.load(a), np.load(b))
+
+
+# b, hq, hkv, sq, skv, d, causal, window, softcap, dtype: the cases of
+# `tests/test_kernels.py::ATTN_CASES`, the odd lengths serving prompts
+# have, and gemma2-9b's head_dim 256 with its window and softcap
+FLASH_CASES = [
+    (2, 4, 2, 128, 128, 64, True, None, None, torch.float32),
+    (1, 8, 1, 256, 256, 32, True, None, 30.0, torch.float32),
+    (2, 2, 2, 128, 256, 64, True, 64, None, torch.float32),
+    (1, 4, 4, 128, 128, 128, False, None, None, torch.float32),
+    (1, 2, 1, 128, 128, 64, True, None, None, torch.bfloat16),
+    (1, 2, 2, 64, 64, 16, True, 32, 20.0, torch.float32),
+    (1, 4, 2, 37, 37, 16, True, None, None, torch.float32),
+    (1, 4, 2, 1, 300, 64, True, None, 50.0, torch.float32),
+    (2, 4, 2, 37, 300, 64, True, 64, 50.0, torch.float32),
+    (2, 16, 8, 300, 300, 256, True, 128, 50.0, torch.float32),
+    (2, 16, 8, 300, 300, 256, True, 128, 50.0, torch.bfloat16),
+]
+
+
+def _qkv(cuda, seed, b, hq, hkv, sq, skv, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype)
+            for h, s in ((hq, sq), (hkv, skv), (hkv, skv))]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,softcap,dtype",
+                         FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal,
+                                       window, softcap, dtype):
+    from repro_torch.kernels import flash_attention as tfa
+    qkv = _qkv(cuda, sq + d, b, hq, hkv, sq, skv, d, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(*qkv, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = tfa.flash_attention_plain(*qkv, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert got.dtype == dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) < tol
+    # the tiles change only the order of the f32 sums
+    for bq, bk in ((16, 64), (64, 32), (37, 5)):
+        other = tfa.flash_attention(*qkv, block_q=bq, block_k=bk, **kw)
+        assert float((other.float() - got.float()).abs().max()) < tol
+
+
+def test_flash_attention_strided_views(cuda):
+    """[B, S, H, D] activations viewed as [B, H, S, D], as the model hands
+    them over; the output takes q's layout."""
+    from repro_torch.kernels import flash_attention as tfa
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _qkv(cuda, 0, 2, 4, 2, 37, 37, 64, torch.float32))
+    out = tfa.flash_attention(q, k, v, window=16)
+    assert out.stride() == q.stride()
+    want = tfa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), window=16)
+    assert float((out - want).abs().max()) < 2e-5
+
+
+def test_flash_attention_refused_launch_raises(cuda):
+    """B * Hq above the grid's 65535 is refused by the card: the wrapper
+    raises instead of returning an unwritten output."""
+    from repro_torch.kernels import flash_attention as tfa
+    q = torch.zeros(1, 65536, 1, 16, device=cuda)
+    before = tfa.flash_attention.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tfa.flash_attention(q, q, q)
+    assert tfa.flash_attention.launches == before
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention(*_qkv(cuda, 0, 1, 2, 2, 8, 8, 48, torch.float32))
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.flash_attention(*_qkv(cuda, 0, 1, 2, 2, 8, 8, 64, torch.float64))
+
+
+def test_card_serve_equals_cpu_serve(cuda):
+    """The smoke configuration served on the card (every prefill attention
+    through the kernel) gives the CPU's tokens."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import Model
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import ServeEngine
+    cfg = get_smoke_config("gemma2_9b")
+    cpu = Model(cfg).init(0, device="cpu")
+    card = Model(cfg).load(tree_map(lambda t: t.to(cuda), cpu.params))
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in (21, 5, 21, 40, 21)]
+    before = tfa.flash_attention.launches
+    eng = ServeEngine(card, max_batch=2, max_seq=64)
+    got = eng.serve(reqs, max_new=8)
+    assert tfa.flash_attention.launches - before == (cfg.num_layers
+                                                     * eng.stats.waves)
+    assert got == ServeEngine(cpu, max_batch=2, max_seq=64).serve(
+        reqs, max_new=8)
