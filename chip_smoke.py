@@ -32,12 +32,17 @@ Phases, each printing one JSON line:
              partition must equal the in-memory build's;
 8. attention — ``flash_attention`` against its plain PyTorch version on
              the card (2e-5 in f32, 2e-2 in bf16) on the JAX package's
-             attention test cases, odd lengths and gemma2-9b's prefill
-             shape (bf16, head_dim 256, 8192 tokens, softcap 50, with and
-             without the 4096 window), timed beside its bound and beside
-             `scaled_dot_product_attention` without the softcap (a
-             yardstick of a neighbouring function; the port never calls
-             it);
+             attention test cases, odd lengths, and the bf16 (wgmma)
+             kernel at every head_dim, ragged lengths, GQA groups 1/2/8,
+             window and softcap on and off and a [B, S, H, D] view; then
+             gemma2-9b's prefill shape (bf16, head_dim 256, 8192 tokens,
+             causal; softcap 50 with and without the 4096 window, and
+             without softcap), timed beside its bound and beside
+             `scaled_dot_product_attention` (without softcap a yardstick
+             of the same function, with it of a neighbouring one; the
+             port never calls it); prints both attention libraries'
+             ``-Xptxas -v`` lines, a register/spill/wgmma count of each
+             kernel's SASS and the route each dtype takes;
 9. serve_parity — a 4-layer, d_model-512 gemma2 in f32 served by
              ``ServeEngine`` on the card and on the CPU from one seeded
              init: equal tokens, the card's prefill logits within 1e-4 of
@@ -641,7 +646,11 @@ def phase_oocore(args, g, inmem) -> dict:
 # b, hq, hkv, sq, skv, d, causal, window, softcap, dtype: the JAX
 # package's attention test cases (`tests/test_kernels.py::ATTN_CASES`),
 # then odd lengths as serving prompts have them (the Pallas wrapper
-# refuses them), at head_dims 64 and 256
+# refuses them), at head_dims 64 and 256; then the bf16 kernel's cases of
+# `tests/test_torch_kernels_gpu.py`: every head_dim (causal, and
+# non-causal with softcap), ragged lengths, GQA groups 1, 2 and 8, window
+# and softcap each on and off
+HEAD_DIMS = (16, 32, 64, 128, 256)
 ATTN_CASES = [
     (2, 4, 2, 128, 128, 64, True, None, None, "float32"),
     (1, 8, 1, 256, 256, 32, True, None, 30.0, "float32"),
@@ -652,13 +661,48 @@ ATTN_CASES = [
 ] + [case for sq, skv in ((37, 37), (1, 300), (37, 300)) for case in (
     (2, 4, 2, sq, skv, 64, True, None, None, "float32"),
     (2, 16, 8, sq, skv, 256, True, 16, 50.0, "bfloat16"),
-    (1, 16, 8, sq, skv, 256, True, 16, 50.0, "float32"))]
+    (1, 16, 8, sq, skv, 256, True, 16, 50.0, "float32"))] + [
+    (1, 4, 2, 200, 200, d, True, None, None, "bfloat16") for d in HEAD_DIMS
+] + [(1, 4, 4, 256, 256, d, False, None, 30.0, "bfloat16")
+     for d in HEAD_DIMS] + [
+    (2, 4, 2, sq, skv, 64, True, 16, 50.0, "bfloat16")
+    for sq, skv in ((1, 300), (37, 37), (37, 300), (300, 300))
+] + [(1, hq, hkv, 150, 250, 128, True, None, None, "bfloat16")
+     for hq, hkv in ((4, 4), (4, 2), (8, 1))] + [
+    (1, 4, 2, 300, 300, 256, True, window, softcap, "bfloat16")
+    for window in (None, 100) for softcap in (None, 50.0)]
 # gemma2-9b's prefill attention: one sequence of 8192 tokens in bf16
 GEMMA_ATTN = dict(b=1, hq=16, hkv=8, s=8192, d=256, softcap=50.0,
                   window=4096)
 # the serve-parity model: gemma2 cut to 4 layers at a moderate width
 PARITY_LM = dict(num_layers=4, d_model=512, num_heads=8, num_kv_heads=4,
                  head_dim=64, d_ff=2048, vocab_size=32768, local_window=32)
+
+
+def _sass_summary(name: str) -> dict:
+    """Per kernel of a built library, from its SASS (``cuobjdump``): the
+    registers it touches, spill stores and loads, wgmma and the waits on
+    them.  Under ``setmaxnreg`` this is what ``-Xptxas -v`` cannot show:
+    it prints only the registers at entry."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {"cuobjdump": "not found beside nvcc: not measured"}
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True).stdout
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        fn = block.split()[0]
+        dim = re.search(r"ILi(\d+)E", fn)
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", block)]
+        out[f"D={dim.group(1)}" if dim else fn] = {
+            "registers_touched": max(regs, default=-1) + 1,
+            "STL": block.count("STL"), "LDL": block.count("LDL"),
+            "HGMMA": block.count("HGMMA"),
+            "wgmma_waits": block.count("WARPGROUP.DEPBAR")}
+    return out
 
 
 def phase_attention() -> dict:
@@ -668,17 +712,26 @@ def phase_attention() -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     kernel_route)
     from repro_torch.kernels.ref import attention_mask
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def measure(b, hq, hkv, sq, skv, d, causal, window, softcap, dtype):
-        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev)
+    def measure(b, hq, hkv, sq, skv, d, causal, window, softcap, dtype,
+                bshd=False):
+        # bshd: [B, S, H, D] activations viewed as [B, H, S, D], as the
+        # model hands them over
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                   .to(getattr(torch, dtype)).transpose(1, 2)
+                   if bshd else
+                   torch.randn(b, h, s, d, generator=gen, device=dev)
                    .to(getattr(torch, dtype))
                    for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
         kw = dict(causal=causal, window=window, softcap=softcap)
+        launches = flash_attention.launches
         got = flash_attention(q, k, v, **kw)
+        launched = flash_attention.launches - launches
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
@@ -699,8 +752,11 @@ def phase_attention() -> dict:
             sdpa["attn_mask"] = keep
         row = {"case": dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
                             causal=causal, window=window, softcap=softcap,
-                            dtype=dtype),
-               "max_abs_err": err, "tol": tol, "ok": err < tol,
+                            dtype=dtype, bshd=bshd),
+               "route": kernel_route(q.dtype),
+               "max_abs_err": err, "tol": tol,
+               "ok": err < tol and launched == 1
+               and got.stride() == q.stride(),
                "pairs_per_head": pairs,
                "ms": cuda_ms(lambda: flash_attention(q, k, v, **kw), 10),
                "plain_ms": cuda_ms(
@@ -716,23 +772,41 @@ def phase_attention() -> dict:
         return row
 
     cases = [measure(*case) for case in ATTN_CASES]
+    cases += [measure(2, 4, 2, 37, 37, 64, True, 16, None, dtype, bshd=True)
+              for dtype in ("float32", "bfloat16")]
     g = GEMMA_ATTN
     timing = {name: measure(g["b"], g["hq"], g["hkv"], g["s"], g["s"],
-                            g["d"], True, window, g["softcap"], "bfloat16")
-              for name, window in (("global", None),
-                                   ("local", g["window"]))}
+                            g["d"], True, window, softcap, "bfloat16")
+              for name, window, softcap in (
+                  ("global", None, g["softcap"]),
+                  ("local", g["window"], g["softcap"]),
+                  ("global_no_softcap", None, None))}
     rows = cases + list(timing.values())
-    ptxas = [ln.strip() for ln in _build.ptxas_report("flash_attention")
-             .splitlines() if "Used" in ln or "spill" in ln]
+    ptxas = {lib: [ln.strip() for ln in _build.ptxas_report(lib).splitlines()
+                   if "Used" in ln or "spill" in ln or "C75" in ln]
+             for lib in ("flash_attention", "flash_attention_sm90")}
+    routes = {"bfloat16": kernel_route(torch.bfloat16) + " (wgmma, TMA)",
+              "float32": kernel_route(torch.float32) + " (CUDA cores)"}
+    print(f"flash_attention route: bf16 -> {routes['bfloat16']}, "
+          f"f32 -> {routes['float32']}", flush=True)
+    for lib, lines in ptxas.items():
+        for ln in lines:
+            print(f"ptxas {lib}: {ln}", flush=True)
+    sass = {lib: _sass_summary(lib) for lib in ptxas}
+    for lib, kernels in sass.items():
+        for kernel, counts in kernels.items():
+            print(f"sass {lib} {kernel}: {json.dumps(counts)}", flush=True)
     bad = [c for c in rows if not c["ok"]]
     out = {"phase": "attention", "kernel": "flash_attention",
            "replaces": "src/repro/kernels/flash_attention.py:26 (_kernel "
                        "via flash_attention :78, pallas_call :104)",
-           "library": "scaled_dot_product_attention without softcap, "
-                      "boolean mask where the mask is not top-left causal",
+           "routes": routes,
+           "library": "scaled_dot_product_attention (is_causal, "
+                      "enable_gqa) without softcap, boolean mask where the "
+                      "mask is not top-left causal",
            "cases": cases, "mismatches": bad,
            "max_abs_err": max(c["max_abs_err"] for c in rows),
-           "gemma2_9b_prefill": timing, "ptxas": ptxas}
+           "gemma2_9b_prefill": timing, "ptxas": ptxas, "sass": sass}
     emit(out)
     if bad:
         raise SystemExit("flash_attention disagrees with its plain version")
@@ -969,7 +1043,7 @@ def main() -> int:
         "plain_ms": chunk["plain_ms"], "bound_ms": chunk["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
         "launches": serve["flash_attention_launches"],
         "max_abs_err": attn["max_abs_err"], "ms": glob["ms"],

@@ -33,8 +33,12 @@ SIGNATURES = {
         "chunk_sig_fold": [_P] * 6 + [_LL, _I, _I, _I, _P],
     },
     "flash_attention": {
-        "flash_attention_fwd": [_P] * 4 + [ctypes.POINTER(_LL), _I, _I, _I,
-                                           _LL, _I, _F, _F, _I, _I, _P],
+        "flash_attention_fwd": [_P] * 4 + [ctypes.POINTER(_LL), _I, _I, _LL,
+                                           _I, _F, _F, _I, _I, _P],
+    },
+    "flash_attention_sm90": {
+        "flash_attention_fwd_sm90": [_P] * 4 + [ctypes.POINTER(_LL), _I, _I,
+                                                _LL, _I, _F, _F, _P],
     },
 }
 

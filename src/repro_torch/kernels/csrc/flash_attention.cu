@@ -1,15 +1,16 @@
-// Flash attention forward (block-wise online softmax) for Hopper (sm_90a).
+// Flash attention forward (block-wise online softmax) in f32 for Hopper
+// (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_kernel` of
-// src/repro/kernels/flash_attention.py (reached through `flash_attention`).
-// It computes the same function in the same forward order: q, k, v upcast
-// to f32; s = (q.k) * scale; s = softcap * tanh(s / softcap) when a softcap
+// Replaces, for f32 inputs, the Pallas TPU kernel `_kernel` of
+// src/repro/kernels/flash_attention.py (reached through `flash_attention`);
+// bf16 inputs take flash_attention_sm90.cu (wgmma, TMA).  It computes the
+// same function in the same forward order: s = (q.k) * scale; s = softcap * tanh(s / softcap) when a softcap
 // is set; then the mask (right-aligned queries, qpos = row + Skv - Sq;
 // causal qpos >= kpos; window qpos - kpos < window; keys past Skv); masked
 // logits take the finite NEG = -0.7 * FLT_MAX and their p is zeroed; the
 // running (m, l, acc) update of each kv tile; and at the end l == 0 -> 1, so
-// a row with no key left writes 0.  The output is in q's dtype.  GQA: q
-// head h reads kv head h / (Hq / Hkv).
+// a row with no key left writes 0.  GQA: q head h reads kv head h /
+// (Hq / Hkv).
 //
 // Structure: one block of 256 threads per (query tile, batch * q head); a
 // loop inside the block over the kv tiles takes the place of the TPU's
@@ -23,18 +24,16 @@
 //
 // What bounds it: operations.  At gemma2's head_dim 256 the tile work is
 // 4 * D flops a (query, key) pair against 8 * D bytes a key row.  This
-// first kernel does them on the CUDA cores in full f32 (the f32 tolerance
-// of 2e-5 rules out TF32 and a bf16 P); wgmma, TMA and warp specialisation
-// are later work.  Tiles sit in shared memory as f32: q and k transposed
-// with a row stride of 65 floats (conflict-free transposing stores and
-// reads), v row-major; at D = 256 that is 215,296 B, above the 48 KB of
+// kernel does them on the CUDA cores in full f32 (the f32 tolerance of 2e-5
+// rules out TF32 and a bf16 P).  Tiles sit in shared memory: q and k
+// transposed with a row stride of 65 floats (conflict-free transposing
+// stores and reads), v row-major; at D = 256 that is 215,296 B, above the 48 KB of
 // static shared memory, so the launch opts in to dynamic shared memory.
 //
 // Plain-C entry point, loaded with ctypes; it returns cudaGetLastError()
-// so a refused launch reaches the caller, or -1 for a head_dim or dtype it
-// was not built for.
+// so a refused launch reaches the caller, or -1 for a head_dim it was not
+// built for.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -58,18 +57,6 @@ struct Params {
   int bq, bk;  // tile sizes in use, bq <= kTileQ and bk <= kTileK
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float x) {
-  return __float2bfloat16(x);
-}
-
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
@@ -84,10 +71,10 @@ constexpr size_t smem_bytes() {
          (size_t(2) * D * kPad + size_t(kTileK) * D + size_t(kTileQ) * kPad);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, Params p) {
+    flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Params p) {
   constexpr int kCols = D / 8;  // output columns a thread
   extern __shared__ float smem[];
   float* qt = smem;                // [D][kPad]
@@ -102,16 +89,16 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t hk = h / (p.hq / p.hkv);
   const int64_t q0 = (int64_t)blockIdx.x * p.bq;
   const int64_t off = p.skv - p.sq;  // right-aligned queries
-  const T* qb = q + b * p.qs[0] + h * p.qs[1];
-  const T* kb = k + b * p.ks[0] + hk * p.ks[1];
-  const T* vb = v + b * p.vs[0] + hk * p.vs[1];
-  T* ob = o + b * p.os[0] + h * p.os[1];
+  const float* qb = q + b * p.qs[0] + h * p.qs[1];
+  const float* kb = k + b * p.ks[0] + hk * p.ks[1];
+  const float* vb = v + b * p.vs[0] + hk * p.vs[1];
+  float* ob = o + b * p.os[0] + h * p.os[1];
   const int64_t rows = min64(p.bq, p.sq - q0);
 
   // the query tile, transposed; rows past the tile or Sq are zero
   for (int e = tid; e < kTileQ * D; e += kThreads) {
     const int r = e / D, d = e % D;
-    qt[d * kPad + r] = r < rows ? to_f32(qb[(q0 + r) * p.qs[2] + d]) : 0.f;
+    qt[d * kPad + r] = r < rows ? qb[(q0 + r) * p.qs[2] + d] : 0.f;
   }
 
   // kv range that any row of this tile can see
@@ -133,8 +120,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < kTileK * D; e += kThreads) {
       const int c = e / D, d = e % D;
       const bool in = c < keys;
-      kt[d * kPad + c] = in ? to_f32(kb[(k0 + c) * p.ks[2] + d]) : 0.f;
-      vv[c * D + d] = in ? to_f32(vb[(k0 + c) * p.vs[2] + d]) : 0.f;
+      kt[d * kPad + c] = in ? kb[(k0 + c) * p.ks[2] + d] : 0.f;
+      vv[c * D + d] = in ? vb[(k0 + c) * p.vs[2] + d] : 0.f;
     }
     __syncthreads();
 
@@ -212,51 +199,37 @@ __global__ void __launch_bounds__(kThreads)
     const int r = 2 * ty + i;
     if (r >= rows) continue;
     const float inv = l[i] == 0.f ? 1.f : l[i];
-    T* orow = ob + (q0 + r) * p.os[2];
+    float* orow = ob + (q0 + r) * p.os[2];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      orow[tx + 8 * j] = from_f32<T>(acc[i][j] / inv);
+    for (int j = 0; j < kCols; ++j) orow[tx + 8 * j] = acc[i][j] / inv;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Params& p, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  cudaFuncSetAttribute(flash_fwd<T, D>,
+  cudaFuncSetAttribute(flash_fwd<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)bytes);
   const dim3 grid((unsigned)((p.sq + p.bq - 1) / p.bq),
                   (unsigned)(p.batch * p.hq));
-  flash_fwd<T, D><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, p);
+  flash_fwd<D><<<grid, kThreads, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, p);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(int head_dim, const void* q, const void* k, const void* v,
-             void* o, const Params& p, cudaStream_t stream) {
-  switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, o, p, stream);
-    case 32: return launch<T, 32>(q, k, v, o, p, stream);
-    case 64: return launch<T, 64>(q, k, v, o, p, stream);
-    case 128: return launch<T, 128>(q, k, v, o, p, stream);
-    case 256: return launch<T, 256>(q, k, v, o, p, stream);
-    default: return -1;
-  }
 }
 
 }  // namespace
 
 // dims: batch, hq, hkv, sq, skv, head_dim, then the (batch, head, seq)
-// element strides of q, k, v and o.  dtype: 0 = f32, 1 = bf16.
+// element strides of q, k, v and o, all f32.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o,
-                                   const long long* dims, int dtype,
-                                   int causal, int has_window,
-                                   long long window, int has_softcap,
-                                   float softcap, float scale, int block_q,
-                                   int block_k, void* stream) {
+                                   const long long* dims, int causal,
+                                   int has_window, long long window,
+                                   int has_softcap, float softcap,
+                                   float scale, int block_q, int block_k,
+                                   void* stream) {
   Params p;
   p.batch = dims[0];
   p.hq = dims[1];
@@ -280,9 +253,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.bk = block_k < kTileK ? block_k : kTileK;
   if (p.sq <= 0 || p.batch * p.hq <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0: return dispatch<float>(head_dim, q, k, v, o, p, s);
-    case 1: return dispatch<__nv_bfloat16>(head_dim, q, k, v, o, p, s);
+  switch (head_dim) {
+    case 16: return launch<16>(q, k, v, o, p, s);
+    case 32: return launch<32>(q, k, v, o, p, s);
+    case 64: return launch<64>(q, k, v, o, p, s);
+    case 128: return launch<128>(q, k, v, o, p, s);
+    case 256: return launch<256>(q, k, v, o, p, s);
     default: return -1;
   }
 }

@@ -1,0 +1,648 @@
+// Flash attention forward in bf16 for Hopper (sm_90a): the tensor cores
+// through wgmma, tiles through TMA, one producer warpgroup and two consumer
+// warpgroups.
+//
+// Replaces, for bf16 inputs, the Pallas TPU kernel `_kernel` of
+// src/repro/kernels/flash_attention.py (reached through `flash_attention`);
+// f32 inputs keep the CUDA-core kernel of flash_attention.cu.  Same function
+// and forward order as the reference: s = (q.k) * scale from bf16 q and k
+// with f32 accumulation; s = softcap * tanh(s / softcap) when a softcap is
+// set; then the mask (right-aligned queries, qpos = row + Skv - Sq; causal
+// qpos >= kpos; window qpos - kpos < window; keys past Skv); masked logits
+// take a finite NEG and their p is 0; the running (m, l, acc) update in f32
+// over the kv tiles; l == 0 -> 1 at the end, so a row with no key writes 0.
+// The one extra rounding: p is rounded to bf16 as the A operand of P.V (l is
+// summed from the f32 p).  The logits are kept in log2 units (times log2 e,
+// after the softcap and before the mask) so that p = exp2(s - m); NEG is set
+// in those units, so no masked logit becomes -inf.  GQA: q head h reads kv
+// head h / (Hq / Hkv).
+//
+// What bounds it: operations.  At gemma2's head_dim 256 a (query, key) pair
+// costs 4 * D flops against 8 * D bytes per key row shared by 128 query rows
+// and the GQA group, far above the card's ~295 flops a byte.  So both
+// products run on the tensor cores (wgmma, bf16 in, f32 accumulate) and the
+// loads stay off the consumers' instruction stream (TMA):
+//
+// - One block per 128 query rows of one (batch, q head); blockIdx.x walks
+//   the query tiles, heaviest first under causal.
+// - Warpgroup 2 is the producer: one thread loads the Q tile once, then K and
+//   V tiles of 64 keys into a ring of 2 stages; each load completes on an
+//   mbarrier ("full"), and the consumers free a stage on another ("empty").
+// - Warpgroups 0 and 1 are consumers, 64 query rows each.  A kv tile:
+//   S = Q.K^T (wgmma m64n64k16, A and B from shared memory, both K-major,
+//   D/16 k-steps); scale, softcap, mask and online softmax on the f32
+//   accumulator in registers (row max by two quad shuffles; the row sum is
+//   kept per thread and summed across the quad once, at the end); P to bf16
+//   in registers, where the accumulator layout of S is already the A
+//   fragment layout of P.V; O += P.V (wgmma m64n{D}k16, A from registers, V
+//   from shared memory read MN-major through the transpose bit, no copy).
+// - Tiles that the causal or window mask empties for a warpgroup are
+//   skipped; the mask is built only on tiles that cross the diagonal, the
+//   window's edge or Skv.
+// - Tiles sit in shared memory as TMA writes them: rows of min(D, 64) bf16
+//   (128, 64 or 32 bytes) with the matching 128/64/32-byte swizzle, so a
+//   D = 256 tile is four column chunks and a k-step's descriptor steps
+//   across them.  Rows past Sq or Skv are zero-filled by TMA.
+// - Registers: setmaxnreg gives the consumers 240 and the producer 24
+//   (2 * 128 * 240 + 128 * 24 = 64,512 of the SM's 65,536); a consumer at
+//   D = 256 holds O (128 f32), S (32 f32) and P (16 bf16 pairs), 199
+//   registers and no spills.  ptxas keeps to the entry's 168 (and spills,
+//   and serialises the wgmma) unless the role branch is provably
+//   warp-uniform and no trap lies on the consumers' path.
+// - The softcap's tanh is 1 - 2 / (2^(2x log2 e) + 1): two MUFU operations
+//   in place of tanhf's long sequence, absolute error ~1e-7 (so ~1e-5 in a
+//   logit capped at 50).
+//
+// Plain-C entry point, loaded with ctypes; the tensor maps are encoded on
+// the host through cuTensorMapEncodeTiled, looked up at run time with
+// cudaGetDriverEntryPoint (nothing links -lcuda).  It returns
+// cudaGetLastError() so a refused launch reaches the caller, -1 for a
+// head_dim it was not built for and -2 when a tensor map is refused.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTileQ = 128;      // query rows a block
+constexpr int kRowsWG = 64;      // query rows a consumer warpgroup
+constexpr int kTileK = 64;       // keys a kv tile
+constexpr int kStages = 2;       // K/V ring depth
+constexpr int kConsumers = 2;    // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr float kNeg = -0.7f * FLT_MAX;  // masked logit, in log2 units
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Params {
+  int batch, hq, hkv, sq, skv, q_tiles;
+  int64_t os[3];  // element strides of o: batch, head, seq
+  int causal, has_window, has_softcap;
+  int window;        // clamped to [-Skv, Skv]: the same mask
+  float scale_log2;  // scale * log2 e (no softcap)
+  float cap_in;      // scale / softcap
+  float cap_out;     // softcap * log2 e
+};
+
+// Shared-memory plan of one block, in bytes from a 1024-aligned base.
+template <int D>
+struct Plan {
+  static constexpr int W = D < 64 ? D : 64;  // bf16 columns of a smem row
+  static constexpr int kChunks = D / W;
+  static constexpr uint32_t kRow = W * 2;
+  static constexpr uint32_t kQChunk = kTileQ * kRow;
+  static constexpr uint32_t kKVChunk = kTileK * kRow;
+  static constexpr uint32_t kQBytes = kQChunk * kChunks;
+  static constexpr uint32_t kKVBytes = kKVChunk * kChunks;  // one of K, V
+  static constexpr uint32_t kK = kQBytes;                   // + stage * kKVBytes
+  static constexpr uint32_t kV = kK + kStages * kKVBytes;   // + stage * kKVBytes
+  static constexpr uint32_t kBar = kV + kStages * kKVBytes;
+  // q, full[kStages], empty[kStages]; + 1024 to align the base
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+  // wgmma layout type: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
+  static constexpr uint64_t kLayout = W == 64 ? 1 : W == 32 ? 2 : 3;
+  static constexpr uint32_t kSbo = 8 * kRow / 16;  // 8 rows, 16-byte units
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the phase of ``parity`` to complete.  (No watchdog trap here: a
+// trap on this path made ptxas give up setmaxnreg's register counts, and
+// the consumers spilled at D = 256.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA tile load of a rank-4 map (d, s, h, b) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: address, leading and stride byte offsets
+// (16-byte units), swizzle layout type.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo & 0x3FFF) << 16) |
+         ((uint64_t)(sbo & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// A value the compiler cannot hoist out of the kv loop: hoisted, a tile's
+// 2 * D / 16 + 4 descriptors would hold registers through the whole loop.
+__device__ __forceinline__ uint64_t fresh(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// Keep the compiler from moving accumulator registers across an
+// asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define ACC8(d, i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC32(d, i) ACC8(d, i), ACC8(d, i + 8), ACC8(d, i + 16), ACC8(d, i + 24)
+
+// S (+)= Q.K^T for one k-step: m64n64k16, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d, 0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O += P.V for one k-step of 16 keys: m64n{N}k16, A (P, bf16 pairs) from
+// registers, B (V) from shared memory, MN-major (transpose bit set).
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_pv<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : ACC8(d, 0), ACC8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, "
+      "1;\n}\n"
+      : ACC32(d, 0), ACC32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, "
+      "p, 1, 1, 1;\n}\n"
+      : ACC32(d, 0), ACC32(d, 32), ACC32(d, 64), ACC32(d, 96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float tanh_exp2(float x) {
+  return 1.f - __fdividef(2.f, exp2f(x * (2.f * kLog2e)) + 1.f);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The accumulator layout of m64nN: register 4j + 2h + c of thread (warp w,
+// lane) holds row 16w + lane/4 + 8h, column 8j + 2 (lane%4) + c.  So s[i]
+// is in row half (i >> 1) & 1 and column 8 (i >> 2) + 2 (lane%4) + (i & 1).
+//
+// One tile's softmax on the S accumulator, in place: s becomes p.  m and l
+// are the running max (log2 units) and this thread's share of the row sum;
+// alpha the factor that rescales the output rows.
+template <bool kMask, bool kCap>
+__device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2],
+                                        float (&l)[2], float (&alpha)[2],
+                                        const Params& p, int qpos0,
+                                        int kpos0) {
+  uint32_t keep = 0xFFFFFFFFu;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float x =
+        kCap ? tanh_exp2(s[i] * p.cap_in) * p.cap_out : s[i] * p.scale_log2;
+    if (kMask) {
+      const int qpos = qpos0 + 8 * ((i >> 1) & 1);
+      const int kpos = kpos0 + 8 * (i >> 2) + (i & 1);
+      bool ok = kpos < p.skv;
+      if (p.causal) ok = ok && qpos >= kpos;
+      if (p.has_window) ok = ok && qpos - kpos < p.window;
+      if (!ok) {
+        x = kNeg;
+        keep &= ~(1u << i);
+      }
+    }
+    s[i] = x;
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xFFFFFFFFu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xFFFFFFFFu, mx[h], 2));
+    alpha[h] = exp2f(m[h] - mx[h]);
+    m[h] = mx[h];
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float e = exp2f(s[i] - mx[(i >> 1) & 1]);
+    if (kMask && !((keep >> i) & 1u)) e = 0.f;
+    s[i] = e;
+    sum[(i >> 1) & 1] += e;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + sum[h];
+}
+
+template <int D>
+__device__ __forceinline__ void consume(uint32_t base, const Params& p,
+                                        __nv_bfloat16* __restrict__ o, int wg,
+                                        int b, int h, int q0, int k_begin,
+                                        int n_tiles) {
+  using L = Plan<D>;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int off = p.skv - p.sq;  // right-aligned queries
+  const int r_lo = q0 + kRowsWG * wg;
+  const int r_hi = min(r_lo + kRowsWG, p.sq);  // past this warpgroup's rows
+  const int row0 = r_lo + 16 * warp + lane / 4;  // and row0 + 8
+  const int col0 = 2 * (lane % 4);
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t q_smem = base + wg * kRowsWG * L::kRow;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  mbar_wait(bar_q, 0);
+  __syncwarp();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t % kStages;
+    const int k0 = k_begin + t * kTileK;
+    // what this warpgroup's rows see of the tile (warpgroup-uniform)
+    const int qmin = r_lo + off, qmax = r_hi - 1 + off;
+    bool skip = r_lo >= r_hi;
+    bool mask = k0 + kTileK > p.skv;
+    if (p.causal) {
+      skip = skip || k0 > qmax;
+      mask = mask || k0 + kTileK - 1 > qmin;
+    }
+    if (p.has_window) {
+      skip = skip || qmin - (k0 + kTileK - 1) >= p.window;
+      mask = mask || qmax - k0 >= p.window;
+    }
+    const uint32_t full = base + L::kBar + 8 * (1 + stage);
+    const uint32_t empty = base + L::kBar + 8 * (1 + kStages + stage);
+    mbar_wait(full, (t / kStages) & 1);
+    __syncwarp();
+    if (!skip) {
+      const uint32_t k_smem = base + L::kK + stage * L::kKVBytes;
+      const uint32_t v_smem = base + L::kV + stage * L::kKVBytes;
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      const uint64_t dq = fresh(smem_desc(q_smem, 1, L::kSbo, L::kLayout));
+      const uint64_t dk = fresh(smem_desc(k_smem, 1, L::kSbo, L::kLayout));
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // k-step kk: columns 16 kk of chunk (16 kk) / W, 32 bytes a step;
+        // descriptor addresses count 16-byte units
+        const uint32_t c = (16 * kk) / L::W, in = (16 * kk) % L::W * 2;
+        wgmma_qk(s, dq + ((c * L::kQChunk + in) >> 4),
+                 dk + ((c * L::kKVChunk + in) >> 4), kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(s);
+
+      float alpha[2];
+      const int kpos0 = k0 + col0;
+      if (mask) {
+        if (p.has_softcap)
+          softmax<true, true>(s, m, l, alpha, p, row0 + off, kpos0);
+        else
+          softmax<true, false>(s, m, l, alpha, p, row0 + off, kpos0);
+      } else {
+        if (p.has_softcap)
+          softmax<false, true>(s, m, l, alpha, p, row0 + off, kpos0);
+        else
+          softmax<false, false>(s, m, l, alpha, p, row0 + off, kpos0);
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      // P as the A fragments of four k-steps of 16 keys
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+      // V rows 16 kk.. (keys) in every chunk; chunks lie kKVChunk apart
+      const uint64_t dv =
+          fresh(smem_desc(v_smem, L::kKVChunk / 16, L::kSbo, L::kLayout));
+      pin(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<D>(acc, a[kk], dv + ((16 * kk * L::kRow) >> 4));
+      wg_commit();
+      wg_wait_all();
+      pin(acc);
+    }
+    mbar_arrive(empty);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float sum = l[hh];
+    sum += __shfl_xor_sync(0xFFFFFFFFu, sum, 1);
+    sum += __shfl_xor_sync(0xFFFFFFFFu, sum, 2);
+    const float inv = 1.f / (sum == 0.f ? 1.f : sum);
+    const int row = row0 + 8 * hh;
+    if (row >= p.sq) continue;
+    __nv_bfloat16* orow = o + b * p.os[0] + h * p.os[1] + row * p.os[2];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hh] * inv,
+                                acc[4 * j + 2 * hh + 1] * inv);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ o, const Params p) {
+  using L = Plan<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.hq, h = bh % p.hq;
+  const int hk = h / (p.hq / p.hkv);
+  const int qt = p.causal ? p.q_tiles - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int q0 = qt * kTileQ;
+  const int off = p.skv - p.sq;
+  const int rows = min(kTileQ, p.sq - q0);
+  // the kv tiles that any row of the block sees
+  int k_begin = 0, k_end = p.skv;
+  if (p.causal) k_end = min(p.skv, q0 + rows + off);
+  if (p.has_window) k_begin = max(0, q0 + off - p.window + 1);
+  k_begin = k_begin / kTileK * kTileK;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + kTileK - 1) / kTileK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_q + 8 * (1 + s), 1);
+      mbar_init(bar_q + 8 * (1 + kStages + s), 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, through a shuffle so that ptxas sees it warp-uniform:
+  // setmaxnreg's register counts then hold for each role's whole branch
+  const int wg = __shfl_sync(0xFFFFFFFFu, (int)threadIdx.x / 128, 0);
+  if (wg == kConsumers) {
+    // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 128 * kConsumers) {
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int c = 0; c < L::kChunks; ++c)
+        tma_load(base + c * L::kQChunk, &tq, bar_q, c * L::W, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int stage = t % kStages;
+        const uint32_t full = bar_q + 8 * (1 + stage);
+        // the consumers freed this stage (passes at once on the first lap)
+        mbar_wait(bar_q + 8 * (1 + kStages + stage), ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::kKVBytes);
+        const int k0 = k_begin + t * kTileK;
+        const uint32_t k_smem = base + L::kK + stage * L::kKVBytes;
+        const uint32_t v_smem = base + L::kV + stage * L::kKVBytes;
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load(k_smem + c * L::kKVChunk, &tk, full, c * L::W, k0, hk, b);
+          tma_load(v_smem + c * L::kKVChunk, &tv, full, c * L::W, k0, hk, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    consume<D>(base, p, o, wg, b, h, q0, k_begin, n_tiles);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                            &found);
+#endif
+    if (ptr != nullptr && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A rank-4 map over (d, s, h, b) of a bf16 tensor with the given sizes and
+// element strides of (b, h, s); boxes of width x rows, swizzled to match.
+bool encode(CUtensorMap* map, const void* ptr, long long d, long long s,
+            long long h, long long b, const long long* strides, int width,
+            int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)h,
+                              (cuuint64_t)b};
+  const cuuint64_t bytes[3] = {(cuuint64_t)strides[2] * 2,
+                               (cuuint64_t)strides[1] * 2,
+                               (cuuint64_t)strides[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)width, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const long long* dims, const Params& p, cudaStream_t stream) {
+  using L = Plan<D>;
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, D, p.sq, p.hq, p.batch, dims + 6, L::W, kTileQ) ||
+      !encode(&tk, k, D, p.skv, p.hkv, p.batch, dims + 9, L::W, kTileK) ||
+      !encode(&tv, v, D, p.skv, p.hkv, p.batch, dims + 12, L::W, kTileK))
+    return -2;
+  cudaFuncSetAttribute(flash_fwd_sm90<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)L::kBytes);
+  const dim3 grid((unsigned)p.q_tiles, (unsigned)(p.batch * p.hq));
+  flash_fwd_sm90<D><<<grid, kThreads, L::kBytes, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dims: batch, hq, hkv, sq, skv, head_dim, then the (batch, head, seq)
+// element strides of q, k, v and o.  q, k, v: bf16, 16-byte aligned, strides
+// multiples of 8 elements (TMA's 16 bytes), head_dim contiguous.
+extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
+                                        const void* v, void* o,
+                                        const long long* dims, int causal,
+                                        int has_window, long long window,
+                                        int has_softcap, float softcap,
+                                        float scale, void* stream) {
+  Params p;
+  p.batch = (int)dims[0];
+  p.hq = (int)dims[1];
+  p.hkv = (int)dims[2];
+  p.sq = (int)dims[3];
+  p.skv = (int)dims[4];
+  const int head_dim = (int)dims[5];
+  for (int i = 0; i < 3; ++i) p.os[i] = dims[15 + i];
+  p.q_tiles = (p.sq + kTileQ - 1) / kTileQ;
+  p.causal = causal;
+  p.has_window = has_window;
+  // qpos - kpos lies in (-Skv, Skv): a window outside [-Skv, Skv] masks as
+  // its bound does
+  const long long w = window < -dims[4] ? -dims[4]
+                      : window > dims[4] ? dims[4]
+                                         : window;
+  p.window = (int)w;
+  p.has_softcap = has_softcap;
+  p.scale_log2 = scale * kLog2e;
+  p.cap_in = has_softcap ? scale / softcap : 0.f;
+  p.cap_out = has_softcap ? softcap * kLog2e : 0.f;
+  if (p.sq <= 0 || p.batch * p.hq <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (head_dim) {
+    case 16: return launch<16>(q, k, v, o, dims, p, s);
+    case 32: return launch<32>(q, k, v, o, dims, p, s);
+    case 64: return launch<64>(q, k, v, o, dims, p, s);
+    case 128: return launch<128>(q, k, v, o, dims, p, s);
+    case 256: return launch<256>(q, k, v, o, dims, p, s);
+    default: return -1;
+  }
+}

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import resolve_device
 from . import blocks, layers
 from .params import ParamSpec, tree_map
 
@@ -82,8 +83,10 @@ def lm_decode_step(params, cfg, cache, token, index: int):
 
 
 def init_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16,
-               device="cpu"):
-    """Zeroed decode cache, stacked over pattern groups ([G, ...] leaves)."""
+               device=None):
+    """Zeroed decode cache, stacked over pattern groups ([G, ...] leaves),
+    on the card unless ``device="cpu"`` is asked (`resolve_device`)."""
+    device = resolve_device(device)
     g = cfg.pattern_groups
     return {str(i): tree_map(lambda a: a.new_zeros((g,) + a.shape),
                              blocks.cache_struct(cfg, k, batch, seq, dtype,

@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
@@ -59,11 +61,14 @@ def init_params(specs, generator: torch.Generator, dtype=torch.float32):
     return tree_map(make, specs)
 
 
-def params_from_jax(tree, *, dtype=None, device="cpu"):
+def params_from_jax(tree, *, dtype=None, device=None):
     """The JAX package's parameter tree, as numpy arrays, as the port's
     parameters: same keys, same orientation (``x @ w`` with w as
     [d_in, d_out], groups stacked [G, ...]), so the copy goes name to
-    name."""
+    name.  On the card unless ``device="cpu"`` is asked (`resolve_device`:
+    with no card and no such request it raises)."""
+    device = resolve_device(device)
+
     def convert(a):
         t = torch.from_numpy(np.array(a))
         return t.to(device=device, dtype=dtype or t.dtype)

@@ -119,3 +119,58 @@ def test_plain_float64_evaluation():
     assert f64.dtype == torch.float64
     assert float((f64 - tfa.flash_attention(q, k, v, **kw)).abs().max()) \
         < 2e-6
+
+
+@pytest.mark.parametrize("dtype,route", [
+    (torch.bfloat16, "flash_attention_sm90"),
+    (torch.float32, "flash_attention"),
+])
+def test_kernel_route_by_dtype(dtype, route):
+    """bf16 takes the wgmma kernel, f32 the CUDA-core kernel; both are
+    libraries the build knows."""
+    from repro_torch.kernels import _build
+    assert tfa.kernel_route(dtype) == route
+    assert route in _build.SIGNATURES
+    assert tfa.ROUTES[dtype][1] in _build.SIGNATURES[route]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_kernel_route_refuses_other_dtypes(dtype):
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.kernel_route(dtype)
+
+
+def _bf16(b, h, s, d):
+    return torch.zeros(b, h, s, d, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("make,want", [
+    # contiguous [B, H, S, D]
+    (lambda: _bf16(2, 4, 37, 64), [4 * 37 * 64, 37 * 64, 64]),
+    # [B, S, H, D] viewed as [B, H, S, D], as the model hands it over
+    (lambda: _bf16(2, 37, 4, 64).transpose(1, 2), [37 * 4 * 64, 64, 4 * 64]),
+    # dims of size 1 are never stepped: they take their contiguous stride
+    (lambda: _bf16(1, 1, 1, 16)[:, :, :1], [16, 16, 16]),
+    (lambda: _bf16(1, 8, 2, 32).transpose(1, 2)[:, :1], [8 * 32, 8 * 32,
+                                                         2 * 32]),
+    # a slice along D with a 16-byte-multiple row stride
+    (lambda: _bf16(1, 2, 8, 72)[..., :64], [2 * 8 * 64, 8 * 72, 72]),
+])
+def test_tma_strides_accepts(make, want):
+    assert tfa.tma_strides(make()) == want
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: _bf16(1, 2, 8, 80)[..., 1:65], "aligned"),     # base + 2 bytes
+    (lambda: _bf16(1, 2, 8, 68)[..., :64], "seq stride"),   # 136-byte rows
+    (lambda: _bf16(1, 3, 8, 16)[:, :, :, :8].as_strided(
+        (1, 3, 8, 8), (3 * 8 * 8 + 4, 8 * 8 + 4, 8, 1)), "head stride"),
+    (lambda: torch.zeros(2, 2, 8, 20, dtype=torch.bfloat16)[..., :16]
+     .as_strided((2, 2, 8, 16), (324, 160, 20, 1)), "batch stride"),
+])
+def test_tma_strides_refuses(make, match):
+    """What TMA cannot load raises ValueError naming the rule; the wrapper
+    runs this check before any bf16 launch, so such an input never falls
+    through to another route."""
+    with pytest.raises(ValueError, match=match):
+        tfa.tma_strides(make())

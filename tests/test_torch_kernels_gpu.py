@@ -13,6 +13,7 @@ from repro_torch.core import build_bisim  # noqa: E402
 from repro_torch.exmem import build_bisim_oocore  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.kernels import sig_fold as tfold  # noqa: E402
+from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -146,21 +147,34 @@ def test_card_oocore_equals_cpu_oocore(cuda, tmp_path, mode):
         np.testing.assert_array_equal(np.load(a), np.load(b))
 
 
+BF16 = torch.bfloat16
 # b, hq, hkv, sq, skv, d, causal, window, softcap, dtype: the cases of
 # `tests/test_kernels.py::ATTN_CASES`, the odd lengths serving prompts
-# have, and gemma2-9b's head_dim 256 with its window and softcap
+# have, and gemma2-9b's head_dim 256 with its window and softcap; then the
+# bf16 (wgmma) kernel at every head_dim, ragged lengths, GQA groups 1, 2
+# and 8, window and softcap each on and off, and gemma2-9b's 8192-token
+# prefill
 FLASH_CASES = [
     (2, 4, 2, 128, 128, 64, True, None, None, torch.float32),
     (1, 8, 1, 256, 256, 32, True, None, 30.0, torch.float32),
     (2, 2, 2, 128, 256, 64, True, 64, None, torch.float32),
     (1, 4, 4, 128, 128, 128, False, None, None, torch.float32),
-    (1, 2, 1, 128, 128, 64, True, None, None, torch.bfloat16),
+    (1, 2, 1, 128, 128, 64, True, None, None, BF16),
     (1, 2, 2, 64, 64, 16, True, 32, 20.0, torch.float32),
     (1, 4, 2, 37, 37, 16, True, None, None, torch.float32),
     (1, 4, 2, 1, 300, 64, True, None, 50.0, torch.float32),
     (2, 4, 2, 37, 300, 64, True, 64, 50.0, torch.float32),
     (2, 16, 8, 300, 300, 256, True, 128, 50.0, torch.float32),
-    (2, 16, 8, 300, 300, 256, True, 128, 50.0, torch.bfloat16),
+    (2, 16, 8, 300, 300, 256, True, 128, 50.0, BF16),
+] + [(1, 4, 2, 200, 200, d, True, None, None, BF16) for d in HEAD_DIMS] + [
+    (1, 4, 4, 256, 256, d, False, None, 30.0, BF16) for d in HEAD_DIMS
+] + [(2, 4, 2, sq, skv, 64, True, 16, 50.0, BF16)
+     for sq, skv in ((1, 300), (37, 37), (37, 300), (300, 300))] + [
+    (1, hq, hkv, 150, 250, 128, True, None, None, BF16)
+    for hq, hkv in ((4, 4), (4, 2), (8, 1))
+] + [(1, 4, 2, 300, 300, 256, True, window, softcap, BF16)
+     for window in (None, 100) for softcap in (None, 50.0)] + [
+    (1, 16, 8, 8192, 8192, 256, True, None, 50.0, BF16),
 ]
 
 
@@ -191,28 +205,49 @@ def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal,
         assert float((other.float() - got.float()).abs().max()) < tol
 
 
-def test_flash_attention_strided_views(cuda):
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (BF16, 2e-2)])
+def test_flash_attention_strided_views(cuda, dtype, tol):
     """[B, S, H, D] activations viewed as [B, H, S, D], as the model hands
     them over; the output takes q's layout."""
     from repro_torch.kernels import flash_attention as tfa
     q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
-               for t in _qkv(cuda, 0, 2, 4, 2, 37, 37, 64, torch.float32))
+               for t in _qkv(cuda, 0, 2, 4, 2, 37, 37, 64, dtype))
+    before = tfa.flash_attention.launches
     out = tfa.flash_attention(q, k, v, window=16)
+    assert tfa.flash_attention.launches == before + 1
     assert out.stride() == q.stride()
     want = tfa.flash_attention_plain(q.contiguous(), k.contiguous(),
                                      v.contiguous(), window=16)
-    assert float((out - want).abs().max()) < 2e-5
+    assert float((out.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.parametrize("width,cut,match", [
+    (80, slice(1, 65), "aligned"),       # data_ptr 2 bytes off 16
+    (68, slice(0, 64), "multiples"),     # seq stride 136 bytes
+])
+def test_flash_attention_bf16_misaligned_raises(cuda, width, cut, match):
+    """TMA needs 16-byte aligned bases and strides: the bf16 kernel refuses
+    such a view with ValueError, and nothing is launched (no fallback to
+    the f32 kernel or the plain version)."""
+    from repro_torch.kernels import flash_attention as tfa
+    q, k, v = (t[..., cut] for t in _qkv(cuda, 0, 1, 2, 2, 8, 8, width,
+                                           BF16))
+    before = tfa.flash_attention.launches
+    with pytest.raises(ValueError, match=match):
+        tfa.flash_attention(q, k, v)
+    assert tfa.flash_attention.launches == before
 
 
 def test_flash_attention_refused_launch_raises(cuda):
     """B * Hq above the grid's 65535 is refused by the card: the wrapper
     raises instead of returning an unwritten output."""
     from repro_torch.kernels import flash_attention as tfa
-    q = torch.zeros(1, 65536, 1, 16, device=cuda)
-    before = tfa.flash_attention.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        tfa.flash_attention(q, q, q)
-    assert tfa.flash_attention.launches == before
+    for dtype in (torch.float32, BF16):
+        q = torch.zeros(1, 65536, 1, 16, device=cuda, dtype=dtype)
+        before = tfa.flash_attention.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tfa.flash_attention(q, q, q)
+        assert tfa.flash_attention.launches == before
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention(*_qkv(cuda, 0, 1, 2, 2, 8, 8, 48, torch.float32))
     with pytest.raises(ValueError, match="no kernel"):

@@ -27,7 +27,7 @@ def pair():
     jm = JModel(jget_smoke(ARCH))
     jp = jm.init(jax.random.PRNGKey(0), jnp.float32)
     tm = Model(configs.get_smoke_config(ARCH)).load(
-        params_from_jax(jax.tree.map(np.asarray, jp)))
+        params_from_jax(jax.tree.map(np.asarray, jp), device="cpu"))
     return jm, jp, tm
 
 
@@ -219,3 +219,21 @@ def test_decode_matches_full_forward(pair):
         ln, cache = tm.decode_step(cache, toks[:, t], t)
         errs.append(float((ln - full[:, t]).abs().max()))
     assert max(errs) < 2e-3, max(errs)
+
+
+@pytest.mark.parametrize("call", ["params_from_jax", "init_cache"])
+def test_default_device_is_the_card(call):
+    """With no device asked, the port runs on the card; with no card it
+    raises instead of carrying on on the CPU."""
+    from repro_torch.models import lm
+
+    def run():
+        if call == "params_from_jax":
+            return params_from_jax({"w": np.zeros((2, 3), np.float32)})["w"]
+        return tree_leaves(lm.init_cache(configs.get_smoke_config(ARCH), 1,
+                                         8))[0]
+    if torch.cuda.is_available():
+        assert run().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            run()

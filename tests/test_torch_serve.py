@@ -31,7 +31,7 @@ def models():
     jm = JModel(jget_smoke(ARCH))
     jp = jm.init(jax.random.PRNGKey(3), jnp.float32)
     tm = Model(configs.get_smoke_config(ARCH)).load(
-        params_from_jax(jax.tree.map(np.asarray, jp)))
+        params_from_jax(jax.tree.map(np.asarray, jp), device="cpu"))
     return jm, jp, tm
 
 
