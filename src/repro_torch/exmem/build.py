@@ -18,8 +18,9 @@ paper's sort/scan discipline exactly:
      semantics; skipped in `multiset` mode) and folded chunk-by-chunk on
      the device: every chunk goes to the card and through the
      hand-written Hopper kernel `kernels.sig_fold.chunk_sig_fold` (dedup,
-     the same mix-hash lanes as `core.signatures`, per-source wrap-sum);
-     the host passes only the cross-chunk ``keep0`` bit, and the u32
+     the same mix-hash lanes as `core.signatures`, per-source wrap-sum)
+     into one row per distinct source of the chunk; the host passes only
+     the cross-chunk ``keep0`` bit, and the u32
      partial sums are wrap-add combined across chunk boundaries on the
      host.  On the CPU every chunk takes the kernel's plain version.
   4. *rank* (lines 16-18): walking N_t in node order, each node chunk's
@@ -67,7 +68,7 @@ from ..core.integrity import verify_npy
 from ..core.partition import IterationStats
 from ..core.sig_store import SpillableSigStore, fuse_key, label_key
 from ..graph.storage import Graph
-from ..kernels.sig_fold import chunk_sig_fold
+from ..kernels.sig_fold import VEC, chunk_sig_fold
 from ..obs import tracer as obs
 
 from . import aio as aio_mod
@@ -124,8 +125,8 @@ class OocBisimResult:
 
 
 def _upload(lanes: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One chunk's (elabel, pid, seg) int32 [3, chunk_edges] lanes to the
-    device in one copy (a no-op view on the CPU)."""
+    """One chunk's (elabel, pid, seg) int32 [3, lanes] block to the device
+    in one copy (a no-op view on the CPU)."""
     return torch.from_numpy(lanes).to(device)
 
 
@@ -174,14 +175,19 @@ def _fold_sorted_stream(stream: Iterator[np.ndarray], chunk_edges: int,
     boundaries too (set semantics, Algorithm 1 line 13); partial sums for
     a source spanning several chunks are combined by the caller (u32
     wrap-add is associative).  Each chunk is one `chunk_sig_fold` call on
-    ``device`` — the kernel on the card, its plain version on the CPU —
-    and one copy each way."""
-    positions = torch.arange(chunk_edges, device=device)
+    ``device`` — the kernel on the card, its plain version on the CPU — over
+    its ``n`` lanes (rounded up to the kernel's vector width, so that every
+    row of the uploaded [3, lanes] block stays 16-byte aligned) into its
+    ``u`` distinct sources, with one copy each way."""
+    # the pad lanes past n carry seg = u, which matches no row, so the lane
+    # mask may be all True: a slice of one tensor, no device op a chunk
+    valid = torch.ones(-(-chunk_edges // VEC) * VEC, dtype=torch.bool,
+                       device=device)
 
     def _rechunk():
         # merge_runs can overshoot its budget by up to one row per run
-        # (every live run contributes >= 1-row blocks); split so the fold
-        # always fits the fixed jit shape.
+        # (every live run contributes >= 1-row blocks); split so a fold
+        # never exceeds chunk_edges lanes.
         for chunk in stream:
             for s in range(0, chunk.shape[0], chunk_edges):
                 yield chunk[s:s + chunk_edges]
@@ -205,23 +211,22 @@ def _fold_sorted_stream(stream: Iterator[np.ndarray], chunk_edges: int,
             new_src = np.ones(n, dtype=bool)
             new_src[1:] = src[1:] != src[:-1]
             src_u = src[new_src].astype(np.int64)
-            # padding lanes: zero labels and pids, seg = chunk_edges - 1,
-            # masked off by valid — the reference's fixed-shape layout
-            lanes = np.zeros((3, chunk_edges), np.int32)
+            u = src_u.shape[0]
+            width = -(-n // VEC) * VEC
+            lanes = np.empty((3, width), np.int32)
             lanes[0, :n] = lab
             lanes[1, :n] = pid
             np.cumsum(new_src, dtype=np.int32, out=lanes[2, :n])
             lanes[2, :n] -= 1
-            lanes[2, n:] = chunk_edges - 1
+            lanes[:2, n:] = 0
+            lanes[2, n:] = u
             lanes = _upload(lanes, device)
             # the kernel owns the dedup: only the cross-chunk boundary bit
             # crosses from the host
-            hi, lo = chunk_sig_fold(lanes[0], lanes[1], lanes[2],
-                                    positions < n, keep0,
-                                    num_segments=chunk_edges, dedup=dedup)
-            u = src_u.shape[0]
-            hi_u = hi[:u].cpu().numpy().astype(np.uint32)
-            lo_u = lo[:u].cpu().numpy().astype(np.uint32)
+            sums = chunk_sig_fold(lanes[0], lanes[1], lanes[2],
+                                  valid[:width], keep0, num_segments=u,
+                                  dedup=dedup)
+            hi_u, lo_u = sums.cpu().numpy().astype(np.uint32)
         yield src_u, hi_u, lo_u
 
 

@@ -25,12 +25,10 @@ _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
 # argtypes of every entry point, by library
 SIGNATURES = {
-    "sig_fold": {
-        "sig_fold_flat": [_P] * 6 + [_LL, _LL, _I, _I, _P],
-        "sig_fold_bitonic": [_P] * 6 + [_LL, _LL, _I, _P],
-    },
-    "chunk_sig_fold": {
-        "chunk_sig_fold": [_P] * 6 + [_LL, _I, _I, _I, _P],
+    "sig_fold": {  # four lane columns and the output, sizes, device
+        "sig_fold_flat": [_P] * 5 + [_LL, _LL, _I, _I, _I, _I, _I, _P],
+        "chunk_sig_fold": [_P] * 5 + [_LL, _I, _I, _I, _I, _I, _I, _P],
+        "sig_fold_bitonic": [_P] * 5 + [_LL, _LL, _I, _I, _P],
     },
     "flash_attention": {
         "flash_attention_fwd": [_P] * 4 + [ctypes.POINTER(_LL), _I, _I, _LL,

@@ -1,28 +1,32 @@
-"""The signature fold (Algorithm 1 lines 14-15) as hand-written Hopper
+"""The signature folds (Algorithm 1 lines 13-15) as hand-written Hopper
 kernels, with their plain PyTorch versions.
 
-Port of `repro.kernels.sig_fold._kernel` (reached through `sig_fold` and
-`frontier_sig_fold`).  For each lane i of block ``i // edges_per_block``:
-hash (eLabel, pId) into two u32 lanes, mask by ``valid`` and, with
-``dedup``, drop a lane whose (local_src, eLabel, pId) triple equals the
-previous lane's in its block (bitonic-sorting the block first unless
-``presorted``); then wrap-add (mod 2^32) the surviving lanes into row
-``block * nodes_per_block + local_src``.  Lanes whose local_src lies
-outside ``[0, nodes_per_block)`` fall out, as the reference's broadcast
-compare drops them.
+`sig_fold` ports `repro.kernels.sig_fold._kernel` (reached through
+`sig_fold` and `frontier_sig_fold`).  For each lane i of block
+``i // edges_per_block``: hash (eLabel, pId) into two u32 lanes, mask by
+``valid`` and, with ``dedup``, drop a lane whose (local_src, eLabel, pId)
+triple equals the previous lane's in its block (bitonic-sorting the block
+first unless ``presorted``); then wrap-add (mod 2^32) the surviving lanes
+into row ``block * nodes_per_block + local_src``.  Lanes whose local_src
+lies outside ``[0, nodes_per_block)`` fall out, as the reference's
+broadcast compare drops them.
 
 `chunk_sig_fold` ports `repro.kernels.sig_fold._chunk_kernel`, the
 out-of-core build's per-chunk fold: dense ascending segment ids, the
 host's cross-chunk ``keep0`` bit, adjacent-compare dedup, then the same
 hash and wrap-add per segment.
 
-On a CUDA tensor each wrapper launches its kernel in ``csrc/`` (built at
-first use by `_build`) or raises; only a tensor on the CPU takes the plain
-version.  Outputs are u32 lanes carried in int64.
+Both kernels live in ``csrc/sig_fold.cu`` (built at first use by `_build`):
+one C call zeroes the int64 output and folds into it, with a warp-level
+segmented pre-reduction before the atomics.  On a CUDA tensor each wrapper
+launches its kernel or raises; only a tensor on the CPU takes the plain
+version.  Each returns an int64 [2, rows] tensor of u32 lanes, which
+unpacks as (seg_hi, seg_lo).
 """
 from __future__ import annotations
 
-import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,19 +36,88 @@ from ..core.signatures import MASK32, hash_pair
 _SMEM_LIMIT = 232_448
 _LANE_BYTES = 12  # (local_src, eLabel, pId) per lane in the bitonic route
 MAX_SORTED_EDGES_PER_BLOCK = 1 << ((_SMEM_LIMIT // _LANE_BYTES).bit_length() - 1)
+THREADS = 256     # threads a CTA of the flat and chunk kernels
+CTAS_PER_SM = 8   # grid cap: 8 CTAs of 256 threads fill an SM's 2048
+VEC = 4           # lanes a thread loads at once where the columns allow
+
+
+class LaunchPlan(NamedTuple):
+    vec: int     # lanes a thread reads at once: VEC (int4 loads) or 1
+    blocks: int  # CTAs of THREADS threads
+
+
+def launch_plan(n: int, ptrs, sms: int) -> LaunchPlan:
+    """How the flat and chunk kernels take ``n`` lanes whose columns
+    (elabel, pid, seg int32; valid bool) start at the device addresses
+    ``ptrs``, on a card of ``sms`` SMs.
+
+    A thread reads VEC consecutive lanes with one 16-byte load a column
+    when every int32 column is 16-byte aligned and the bool column 4-byte
+    aligned (a row of an int32 [3, n] tensor is only when n % 4 == 0);
+    otherwise one lane.  A warp takes 32 * vec lanes a step, and the grid
+    strides over those tiles with at most ``sms * CTAS_PER_SM`` CTAs.
+    """
+    aligned = (all(p % 16 == 0 for p in ptrs[:3]) and ptrs[3] % VEC == 0)
+    vec = VEC if aligned else 1
+    tiles = -(-n // (32 * vec))
+    blocks = max(1, min(-(-tiles // (THREADS // 32)), sms * CTAS_PER_SM))
+    return LaunchPlan(vec, blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """An entry point of the ``sig_fold`` library (built at first use)."""
+    from ._build import load
+    return getattr(load("sig_fold"), name)
+
+
+def _call(entry: str, index: int, *args) -> None:
+    """One C call of ``entry`` on card ``index`` and its current stream
+    (the raw handle: no Stream object is built); raises if the card
+    refuses."""
+    err = _entry(entry)(*args, index,
+                        torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        raise RuntimeError(f"{entry}: kernel launch failed with CUDA error "
+                           f"{err}")
+
+
+def _launch(entry: str, cols, out, *sizes) -> None:
+    """Zero ``out`` (int64 [2, rows]) and fold the lane columns ``cols``
+    into it with the flat or chunk kernel, as `launch_plan` lays it out."""
+    index = cols[0].device.index
+    ptrs = [t.data_ptr() for t in cols]
+    plan = launch_plan(cols[0].numel(), ptrs, _sms(index))
+    _call(entry, index, *ptrs, out.data_ptr(), *sizes, plan.vec, plan.blocks)
+
+
+_LANE_DTYPES = (torch.int32,) * 3 + (torch.bool,)
+
+
+def _check_lanes(fn: str, names, cols) -> int:
+    """Raise unless ``cols`` are 1-D int32, int32, int32 and bool tensors
+    of one length on one device; return the length."""
+    n = cols[0].numel()
+    shape = (n,)
+    for name, t, dt in zip(names, cols, _LANE_DTYPES):
+        if t.dtype != dt or t.shape != shape:
+            raise ValueError(f"{fn}: {name} must be a 1-D {dt} tensor of "
+                             f"{n} lanes, got {t.dtype} {tuple(t.shape)}")
+    dev = cols[0].device
+    if any(t.device != dev for t in cols[1:]):
+        raise ValueError(f"{fn}: all lanes must lie on one device")
+    return n
 
 
 def _check(elabel, pid_tgt, local_src, valid, nb: int, eb: int,
            dedup: bool, presorted: bool) -> int:
-    cols = (elabel, pid_tgt, local_src, valid)
-    n = elabel.numel()
-    for name, t, dt in zip(("elabel", "pid_tgt", "local_src", "valid"), cols,
-                           (torch.int32,) * 3 + (torch.bool,)):
-        if t.dtype != dt or t.dim() != 1 or t.numel() != n:
-            raise ValueError(f"sig_fold: {name} must be a 1-D {dt} tensor "
-                             f"of {n} lanes, got {t.dtype} {tuple(t.shape)}")
-        if t.device != elabel.device:
-            raise ValueError("sig_fold: all lanes must lie on one device")
+    n = _check_lanes("sig_fold", ("elabel", "pid_tgt", "local_src", "valid"),
+                     (elabel, pid_tgt, local_src, valid))
     if not 0 < nb < 2 ** 31:
         raise ValueError(f"sig_fold: nodes_per_block={nb} must lie in "
                          "[1, 2^31)")
@@ -84,15 +157,14 @@ def sig_fold_plain(elabel, pid_tgt, local_src, valid, *,
         keep = torch.ones_like(rows, dtype=torch.bool)
     hi, lo = hash_pair(a, b)
     rows = torch.where(keep, rows, 0)
-    zero = torch.zeros((n // eb) * nb, dtype=torch.int64, device=dev)
-    out_hi = zero.index_add(0, rows, torch.where(keep, hi, 0))
-    out_lo = zero.index_add(0, rows, torch.where(keep, lo, 0))
-    return out_hi & MASK32, out_lo & MASK32
+    out = torch.zeros((2, (n // eb) * nb), dtype=torch.int64, device=dev)
+    out[0].index_add_(0, rows, torch.where(keep, hi, 0))
+    out[1].index_add_(0, rows, torch.where(keep, lo, 0))
+    return out & MASK32
 
 
-def _launch(elabel, pid_tgt, local_src, valid, nb: int, eb: int,
-            dedup: bool, presorted: bool):
-    from ._build import load
+def _fold_on_card(elabel, pid_tgt, local_src, valid, nb: int, eb: int,
+                  dedup: bool, presorted: bool):
     sort = dedup and not presorted
     if sort and eb * _LANE_BYTES > _SMEM_LIMIT:
         raise ValueError(
@@ -104,23 +176,17 @@ def _launch(elabel, pid_tgt, local_src, valid, nb: int, eb: int,
     if not all(t.is_contiguous() for t in cols):
         raise ValueError("sig_fold: lanes must be contiguous")
     n = elabel.numel()
-    out = torch.zeros((2, (n // eb) * nb), dtype=torch.int32,
+    out = torch.empty((2, (n // eb) * nb), dtype=torch.int64,
                       device=elabel.device)
-    if n:
-        lib = load("sig_fold")
-        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*cols, *out)]
-        with torch.cuda.device(elabel.device):
-            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-            if sort:
-                err = lib.sig_fold_bitonic(*ptrs, n // eb, eb, nb, stream)
-            else:
-                err = lib.sig_fold_flat(*ptrs, n, eb, nb, int(dedup), stream)
-        if err:
-            raise RuntimeError(f"sig_fold: kernel launch failed with CUDA "
-                               f"error {err}")
+    if out.numel():
+        if sort:
+            _call("sig_fold_bitonic", elabel.device.index,
+                  *(t.data_ptr() for t in cols), out.data_ptr(), n // eb, eb,
+                  nb)
+        else:
+            _launch("sig_fold_flat", cols, out, n, eb, nb, int(dedup))
         sig_fold.launches += 1
-    hi, lo = out.to(torch.int64) & MASK32
-    return hi, lo
+    return out
 
 
 def sig_fold(elabel, pid_tgt, local_src, valid, *, nodes_per_block: int,
@@ -130,8 +196,8 @@ def sig_fold(elabel, pid_tgt, local_src, valid, *, nodes_per_block: int,
 
     elabel/pid_tgt/local_src: int32 [num_blocks * edges_per_block];
     valid: bool (same shape); local_src is src minus the block's node base.
-    Returns (seg_hi, seg_lo): u32 lanes in int64
-    [num_blocks * nodes_per_block].
+    Returns int64 [2, num_blocks * nodes_per_block]: the u32 lanes
+    (seg_hi, seg_lo).
 
     ``dedup=True`` keeps one lane per (local_src, eLabel, pId) triple in
     each block: by adjacent compare when ``presorted`` promises the lanes
@@ -146,8 +212,8 @@ def sig_fold(elabel, pid_tgt, local_src, valid, *, nodes_per_block: int,
     _check(elabel, pid_tgt, local_src, valid, nb, eb, dedup, presorted)
     if elabel.device.type != "cuda":
         raise ValueError(f"sig_fold: no kernel for device {elabel.device}")
-    return _launch(elabel, pid_tgt, local_src, valid, nb, eb, dedup,
-                   presorted)
+    return _fold_on_card(elabel, pid_tgt, local_src, valid, nb, eb, dedup,
+                         presorted)
 
 
 sig_fold.launches = 0  # kernel launches made through the wrapper
@@ -161,29 +227,20 @@ def frontier_sig_fold(elabel, pid_tgt, seg, valid, *, num_sigs: int,
     batch length is the edge budget; the kernel tiles the one block over
     the whole card.  The in-memory build folds every iteration through
     this form; an empty batch launches nothing.
-    Returns (seg_hi, seg_lo): u32 lanes in int64 [num_sigs].
+    Returns int64 [2, num_sigs]: the u32 lanes (seg_hi, seg_lo).
     """
     n = elabel.numel()
     if n == 0:
-        zero = torch.zeros(num_sigs, dtype=torch.int64, device=elabel.device)
-        return zero, zero.clone()
+        return torch.zeros((2, num_sigs), dtype=torch.int64,
+                           device=elabel.device)
     return sig_fold(elabel, pid_tgt, seg.to(torch.int32), valid,
                     nodes_per_block=num_sigs, edges_per_block=n,
                     dedup=dedup, presorted=presorted)
 
 
 def _check_chunk(elabel, pid_tgt, seg, valid, num_segments: int) -> int:
-    n = elabel.numel()
-    for name, t, dt in zip(("elabel", "pid_tgt", "seg", "valid"),
-                           (elabel, pid_tgt, seg, valid),
-                           (torch.int32,) * 3 + (torch.bool,)):
-        if t.dtype != dt or t.dim() != 1 or t.numel() != n:
-            raise ValueError(f"chunk_sig_fold: {name} must be a 1-D {dt} "
-                             f"tensor of {n} lanes, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if t.device != elabel.device:
-            raise ValueError("chunk_sig_fold: all lanes must lie on one "
-                             "device")
+    n = _check_lanes("chunk_sig_fold", ("elabel", "pid_tgt", "seg", "valid"),
+                     (elabel, pid_tgt, seg, valid))
     if not 0 <= num_segments < 2 ** 31:
         raise ValueError(f"chunk_sig_fold: num_segments={num_segments} "
                          "must lie in [0, 2^31)")
@@ -207,10 +264,11 @@ def chunk_sig_fold_plain(elabel, pid_tgt, seg, valid, keep0: bool, *,
     keep = keep & (s >= 0) & (s < num_segments)
     hi, lo = hash_pair(a, b)
     rows = torch.where(keep, s, 0)
-    zero = torch.zeros(max(num_segments, 1), dtype=torch.int64, device=dev)
-    out_hi = zero.index_add(0, rows, torch.where(keep, hi, 0))
-    out_lo = zero.index_add(0, rows, torch.where(keep, lo, 0))
-    return (out_hi[:num_segments] & MASK32, out_lo[:num_segments] & MASK32)
+    out = torch.zeros((2, max(num_segments, 1)), dtype=torch.int64,
+                      device=dev)
+    out[0].index_add_(0, rows, torch.where(keep, hi, 0))
+    out[1].index_add_(0, rows, torch.where(keep, lo, 0))
+    return out[:, :num_segments] & MASK32
 
 
 def chunk_sig_fold(elabel, pid_tgt, seg, valid, keep0: bool, *,
@@ -225,34 +283,26 @@ def chunk_sig_fold(elabel, pid_tgt, seg, valid, keep0: bool, *,
     ``[0, num_segments)`` add nothing.
 
     elabel/pid_tgt/seg: int32 [E]; valid: bool [E]; keep0: a Python bool.
-    Returns (seg_hi, seg_lo): u32 lanes in int64 [num_segments].
+    Returns int64 [2, num_segments]: the u32 lanes (seg_hi, seg_lo).
     """
-    if elabel.device.type == "cpu":
+    dev = elabel.device
+    if dev.type == "cpu":
         return chunk_sig_fold_plain(elabel, pid_tgt, seg, valid, keep0,
                                     num_segments=num_segments, dedup=dedup)
     n = _check_chunk(elabel, pid_tgt, seg, valid, num_segments)
-    if elabel.device.type != "cuda":
-        raise ValueError(f"chunk_sig_fold: no kernel for device "
-                         f"{elabel.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"chunk_sig_fold: no kernel for device {dev}")
     cols = (elabel, pid_tgt, seg, valid)
     if not all(t.is_contiguous() for t in cols):
         raise ValueError("chunk_sig_fold: lanes must be contiguous")
-    from ._build import load
-    out = torch.zeros((2, num_segments), dtype=torch.int32,
-                      device=elabel.device)
-    if n and num_segments:
-        lib = load("chunk_sig_fold")
-        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*cols, *out)]
-        with torch.cuda.device(elabel.device):
-            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-            err = lib.chunk_sig_fold(*ptrs, n, num_segments, int(dedup),
-                                     int(bool(keep0)), stream)
-        if err:
-            raise RuntimeError(f"chunk_sig_fold: kernel launch failed with "
-                               f"CUDA error {err}")
+    if n == 0:
+        return torch.zeros((2, num_segments), dtype=torch.int64, device=dev)
+    out = torch.empty((2, num_segments), dtype=torch.int64, device=dev)
+    if num_segments:
+        _launch("chunk_sig_fold", cols, out, n, num_segments, int(dedup),
+                int(bool(keep0)))
         chunk_sig_fold.launches += 1
-    hi, lo = out.to(torch.int64) & MASK32
-    return hi, lo
+    return out
 
 
 chunk_sig_fold.launches = 0  # kernel launches made through the wrapper

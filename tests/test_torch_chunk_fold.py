@@ -123,3 +123,72 @@ def test_chunk_fold_rejects_bad_lanes():
     with pytest.raises(ValueError, match="num_segments"):
         tfold.chunk_sig_fold(*t, torch.from_numpy(valid), True,
                              num_segments=-1)
+
+
+@pytest.mark.parametrize("n,offsets,sms,want", [
+    (1 << 20, (0, 1 << 22, 1 << 23, 3 << 22), 132, (4, 1024)),
+    (39_002_652, (0, 1 << 28, 1 << 29, 3 << 28), 132, (4, 1056)),
+    (348_000, (0, 4 * 348_000, 8 * 348_000, 1 << 24), 132, (4, 340)),
+    (1001, (0, 4016, 8032, 1 << 20), 132, (4, 1)),
+    (1 << 20, (4, 1 << 22, 1 << 23, 3 << 22), 132, (1, 1056)),
+    (1 << 20, (0, 1 << 22, 1 << 23, 2), 132, (1, 1056)),
+    (1 << 20, (0, 1 << 22, 8 + (1 << 23), 3 << 22), 66, (1, 528)),
+    (1, (0, 16, 32, 48), 132, (4, 1)),
+])
+def test_launch_plan(n, offsets, sms, want):
+    """Four lanes a thread only when every int32 column is 16-byte and the
+    bool column 4-byte aligned; a CTA a tile of 8 warps, capped at 8 CTAs
+    an SM."""
+    base = 1 << 32  # a device address as the allocator hands them out
+    plan = tfold.launch_plan(n, [base + o for o in offsets], sms)
+    assert (plan.vec, plan.blocks) == want
+    assert plan.vec in (1, tfold.VEC) and plan.blocks >= 1
+
+
+@pytest.mark.parametrize("n", [1020, 1021, 1022, 1023, 1024])
+def test_launch_plan_on_rows_of_one_upload(n):
+    """The rows of an int32 [3, n] block are 16-byte aligned only when
+    n % 4 == 0, which is why the out-of-core build pads its uploads."""
+    block = torch.zeros((3, n), dtype=torch.int32)
+    valid = torch.ones(n, dtype=torch.bool)
+    assert block.data_ptr() % 16 == 0 and valid.data_ptr() % 4 == 0
+    ptrs = [row.data_ptr() for row in block] + [valid.data_ptr()]
+    assert tfold.launch_plan(n, ptrs, 132).vec == (4 if n % 4 == 0 else 1)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "dim", "length", "valid"])
+def test_chunk_wrapper_rejects_bad_lanes(bad):
+    lanes, valid, _, _ = _chunk(3, 64, 64)
+    t = [torch.from_numpy(x) for x in lanes] + [torch.from_numpy(valid)]
+    if bad == "dtype":
+        t[0] = t[0].to(torch.int64)
+    elif bad == "dim":
+        t[1] = t[1].reshape(8, 8)
+    elif bad == "length":
+        t[2] = t[2][:63]
+    else:
+        t[3] = t[3].to(torch.int32)
+    with pytest.raises(ValueError, match="chunk_sig_fold: .* must be"):
+        tfold.chunk_sig_fold(*t, True, num_segments=64)
+
+
+def test_chunk_wrapper_raises_on_other_devices():
+    lanes, valid, _, _ = _chunk(0, 64, 64)
+    t = [torch.from_numpy(x).to("meta") for x in (*lanes, valid)]
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tfold.chunk_sig_fold(*t, True, num_segments=64)
+    assert tfold.chunk_sig_fold.launches == 0
+
+
+def test_chunk_fold_returns_hi_lo_rows():
+    """One int64 [2, num_segments] tensor of u32 lanes: row 0 hi, row 1
+    lo, so the caller brings both back in one copy."""
+    lanes, valid, _, u = _chunk(5, 300, 304)
+    t = [torch.from_numpy(x) for x in (*lanes, valid)]
+    out = tfold.chunk_sig_fold(*t, True, num_segments=u)
+    assert out.shape == (2, u) and out.dtype == torch.int64
+    assert int(out.min()) >= 0 and int(out.max()) < 2 ** 32
+    pallas = jfold.chunk_sig_fold(
+        *(jnp.asarray(x) for x in (*lanes, valid)), jnp.asarray([True]),
+        num_segments=u, dedup=True, interpret=True)
+    _eq(out, pallas)

@@ -112,6 +112,63 @@ def test_oocore_matches_inmemory_reference_partition(tmp_path):
     assert pairs.shape[1] == len(np.unique(a)) == len(np.unique(b))
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("chunk_edges", [27, 30])
+def test_oocore_odd_chunks_equal_reference(tmp_path, mode, chunk_edges):
+    """Chunks whose lane counts are mostly not multiples of 4: each upload
+    is padded to the kernel's vector width and folded into the chunk's
+    distinct-source count, and the build still equals the reference's
+    bit for bit."""
+    g, rg = _graphs("powerlaw")
+    kw = dict(mode=mode, chunk_edges=chunk_edges, chunk_nodes=32,
+              spill_threshold=16)
+    mine = build_bisim_oocore(g, 4, workdir=str(tmp_path / "mine"),
+                              device="cpu", **kw)
+    theirs = ref_oocore(rg, 4, workdir=str(tmp_path / "ref"), **kw)
+    _assert_same_build(mine, theirs)
+
+
+@pytest.mark.parametrize("mode", ["sorted", "multiset"])
+def test_fold_call_site_uploads_n_lanes_into_u_rows(tmp_path, monkeypatch,
+                                                    mode):
+    """Every chunk uploads its n lanes rounded up to a multiple of
+    `VEC` (pad lanes: seg = u, zero labels and pids), in one [3, width]
+    block, and folds them into its u distinct sources."""
+    from repro_torch.exmem import build as bmod
+    uploads, folds = [], []
+    real_upload, real_fold = bmod._upload, bmod.chunk_sig_fold
+
+    def upload(lanes, device):
+        uploads.append(lanes.copy())
+        return real_upload(lanes, device)
+
+    def fold(elabel, pid_tgt, seg, valid, keep0, *, num_segments, dedup):
+        out = real_fold(elabel, pid_tgt, seg, valid, keep0,
+                        num_segments=num_segments, dedup=dedup)
+        folds.append((seg.numpy().copy(), valid.numpy().copy(),
+                      num_segments, tuple(out.shape)))
+        return out
+
+    monkeypatch.setattr(bmod, "_upload", upload)
+    monkeypatch.setattr(bmod, "chunk_sig_fold", fold)
+    g, rg = _graphs("random")
+    kw = dict(mode=mode, chunk_edges=27, chunk_nodes=32, spill_threshold=16)
+    mine = build_bisim_oocore(g, 3, workdir=str(tmp_path / "mine"),
+                              device="cpu", **kw)
+    _assert_same_build(mine, ref_oocore(rg, 3, workdir=str(tmp_path / "ref"),
+                                        **kw))
+    assert len(uploads) == len(folds) > 0
+    assert any(int((f[0] < f[2]).sum()) % tfold.VEC for f in folds)
+    for lanes, (seg, valid, u, shape) in zip(uploads, folds):
+        n = int((seg < u).sum())
+        assert lanes.shape == (3, seg.size) and seg.size % tfold.VEC == 0
+        assert 0 < n <= seg.size < n + tfold.VEC
+        assert seg[0] == 0 and seg[n - 1] == u - 1
+        assert set(np.diff(seg[:n]).tolist()) <= {0, 1}
+        assert (seg[n:] == u).all() and (lanes[:2, n:] == 0).all()
+        assert valid.all() and shape == (2, u)
+
+
 # -------------------------------------------------- host-side pieces alone
 @pytest.mark.parametrize("n,chunk,fan_in", [(0, 8, 4), (7, 3, 2),
                                             (1000, 64, 4), (1000, 7, 3)])

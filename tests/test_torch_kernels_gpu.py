@@ -147,6 +147,163 @@ def test_card_oocore_equals_cpu_oocore(cuda, tmp_path, mode):
         np.testing.assert_array_equal(np.load(a), np.load(b))
 
 
+def _run_lanes(seed, n, nb, run_len):
+    """Lanes whose src comes in runs of ``run_len`` (random order when
+    None), cycling through [-1, nb + 2) so that whole runs fall out; a few
+    lanes inside runs take an out-of-range src or are invalid; eLabel and
+    pId >= 2^31 as u32, constant over short stretches so that adjacent
+    duplicates occur."""
+    rng = np.random.default_rng(seed)
+    if run_len is None:
+        s = rng.integers(-1, nb + 2, n)
+    else:
+        s = (np.arange(n) // run_len) % (nb + 3) - 1
+    holes = rng.random(n) < 0.03
+    s[holes] = rng.choice([-7, nb, nb + 5], int(holes.sum()))
+    stretch = np.arange(n) // 5
+    a = (stretch * 7 + rng.integers(0, 2, n)) % 3 - 2 ** 31 + 5
+    b = (stretch % 4) + 2 ** 31 - 7
+    valid = rng.random(n) < 0.9
+    return [a.astype(np.int64).astype(np.int32),
+            b.astype(np.int64).astype(np.int32), s.astype(np.int32), valid]
+
+
+def _on_card(cols, cuda, layout):
+    """The columns on the card: each its own contiguous tensor
+    (``contig``), or one lane into a wider buffer, so that no column is
+    16-byte aligned and the kernel reads one lane a thread (``view``)."""
+    if layout == "contig":
+        return [torch.from_numpy(c).to(cuda) for c in cols]
+    n = cols[0].shape[0]
+    ints = torch.zeros((3, n + 1), dtype=torch.int32, device=cuda)
+    ints[:, 1:] = torch.from_numpy(np.stack(cols[:3])).to(cuda)
+    valid = torch.zeros(n + 1, dtype=torch.bool, device=cuda)
+    valid[1:] = torch.from_numpy(cols[3]).to(cuda)
+    return [ints[0, 1:], ints[1, 1:], ints[2, 1:], valid[1:]]
+
+
+def _vec(cols):
+    return tfold.launch_plan(cols[0].numel(), [c.data_ptr() for c in cols],
+                             132).vec
+
+
+# n, edges_per_block, nodes_per_block, run length: one block with runs
+# longer than a warp's 128 lanes and than a CTA's 1024; n % 4 != 0; odd
+# block sizes whose boundaries cut runs, threads, warps and CTAs; blocks
+# of 3 and of 1 lane (several blocks inside one thread); unsorted lanes
+FLAT_CASES = [(1 << 16, 1 << 16, 300, 200), (1 << 16, 1 << 16, 12, 3000),
+              (50_003, 50_003, 1000, 70), (37 * 999, 999, 9, 70),
+              (3 * 4096, 3, 2, 5), (5001, 1, 1, 4),
+              (1 << 16, 1 << 16, 5000, None), (64 * 1000, 1000, 40, None)]
+
+
+@pytest.mark.parametrize("layout", ["contig", "view"])
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("n,eb,nb,run_len", FLAT_CASES)
+def test_flat_fold_runs_match_plain(cuda, n, eb, nb, run_len, dedup, layout):
+    """The flat kernel's pre-reduction against the plain version: runs
+    across every boundary, holes inside runs, both load widths."""
+    lanes = _on_card(_run_lanes(n + eb, n, nb, run_len), cuda, layout)
+    assert _vec(lanes) == (4 if layout == "contig" else 1)
+    kw = dict(nodes_per_block=nb, edges_per_block=eb, dedup=dedup,
+              presorted=True)
+    before = tfold.sig_fold.launches
+    got = tfold.sig_fold(*lanes, **kw)
+    torch.cuda.synchronize()
+    assert tfold.sig_fold.launches == before + 1
+    want = tfold.sig_fold_plain(*lanes, **kw)
+    assert got.dtype == torch.int64 and got.shape == (2, (n // eb) * nb)
+    assert torch.equal(got, want)
+
+
+def _dense_chunk(seed, n, *, hub=False, sort=True, pad=0):
+    """A chunk as the out-of-core build now uploads it: n real lanes with
+    dense ascending seg (one segment with ``hub``, unsorted ids without
+    ``sort``), then ``pad`` lanes with seg = u; u32 values >= 2^31; a tenth
+    of the lanes invalid.  Returns (columns, u)."""
+    rng = np.random.default_rng(seed)
+    src = np.zeros(n, np.int64) if hub else rng.integers(0, n // 6 + 1, n)
+    a = rng.integers(0, 3, n) - 2 ** 31 + 5
+    b = rng.integers(0, 3, n) + 2 ** 31 - 7
+    order = np.lexsort((b, a, src))
+    src, a, b = src[order], a[order], b[order]
+    new = np.ones(n, bool)
+    new[1:] = src[1:] != src[:-1]
+    seg = np.cumsum(new) - 1
+    u = int(new.sum())
+    if not sort:
+        seg = rng.permutation(u)[seg]
+    lanes = np.zeros((3, n + pad), np.int32)
+    lanes[0, :n] = a.astype(np.int64).astype(np.int32)
+    lanes[1, :n] = b.astype(np.int64).astype(np.int32)
+    lanes[2, :n] = seg
+    lanes[2, n:] = u
+    return [*lanes, rng.random(n + pad) < 0.9], u
+
+
+# n, pad, layout: runs of ~6 lanes; n % 4 != 0 padded as the build pads
+# it, or not padded; one hub segment longer than a CTA; unsorted ids;
+# num_segments below the largest seg
+CHUNK_CASES = [((1 << 16), 0, "sorted"), ((1 << 16) + 3, 1, "sorted"),
+               (50_001, 0, "sorted"), (1 << 18, 0, "hub"),
+               (1 << 16, 0, "unsorted"), (1 << 16, 0, "fewer_rows")]
+
+
+@pytest.mark.parametrize("layout", ["contig", "view"])
+@pytest.mark.parametrize("dedup,keep0", [(True, True), (True, False),
+                                         (False, True)])
+@pytest.mark.parametrize("n,pad,kind", CHUNK_CASES)
+def test_chunk_fold_runs_match_plain(cuda, n, pad, kind, dedup, keep0,
+                                     layout):
+    cols, u = _dense_chunk(n + pad, n, hub=kind == "hub",
+                           sort=kind != "unsorted", pad=pad)
+    lanes = _on_card(cols, cuda, layout)
+    assert _vec(lanes) == (4 if layout == "contig" else 1)
+    kw = dict(num_segments=u // 2 if kind == "fewer_rows" else u,
+              dedup=dedup)
+    before = tfold.chunk_sig_fold.launches
+    got = tfold.chunk_sig_fold(*lanes, keep0, **kw)
+    torch.cuda.synchronize()
+    assert tfold.chunk_sig_fold.launches == before + 1
+    want = tfold.chunk_sig_fold_plain(*lanes, keep0, **kw)
+    assert got.dtype == torch.int64 and got.shape == (2, kw["num_segments"])
+    assert torch.equal(got, want)
+
+
+def test_fold_wrappers_raise_on_card(cuda):
+    """On the card a wrapper launches its kernel or raises: a strided
+    column is refused, and nothing is launched."""
+    cols, u = _dense_chunk(0, 1024)
+    lanes = [torch.from_numpy(c).to(cuda) for c in cols]
+    strided = torch.zeros(2048, dtype=torch.int32, device=cuda)[::2]
+    before = (tfold.chunk_sig_fold.launches, tfold.sig_fold.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfold.chunk_sig_fold(strided, *lanes[1:], True, num_segments=u)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfold.sig_fold(strided, *lanes[1:], nodes_per_block=u,
+                       edges_per_block=1024)
+    assert (tfold.chunk_sig_fold.launches, tfold.sig_fold.launches) == before
+
+
+@pytest.mark.parametrize("mode", ["sorted", "dedup_hash", "multiset"])
+def test_card_oocore_odd_chunks_equal_cpu(cuda, tmp_path, mode):
+    """Chunks of 1003 edges: most uploads are padded to a multiple of 4
+    lanes; each folds into its distinct-source count."""
+    g = gen.powerlaw_graph(2000, 9000, 4, 3, seed=2)
+    kw = dict(mode=mode, chunk_edges=1003, spill_threshold=1 << 10)
+    before = tfold.chunk_sig_fold.launches
+    card = build_bisim_oocore(g, 5, workdir=str(tmp_path / "card"),
+                              device=cuda, **kw)
+    assert tfold.chunk_sig_fold.launches > before
+    cpu = build_bisim_oocore(g, 5, workdir=str(tmp_path / "cpu"),
+                             device="cpu", **kw)
+    assert card.counts == cpu.counts
+    assert card.converged_at == cpu.converged_at
+    assert card.io.to_dict() == cpu.io.to_dict()
+    for a, b in zip(card.pid_paths, cpu.pid_paths):
+        np.testing.assert_array_equal(np.load(a), np.load(b))
+
+
 BF16 = torch.bfloat16
 # b, hq, hkv, sq, skv, d, causal, window, softcap, dtype: the cases of
 # `tests/test_kernels.py::ATTN_CASES`, the odd lengths serving prompts
