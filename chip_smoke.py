@@ -36,6 +36,20 @@ Phases, each printing one JSON line:
              count set to 0 just before and read just after, with the
              fold's and the uploads' CUDA-event time; its counts and last
              partition must equal the in-memory build's;
+7a. maintenance — Algorithms 2-4 on the same graph at k=10, ``sorted``
+             and ``multiset``: a maintainer with device propagation on
+             the card and one on the numpy host path take the same ops
+             (1, 1,000 and 100,000 random edge inserts, 1,000 existing
+             edges again, DELETE_NODE on 3 nodes, compact) and must agree
+             bit for bit after each; one line an op (frontier and changed
+             nodes a level, rebuilt, device and host walls, fold launches,
+             store sizes and bytes, peak memory); at the end equal stores
+             and, at every level, the partition of a fresh card build;
+             it fails unless some op propagated on the device through the
+             kernel without the §4.2 rebuild;
+7b. frontier_kernels — ``frontier_sig_fold`` against its plain version
+             and timed at the largest and the median batch the
+             maintenance phase folded, both dedup settings;
 8. attention — ``flash_attention`` against its plain PyTorch version on
              the card (2e-5 in f32, 2e-2 in bf16) on the JAX package's
              attention test cases, odd lengths, and the bf16 (wgmma)
@@ -820,6 +834,244 @@ def phase_oocore(args, g, inmem) -> dict:
     return out
 
 
+# the maintenance phase: k and modes of the issue's deployment, and its
+# ops in order (name, count): random inserts drawn as the launcher's
+# ``add-edges --count`` draws them, existing edges inserted again (the
+# fused k-loop's all-clean path), DELETE_NODE on random nodes, compact
+MAINT = dict(k=10, modes=("sorted", "multiset"), seed=0)
+MAINT_OPS = (("add-edges", 1), ("add-edges", 1000), ("add-edges", 100_000),
+             ("re-add-edges", 1000), ("delete-node", 1), ("delete-node", 1),
+             ("delete-node", 1), ("compact", 0))
+
+
+def _same_partition(a, b) -> bool:
+    """Vectorised `same_partition`, on the card: the pid pairs biject."""
+    import torch
+    a, b = (torch.from_numpy(x).to(DEVICE, torch.int64) for x in (a, b))
+    return (torch.unique(a << 32 | b).numel() == torch.unique(a).numel()
+            == torch.unique(b).numel())
+
+
+def _report_dict(rep) -> dict:
+    """A report without its seconds and its path flag (which differ by
+    design between the device and the host maintainer)."""
+    d = rep.as_dict()
+    del d["level_seconds"], d["device"]
+    return d
+
+
+def _apply_maint_op(m, op: str, draw):
+    """Apply one drawn op to a maintainer; returns its report or None."""
+    if op in ("add-edges", "re-add-edges"):
+        src, lab, dst = draw
+        return m.add_edges(src, lab, dst)
+    if op == "delete-node":
+        return m.delete_node(draw)
+    m.compact()
+    return None
+
+
+def _draw_maint_op(op: str, count: int, g, rng, launcher):
+    import argparse
+    if op == "add-edges":
+        return launcher.draw_edges(argparse.Namespace(edge=[], count=count),
+                                   g.num_nodes, rng)
+    if op == "re-add-edges":
+        idx = rng.integers(0, g.num_edges, count)
+        return g.src[idx], g.elabel[idx], g.dst[idx]
+    if op == "delete-node":
+        return int(rng.integers(0, g.num_nodes))
+    return None
+
+
+def phase_maintenance(g) -> dict:
+    """Algorithms 2-4 at full size: one card build with stores, then a
+    maintainer with device propagation and one on the numpy host path,
+    fed the same ops; after every op their pid histories, next_pid,
+    reports (without seconds) and tombstones must agree bit for bit.  At
+    the end their stores must equal, and every level must be the
+    partition of a fresh card build of the final graph.  Every frontier
+    fold of the device maintainer is recorded (lanes, rows, dedup) for
+    the frontier kernel cases; ``sig_fold.launches`` is set to 0 just
+    before each device op and read just after (a §4.2 rebuild adds its
+    build's k launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import BisimMaintainer, build_bisim
+    from repro_torch.core import device_maint
+    from repro_torch.kernels.sig_fold import sig_fold
+    from repro_torch.launch import bisim as launcher
+    k = MAINT["k"]
+    folds, runs, all_ops, ok = [], [], [], True
+    record = device_maint._fold
+
+    def fold(batch, tgt, *, dedup):
+        folds.append((batch.e, batch.p0.numel(), dedup))
+        return record(batch, tgt, dedup=dedup)
+
+    for mode in MAINT["modes"]:
+        t0 = time.perf_counter()
+        res = build_bisim(g, k, mode=mode, early_stop=False,
+                          with_store=True, device=DEVICE)
+        dev_m = BisimMaintainer(g, k, mode=mode, result=res, device=DEVICE)
+        host_m = BisimMaintainer(g, k, mode=mode, result=res, device=DEVICE,
+                                 device_propagation=False)
+        del res
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        rng = np.random.default_rng(MAINT["seed"])
+        ops = []
+        for op, count in MAINT_OPS:
+            draw = _draw_maint_op(op, count, dev_m.graph, rng, launcher)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            n_folds = len(folds)
+            device_maint._fold = fold
+            sig_fold.launches = 0
+            try:
+                t0 = time.perf_counter()
+                rep = _apply_maint_op(dev_m, op, draw)
+                torch.cuda.synchronize()
+                dev_s = time.perf_counter() - t0
+            finally:
+                device_maint._fold = record
+            launches = sig_fold.launches
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            host_rep = _apply_maint_op(host_m, op, draw)
+            host_s = time.perf_counter() - t0
+            shapes = folds[n_folds:]
+            rebuilt = bool(rep is not None and rep.rebuilt)
+            frontier_launches = sum(e > 0 for e, _, _ in shapes)
+            equal = (
+                dev_m.k == host_m.k
+                and all(np.array_equal(a, b)
+                        for a, b in zip(dev_m.pids, host_m.pids))
+                and list(dev_m.next_pid) == list(host_m.next_pid)
+                and np.array_equal(dev_m._tombstone, host_m._tombstone)
+                and (rep is None) == (host_rep is None)
+                and (rep is None or (_report_dict(rep)
+                                     == _report_dict(host_rep)
+                                     and rep.device and not host_rep.device)))
+            row = {"phase": "maintenance", "mode": mode, "op": op,
+                   "count": count,
+                   "frontier": rep.nodes_checked if rep else None,
+                   "changed": rep.nodes_changed if rep else None,
+                   "rebuilt": rebuilt, "device_s": dev_s, "host_s": host_s,
+                   "level_s_device": rep.level_seconds if rep else None,
+                   "sig_fold_launches": launches,
+                   "frontier_sig_fold_launches": frontier_launches,
+                   "fold_lanes_max": max((e for e, _, _ in shapes),
+                                         default=0),
+                   "store_sizes": [len(d) for d in dev_m.backend._dstores],
+                   "device_store_bytes": dev_m.backend.device_store_bytes,
+                   "peak_bytes": peak, "num_edges": dev_m.graph.num_edges,
+                   "equal": bool(equal)}
+            emit(row)
+            ops.append(row)
+            all_ops.append(row)
+            ok &= equal and launches == frontier_launches + k * rebuilt
+        t0 = time.perf_counter()
+        stores_equal = all(
+            np.array_equal(a.keys, b.keys) and np.array_equal(a.pids, b.pids)
+            for a, b in zip(dev_m.stores, host_m.stores))
+        fresh = build_bisim(dev_m.graph, k, mode=mode, early_stop=False,
+                            device=DEVICE)
+        rebuild_equal = all(_same_partition(dev_m.pids[j], fresh.pids[j])
+                            for j in range(k + 1))
+        runs.append({"mode": mode, "setup_s": setup_s,
+                     "check_s": time.perf_counter() - t0,
+                     "stores_equal": stores_equal,
+                     "fresh_build_same_partition": rebuild_equal,
+                     "ops_equal": all(r["equal"] for r in ops),
+                     "device_s": sum(r["device_s"] for r in ops),
+                     "host_s": sum(r["host_s"] for r in ops)})
+        ok &= stores_equal and rebuild_equal
+        del dev_m, host_m, fresh
+        torch.cuda.empty_cache()
+    # the path must have run: some op propagated through a level on the
+    # device, its folds through the kernel, without the §4.2 rebuild
+    propagated = [(r["mode"], r["op"], r["count"]) for r in all_ops
+                  if not r["rebuilt"] and r["frontier_sig_fold_launches"]]
+    lanes = sorted(e for e, _, _ in folds if e > 0)
+    out = {"phase": "maintenance", "k": k, "modes": list(MAINT["modes"]),
+           "graph": {"generator": "powerlaw", "nodes": g.num_nodes,
+                     "edges": g.num_edges},
+           "runs": runs, "propagated_on_device": propagated,
+           "frontier_sig_fold_launches": sum(
+               r["frontier_sig_fold_launches"] for r in all_ops),
+           "frontier_folds": len(lanes),
+           "fold_lanes": {"max": lanes[-1] if lanes else 0,
+                          "median": lanes[len(lanes) // 2] if lanes else 0},
+           "ok": bool(ok and propagated)}
+    emit(out)
+    if not propagated:
+        raise SystemExit("maintenance: no op propagated on the device "
+                         "(every op rebuilt or folded nothing)")
+    if not ok:
+        raise SystemExit("maintenance: device and host propagation differ, "
+                         "or the maintained partition is not the build's")
+    return out, folds
+
+
+def phase_frontier_kernels(folds) -> dict:
+    """``frontier_sig_fold`` (kernel row 2) at the shapes the maintenance
+    phase folded: its largest and its median batch (lanes, rows), as
+    synthetic lanes of that shape (ascending seg over the rows, labels in
+    [0, 3), pids below the graph's node count, sorted by triple as the
+    device path hands them over), both dedup settings, presorted; each
+    held to ``sig_fold_plain`` (exact) and timed as the kernels phase
+    times the build's fold, beside its byte bound (13 B a lane read, 8 B
+    a row written, at the data sheet's rate)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import sig_fold as tfold
+    from repro_torch.kernels.sig_fold import frontier_sig_fold, sig_fold_plain
+    dev = torch.device(DEVICE)
+    by_lanes = sorted((e, ns) for e, ns, _ in folds if e > 0)
+    picks = {"largest": by_lanes[-1], "median": by_lanes[len(by_lanes) // 2]}
+    rng = np.random.default_rng(2)
+    cases, worst = {}, 0
+    for name, (e, ns) in picks.items():
+        seg = np.sort(rng.integers(0, ns, e))
+        a = rng.integers(0, 3, e)
+        b = rng.integers(0, FULL["nodes"], e)
+        order = np.lexsort((b, a, seg))
+        cols = tuple(torch.from_numpy(x[order].astype(np.int32)).to(dev)
+                     for x in (a, b, seg)) + (
+            torch.ones(e, dtype=torch.bool, device=dev),)
+        for dedup in (True, False):
+            kw = dict(nodes_per_block=ns, edges_per_block=e, dedup=dedup,
+                      presorted=True)
+            got = frontier_sig_fold(*cols, num_sigs=ns, dedup=dedup)
+            want = sig_fold_plain(*cols, **kw)
+            torch.cuda.synchronize()
+            err = _exact(got, want)
+            worst = max(worst, err)
+            out = torch.empty((2, ns), dtype=torch.int64, device=dev)
+            row = fold_times(
+                lambda: frontier_sig_fold(*cols, num_sigs=ns, dedup=dedup),
+                lambda: tfold._launch("sig_fold_flat", cols, out, e, e, ns,
+                                      int(dedup)), "fold_flat")
+            row.update(max_abs_err=err,
+                       plain_ms=cuda_ms(lambda: sig_fold_plain(*cols, **kw),
+                                        3),
+                       bound_ms=(13 * e + 8 * ns) / HBM_BYTES_PER_S * 1e3,
+                       shape={"lanes": e, "rows": ns, "dedup": dedup,
+                              "presorted": True})
+            row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+            cases[f"{name} dedup={dedup}"] = row
+            del out
+    out = {"phase": "frontier_kernels", "kernel": "frontier_sig_fold",
+           "replaces": "src/repro/kernels/sig_fold.py:199 (frontier_sig_fold"
+                       " -> _kernel)", "cases": cases, "max_abs_err": worst,
+           "bound_by": "bytes", "library_ms": None}
+    emit(out)
+    if worst:
+        raise SystemExit("frontier_sig_fold disagrees with its plain version")
+    return out
+
+
 # b, hq, hkv, sq, skv, d, causal, window, softcap, dtype: the JAX
 # package's attention test cases (`tests/test_kernels.py::ATTN_CASES`),
 # then odd lengths as serving prompts have them (the Pallas wrapper
@@ -1207,13 +1459,17 @@ def main() -> int:
         ooc = phase_oocore(args, g, inmem)
     finally:
         shutil.rmtree(WORKDIR, ignore_errors=True)
-    del g, inmem
+    del inmem
+    maint, folds = phase_maintenance(g)
+    del g
+    frontier = phase_frontier_kernels(folds)
     attn = phase_attention()
     phase_serve_parity()
     serve, eng, reqs = phase_serve()
     phase_serve_profile(eng, reqs)
     del eng
     glob = attn["gemma2_9b_prefill"]["global"]
+    big = frontier["cases"]["largest dedup=True"]
     # ms: the wrapper a call (CUDA events); kernel_ms: the kernel's own
     # device time (torch.profiler); host_us: the host's time a call
     times = ("ms", "kernel_ms", "host_us", "plain_ms", "bound_ms")
@@ -1224,6 +1480,15 @@ def main() -> int:
         "launches": full["runs"][0]["sig_fold_launches"],
         "max_abs_err": kern["max_abs_err"],
         **{k: kern[k] for k in times}, "shape": kern["shape"],
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "frontier_sig_fold", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sig_fold.cu",
+        "replaces": "src/repro/kernels/sig_fold.py:199",
+        "launches": maint["frontier_sig_fold_launches"],
+        "max_abs_err": frontier["max_abs_err"],
+        **{k: big[k] for k in times}, "shape": big["shape"],
+        "median_batch": {k: frontier["cases"]["median dedup=True"][k]
+                         for k in (*times, "shape")},
         "bound_by": "bytes", "library_ms": None}, {
         "name": "chunk_sig_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sig_fold.cu",

@@ -5,11 +5,17 @@ maintenance algorithms (paper §4) recompute signatures for *sparse
 frontiers* of nodes there; those signatures must hash identically to the
 ones the bulk engine stores in S during construction.
 
-The port's own copy of `repro.core.hashes_np` (numpy only).
+The port's own copy of `repro.core.hashes_np` (numpy only).  Its batch
+fold sorts with one fused-key argsort (`lexsort_order`) and sums with
+`np.bincount` over 16-bit halves (`_wrapsum`): the same bits as the
+reference's ``np.lexsort`` and ``np.add.at``, at a fraction of their
+cost on frontiers of millions of edges.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..graph.storage import lexsort_order
 
 _C1 = np.uint32(0x9E3779B1)
 _C2 = np.uint32(0x85EBCA77)
@@ -62,6 +68,18 @@ def node_signature(pid0_u: int, elabels: np.ndarray, pid_tgts: np.ndarray,
     return int(hi), int(lo)
 
 
+def _wrapsum(seg, vals, num: int) -> np.ndarray:
+    """Per-segment wrap-add (mod 2^32) of u32 ``vals`` into ``num`` rows.
+
+    Each 16-bit half is summed by `np.bincount` in float64, exact while
+    a row holds fewer than 2^37 lanes; the halves recombine mod 2^32.
+    """
+    lo = np.bincount(seg, weights=vals & np.uint32(0xFFFF), minlength=num)
+    hi = np.bincount(seg, weights=vals >> np.uint32(16), minlength=num)
+    total = lo.astype(np.uint64) + (hi.astype(np.uint64) << np.uint64(16))
+    return (total & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
 def signatures_from_edges(pid0_vals: np.ndarray, seg: np.ndarray,
                           elabel: np.ndarray, pid_tgt: np.ndarray,
                           num_sigs: int, *, dedup: bool = True):
@@ -80,17 +98,16 @@ def signatures_from_edges(pid0_vals: np.ndarray, seg: np.ndarray,
         tgt = np.asarray(pid_tgt)
         seg = np.asarray(seg)
         if dedup:
-            order = np.lexsort((tgt, lab, seg))
+            order = lexsort_order((tgt, lab, seg))
             sseg, slab, stgt = seg[order], lab[order], tgt[order]
             keep = np.ones(total, dtype=bool)
             keep[1:] = ((sseg[1:] != sseg[:-1]) | (slab[1:] != slab[:-1])
                         | (stgt[1:] != stgt[:-1]))
             seg, lab, tgt = sseg[keep], slab[keep], stgt[keep]
         e_hi, e_lo = hash_pair(lab, tgt)
-        with np.errstate(over="ignore"):
-            # per-segment sum mod 2^32 in each lane (order-independent)
-            np.add.at(seg_hi, seg, e_hi)
-            np.add.at(seg_lo, seg, e_lo)
+        # per-segment sum mod 2^32 in each lane (order-independent)
+        seg_hi = _wrapsum(seg, e_hi, num_sigs)
+        seg_lo = _wrapsum(seg, e_lo, num_sigs)
     return hash_triple(seg_hi, seg_lo, pid0_vals)
 
 

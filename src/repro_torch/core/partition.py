@@ -42,7 +42,7 @@ from .. import resolve_device
 from ..graph.storage import Graph
 from ..obs import tracer as obs
 from . import signatures as sig
-from .sig_store import SigStore
+from .sig_store import SigStore, lanes_to_keys
 
 # bytes of sort keys per edge, per mode (Table-7-style accounting)
 _KEY_BYTES = {"sorted": 12, "dedup_hash": 12, "multiset": 0}
@@ -82,16 +82,18 @@ class BisimResult:
 
 
 def bisim_step(pid0, src, dst, elabel, pid_prev, *, num_nodes: int,
-               mode: str, elabel_range=None):
+               mode: str, elabel_range=None, pid_bound=None):
     """One sig_j -> dense-rank iteration on device tensors.
 
     Returns (pid_new int32 [N], count int32 0-dim, hi, lo) without a host
     sync.  Eager PyTorch needs no buffer donation, so unlike the JAX
-    package's step no aliased ``pid_prev`` comes back.
+    package's step no aliased ``pid_prev`` comes back.  ``pid_bound``
+    bounds ``pid_prev`` when it is not a dense rank (maintained pids).
     """
     hi, lo = sig.signature_hashes(pid0, src, dst, elabel, pid_prev,
                                   num_nodes=num_nodes, mode=mode,
-                                  elabel_range=elabel_range)
+                                  elabel_range=elabel_range,
+                                  pid_bound=pid_bound)
     pid_new, count = sig.dense_rank_pairs(hi, lo)
     return pid_new, count, hi, lo
 
@@ -193,23 +195,34 @@ def build_bisim(graph: Graph, k: int, *, mode: str = "sorted",
         stats = stats[:keep]
         sig_pairs = sig_pairs[:keep - 1]
 
-    # one bulk host transfer of the pid history (+ signatures if stored)
+    # one bulk host transfer of the pid history (+ the stores if kept)
     obs.event("build.sync", path=path, what="history")
     pids = torch.stack(history).cpu().numpy()
     stores, next_pid = None, None
     if with_store:
         # level 0 keyed by node label, level j by the sig_j hash
         stores = [SigStore.from_labels(graph.node_labels, pids[0])]
-        if sig_pairs:
-            host = torch.stack(sig_pairs).cpu().numpy()
-            for j, (h, l) in enumerate(host, start=1):
-                stores.append(SigStore.from_hash_pairs(h, l, pids[j]))
+        stores += [_store_of(pair, pid)
+                   for pair, pid in zip(sig_pairs, history[1:])]
         next_pid = list(counts[: len(stores)])
 
     return BisimResult(
         pids=pids, counts=counts, stats=stats,
         converged_at=converged_at, k_requested=k, stores=stores,
         next_pid=next_pid)
+
+
+def _store_of(pair, pid) -> SigStore:
+    """One level's store from its (hi, lo) lanes and pids, on their
+    device: the sorted distinct keys, each with its pid — what
+    `SigStore.from_hash_pairs` computes on the host (a pid is the dense
+    rank of its key, so every copy of a key carries the same one)."""
+    key, order = torch.sort(sig.fuse_u32_pair(pair[0], pair[1]))
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    return SigStore(lanes_to_keys(key[first].cpu().numpy()),
+                    pid[order][first].cpu().numpy().astype(np.int64),
+                    presorted=True)
 
 
 def partition_blocks(pids: np.ndarray) -> dict:

@@ -51,6 +51,21 @@ def split_key(keys) -> tuple[np.ndarray, np.ndarray]:
     return (keys >> _SHIFT).astype(np.uint32), keys.astype(np.uint32)
 
 
+_FLIP = np.uint64(1 << 63)
+
+
+def keys_to_lanes(keys) -> np.ndarray:
+    """u64 store keys as int64 whose signed order is the keys' order
+    (``key ^ 2^63``; the all-ones key becomes INT64_MAX): the form in
+    which a device tensor holds them."""
+    return (np.asarray(keys, dtype=_U64) ^ _FLIP).view(np.int64)
+
+
+def lanes_to_keys(lanes) -> np.ndarray:
+    """Inverse of `keys_to_lanes`."""
+    return np.asarray(lanes, dtype=np.int64).view(_U64) ^ _FLIP
+
+
 class SigStore:
     """Sorted (key u64, pid int64) columns; all ops are bulk array ops."""
 

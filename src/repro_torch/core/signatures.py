@@ -131,28 +131,32 @@ def segment_wrapsum(vals: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(upper))
 
 
-def _sort_triples(s, a, b, *, num_nodes: int, elabel_range):
+def _sort_triples(s, a, b, *, num_nodes: int, elabel_range,
+                  pid_bound=None):
     """(s, a, b) int32 columns in an order where equal triples are adjacent.
 
     Any total order gives the fold the same bits (only adjacency of equal
     triples matters, and the sum is order-free).  When the three fields
-    fit 63 bits — source and pid below ``num_nodes``, labels inside
-    ``elabel_range`` — one sort of a fused int64 key does it and the
-    columns are decoded from the sorted keys; otherwise two stable sorts,
-    least-significant key first.
+    fit 63 bits — source below ``num_nodes``, pid below ``pid_bound``
+    (default ``num_nodes``: a build's pids are dense ranks; maintained
+    pids may reach past it), labels inside ``elabel_range`` — one sort of
+    a fused int64 key does it and the columns are decoded from the sorted
+    keys; otherwise two stable sorts, least-significant key first.
     """
     lo_lab, hi_lab = elabel_range
     nbits = max(num_nodes - 1, 0).bit_length()
+    pbits = max((num_nodes if pid_bound is None else pid_bound) - 1,
+                0).bit_length()
     lbits = max(hi_lab - lo_lab, 0).bit_length()
-    if 2 * nbits + lbits <= 63:
-        key = ((s.to(torch.int64) << (lbits + nbits))
-               | ((a.to(torch.int64) - lo_lab) << nbits)
+    if nbits + pbits + lbits <= 63:
+        key = ((s.to(torch.int64) << (lbits + pbits))
+               | ((a.to(torch.int64) - lo_lab) << pbits)
                | b.to(torch.int64))
         key = torch.sort(key).values
-        return ((key >> (lbits + nbits)).to(torch.int32),
-                (((key >> nbits) & ((1 << lbits) - 1)) + lo_lab)
+        return ((key >> (lbits + pbits)).to(torch.int32),
+                (((key >> pbits) & ((1 << lbits) - 1)) + lo_lab)
                 .to(torch.int32),
-                (key & ((1 << nbits) - 1)).to(torch.int32))
+                (key & ((1 << pbits) - 1)).to(torch.int32))
     order = torch.sort(b, stable=True).indices
     major = (s[order].to(torch.int64) << 32) | as_u32(a[order])
     order = order[torch.sort(major, stable=True).indices]
@@ -160,14 +164,15 @@ def _sort_triples(s, a, b, *, num_nodes: int, elabel_range):
 
 
 def fold_lanes(src, dst, elabel, pid_prev, *, num_nodes: int, mode: str,
-               elabel_range=None):
+               elabel_range=None, pid_bound=None):
     """The lanes one iteration hands to the fold kernel, per mode.
 
     Returns (elabel, pid_tgt, seg, valid, dedup): int32 columns in fold
     order, the bool lane mask, and whether the kernel drops adjacent equal
     (seg, eLabel, pid) triples.  ``elabel_range`` (min, max) bounds the
     edge labels for the fused sort key of ``sorted`` mode; None reads it
-    from ``elabel`` (a host sync).
+    from ``elabel`` (a host sync); ``pid_bound`` bounds ``pid_prev``
+    (default ``num_nodes``).
     """
     pid_tgt = pid_prev[dst]  # the sort-merge join E_t ⋈ N_t (line 10, Alg. 1)
     if mode == "sorted":
@@ -177,7 +182,8 @@ def fold_lanes(src, dst, elabel, pid_prev, *, num_nodes: int, mode: str,
             elabel_range = ((int(elabel.min()), int(elabel.max()))
                             if elabel.numel() else (0, 0))
         s, a, b = _sort_triples(src, elabel, pid_tgt, num_nodes=num_nodes,
-                                elabel_range=elabel_range)
+                                elabel_range=elabel_range,
+                                pid_bound=pid_bound)
         return a, b, s, torch.ones_like(s, dtype=torch.bool), True
     if mode == "dedup_hash":
         # Sort the fused 64-bit edge hash within source segments and mask
@@ -199,7 +205,8 @@ def fold_lanes(src, dst, elabel, pid_prev, *, num_nodes: int, mode: str,
 
 
 def signature_hashes(pid0, src, dst, elabel, pid_prev, *, num_nodes: int,
-                     mode: str = "sorted", elabel_range=None):
+                     mode: str = "sorted", elabel_range=None,
+                     pid_bound=None):
     """Compute sig_j hash pairs for every node.
 
     pid0      int32 [N]  iteration-0 partition ids
@@ -212,7 +219,62 @@ def signature_hashes(pid0, src, dst, elabel, pid_prev, *, num_nodes: int,
     from ..kernels.sig_fold import frontier_sig_fold
     a, b, seg, valid, dedup = fold_lanes(
         src, dst, elabel, pid_prev, num_nodes=num_nodes, mode=mode,
-        elabel_range=elabel_range)
+        elabel_range=elabel_range, pid_bound=pid_bound)
     seg_hi, seg_lo = frontier_sig_fold(a, b, seg, valid, num_sigs=num_nodes,
                                        dedup=dedup, presorted=True)
+    return hash_triple(seg_hi, seg_lo, pid0)
+
+
+def frontier_signature_hashes_presorted(pid0, elabel, pid_tgt, bounds,
+                                        count: int, *, num_sigs: int):
+    """Segless frontier fold: hash + segment wrap-sum + final mix, for
+    edge batches already grouped by frontier position (``bounds``
+    [num_sigs + 1]) and, under set semantics, already deduplicated.
+
+    ``seg`` is recovered from ``bounds`` on the tensors' device (lane i
+    lies in the segment whose bounds bracket it; lanes at or past
+    ``count`` get seg = num_sigs and match no row), and the fold runs
+    through `frontier_sig_fold`: the Hopper kernel on a CUDA tensor.
+    Returns (hi, lo): u32 lanes in int64 [num_sigs].
+    """
+    from ..kernels.sig_fold import frontier_sig_fold
+    n = elabel.numel()
+    lane = torch.arange(n, device=elabel.device)
+    seg = torch.searchsorted(bounds[1:num_sigs + 1].to(torch.int64), lane,
+                             right=True)
+    seg = torch.where(lane < count, seg, num_sigs)
+    seg_hi, seg_lo = frontier_sig_fold(
+        elabel, pid_tgt, seg.to(torch.int32), lane < count,
+        num_sigs=num_sigs)
+    return hash_triple(seg_hi, seg_lo, pid0)
+
+
+def frontier_signature_hashes(pid0, seg, elabel, pid_tgt, count: int, *,
+                              num_sigs: int, dedup: bool = True):
+    """The frontier fold of maintenance (§4), the twin of
+    `hashes_np.signatures_from_edges` over device tensors.
+
+    seg[i] is the frontier position of edge i (lanes at or past
+    ``count`` carry seg >= num_sigs); elabel/pid_tgt are int32 carriers
+    of u32 lanes; pid0 is each position's pId_0.  ``dedup`` keeps one
+    lane per (seg, eLabel, pId) triple: the lanes are sorted here, on
+    their device, and the kernel drops adjacent duplicates
+    (``presorted``).  Multiset mode folds every valid lane.  The kernel
+    folds by ``seg``, so the reference's ``bounds`` argument is dropped.
+    Returns (hi, lo): u32 lanes in int64 [num_sigs].
+    """
+    from ..kernels.sig_fold import frontier_sig_fold
+    valid = torch.arange(elabel.numel(), device=elabel.device) < count
+    seg = torch.where(valid, seg.to(torch.int64), num_sigs)
+    if dedup:
+        # any order that makes equal triples adjacent gives the same
+        # survivors: (eLabel, pId) as one int64 key, then seg, stable
+        pair = (as_u32(elabel) << 32) | as_u32(pid_tgt)
+        order = torch.sort(pair, stable=True).indices
+        order = order[torch.sort(seg[order], stable=True).indices]
+        elabel, pid_tgt, seg, valid = (elabel[order], pid_tgt[order],
+                                       seg[order], valid[order])
+    seg_hi, seg_lo = frontier_sig_fold(
+        elabel, pid_tgt, seg.to(torch.int32), valid, num_sigs=num_sigs,
+        dedup=dedup, presorted=True)
     return hash_triple(seg_hi, seg_lo, pid0)

@@ -11,7 +11,10 @@ copies used by the maintenance algorithms).
 
 The port keeps its own copy of `repro.graph.storage` (host-side numpy
 input, identical canonicalisation) so that it imports nothing of the JAX
-package.
+package.  Its sorts and its edge removal are vectorised (`lexsort_order`,
+`_rows_in`): the same permutations and rows, without `np.lexsort`'s
+column passes or a Python set, which an update of a graph with tens of
+millions of edges would otherwise pay.
 """
 from __future__ import annotations
 
@@ -19,6 +22,61 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
+
+
+def _spans(*groups):
+    """(offset, bits) of each integer column, over the rows of every
+    group of parallel columns: its minimum and the width of its range."""
+    out = []
+    for cols in zip(*groups):
+        cols = [c for c in cols if c.shape[0]]
+        lo = min(int(c.min()) for c in cols)
+        out.append((lo, (max(int(c.max()) for c in cols) - lo).bit_length()))
+    return out
+
+
+def _fused(cols, spans) -> np.ndarray:
+    """One int64 key a row: the columns packed least significant first."""
+    key = np.zeros(cols[0].shape[0], np.int64)
+    shift = 0
+    for c, (lo, bits) in zip(cols, spans):
+        key |= (np.asarray(c).astype(np.int64) - lo) << shift
+        shift += bits
+    return key
+
+
+def _fits(spans) -> bool:
+    return sum(bits for _, bits in spans) <= 63
+
+
+def lexsort_order(keys, device=None) -> np.ndarray:
+    """The permutation ``np.lexsort(keys)`` returns (last key primary,
+    equal rows in their input order), by one stable sort of a fused int64
+    key when the keys' ranges fit 63 bits together: torch's, on the CPU
+    or on ``device``."""
+    cols = [np.asarray(k) for k in keys]
+    if cols[0].shape[0] == 0:
+        return np.lexsort(cols)
+    spans = _spans(cols)
+    if not _fits(spans):
+        return np.lexsort(cols)
+    key = torch.from_numpy(_fused(cols, spans)).to(device or "cpu")
+    return torch.sort(key, stable=True).indices.cpu().numpy()
+
+
+def _rows_in(cols, probe) -> np.ndarray:
+    """Which rows of the parallel integer columns ``cols`` equal some row
+    of ``probe`` (bool [rows])."""
+    spans = _spans(cols, probe)
+    if not _fits(spans):
+        rm = set(zip(*(np.asarray(c).tolist() for c in probe)))
+        return np.array([r in rm for r in zip(*(np.asarray(c).tolist()
+                                                for c in cols))], dtype=bool)
+    key = _fused(cols, spans)
+    want = np.unique(_fused(probe, spans))
+    idx = np.minimum(np.searchsorted(want, key), want.shape[0] - 1)
+    return want[idx] == key
 
 
 @dataclasses.dataclass
@@ -60,7 +118,7 @@ class Graph:
         src = np.asarray(src, dtype=np.int32)
         dst = np.asarray(dst, dtype=np.int32)
         elabel = np.asarray(elabel, dtype=np.int32)
-        order = np.lexsort((dst, elabel, src))
+        order = lexsort_order((dst, elabel, src))
         src, dst, elabel = src[order], dst[order], elabel[order]
         if dedup and src.size:
             keep = np.ones(src.shape[0], dtype=bool)
@@ -78,9 +136,10 @@ class Graph:
         np.cumsum(counts, out=off[1:])
         return off
 
-    def in_order(self) -> np.ndarray:
-        """Permutation sorting edges by (dst, src): the analogue of E_tts."""
-        return np.lexsort((self.src, self.dst))
+    def in_order(self, device=None) -> np.ndarray:
+        """Permutation sorting edges by (dst, src): the analogue of E_tts
+        (sorted on ``device`` when one is given)."""
+        return lexsort_order((self.src, self.dst), device)
 
     def in_offsets(self, in_order: Optional[np.ndarray] = None) -> np.ndarray:
         counts = np.bincount(self.dst, minlength=self.num_nodes)
@@ -109,20 +168,36 @@ class Graph:
 
     # --------------------------------------------------------------- edits
     def with_edges_added(self, src, dst, elabel) -> "Graph":
-        return Graph.from_edges(
-            self.node_labels,
-            np.concatenate([self.src, np.atleast_1d(src).astype(np.int32)]),
-            np.concatenate([self.dst, np.atleast_1d(dst).astype(np.int32)]),
-            np.concatenate([self.elabel, np.atleast_1d(elabel).astype(np.int32)]),
-        )
+        """The graph with these edges added, canonical (sorted, no
+        duplicate triple).  A canonical graph takes the new edges by a
+        merge; the rest re-sorts the union, as the reference does."""
+        new = Graph.from_edges(self.node_labels, np.atleast_1d(src),
+                               np.atleast_1d(dst), np.atleast_1d(elabel))
+        cols = (self.dst, self.elabel, self.src)  # least significant first
+        new_cols = (new.dst, new.elabel, new.src)
+        spans = (_spans(cols, new_cols) if self.num_edges and new.num_edges
+                 else None)
+        key = _fused(cols, spans) if spans and _fits(spans) else None
+        if key is None or (key[1:] <= key[:-1]).any():
+            # not canonical (or too wide to pack): sort the union
+            return Graph.from_edges(self.node_labels, *(
+                np.concatenate([old, add]) for old, add in (
+                    (self.src, new.src), (self.dst, new.dst),
+                    (self.elabel, new.elabel))))
+        new_key = _fused(new_cols, spans)
+        pos = np.searchsorted(key, new_key)
+        fresh = key[np.minimum(pos, key.shape[0] - 1)] != new_key
+        pos = pos[fresh]
+        return Graph(self.node_labels,
+                     *(np.insert(old, pos, add[fresh]) for old, add in (
+                         (self.src, new.src), (self.dst, new.dst),
+                         (self.elabel, new.elabel))))
 
     def with_edges_removed(self, src, dst, elabel) -> "Graph":
-        rm = set(zip(np.atleast_1d(src).tolist(), np.atleast_1d(elabel).tolist(),
-                     np.atleast_1d(dst).tolist()))
-        keep = np.array(
-            [(s, l, t) not in rm
-             for s, l, t in zip(self.src.tolist(), self.elabel.tolist(),
-                                self.dst.tolist())], dtype=bool)
+        probe = [np.atleast_1d(c) for c in (src, elabel, dst)]
+        if self.num_edges == 0 or probe[0].size == 0:
+            return Graph(self.node_labels, self.src, self.dst, self.elabel)
+        keep = ~_rows_in((self.src, self.elabel, self.dst), probe)
         return Graph(self.node_labels, self.src[keep], self.dst[keep],
                      self.elabel[keep])
 

@@ -7,13 +7,23 @@ unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.bisim --oocore \
         --chunk-edges 65536 --generator structured --nodes 300000
 
+The ``add-edges`` / ``delete-node`` / ``compact`` subcommands apply one
+update to the built partition through `BisimMaintainer` (in memory) and
+print the reference's per-level report:
+
+    PYTHONPATH=src python -m repro_torch.launch.bisim --nodes 1000000 \
+        --edges 8000000 --k 10 add-edges --count 1000
+
 Flags, defaults and output lines are those of `repro.launch.bisim`'s
-builds (its maintenance subcommands and distributed engine arrive with
-their slices).  ``--checkpoint --workdir DIR`` makes the out-of-core build
-write a per-level checkpoint; ``--resume`` continues a killed build from
-the last finished level.  ``--trace PATH`` writes a Chrome-trace JSON and
-prints the phase table, with the ``build.dispatch`` / ``build.sync``
-counts.
+builds and maintenance subcommands (its out-of-core maintenance, WAL,
+quotient and streaming subcommands and its distributed engine arrive
+with their slices).  Propagation runs on the device by default
+(``--device-maintenance``, the reference's opt-in); ``--host-maintenance``
+asks for the numpy host path.  ``--checkpoint --workdir DIR`` makes the
+out-of-core build write a per-level checkpoint; ``--resume`` continues a
+killed build from the last finished level.  ``--trace PATH`` writes a
+Chrome-trace JSON and prints the phase table, with the ``build.dispatch``
+/ ``build.sync`` counts.
 """
 from __future__ import annotations
 
@@ -25,7 +35,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core import build_bisim
+from ..core import BisimMaintainer, build_bisim
 from ..exmem import build_bisim_oocore
 from ..graph import generators as gen
 from ..graph.storage import Graph
@@ -101,6 +111,35 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the build runs (default: the card; cpu "
                          "runs the plain-PyTorch route)")
+    prop = ap.add_mutually_exclusive_group()
+    prop.add_argument("--device-maintenance", dest="device_maintenance",
+                      action="store_true", default=True,
+                      help="maintenance subcommands: propagate updates on "
+                           "--device (the default; bit-identical to the "
+                           "host path)")
+    prop.add_argument("--host-maintenance", dest="device_maintenance",
+                      action="store_false",
+                      help="maintenance subcommands: propagate on the "
+                           "numpy host path")
+    sub = ap.add_subparsers(
+        dest="cmd", metavar="{add-edges,delete-node,compact}",
+        help="apply one update through BisimMaintainer (in memory)")
+    ap_add = sub.add_parser("add-edges",
+                            help="insert edges and propagate (Alg. 4)")
+    ap_add.add_argument("--count", type=int, default=1,
+                        help="number of random edges to insert")
+    ap_add.add_argument("--edge", action="append", default=[],
+                        metavar="S:L:T",
+                        help="explicit src:elabel:dst edge (repeatable; "
+                             "overrides --count)")
+    ap_del = sub.add_parser("delete-node",
+                            help="DELETE_NODE: drop incident edges, "
+                                 "tombstone the row")
+    ap_del.add_argument("--nid", type=int, required=True)
+    ap_cmp = sub.add_parser("compact",
+                            help="drop tombstoned rows, remap ids densely")
+    ap_cmp.add_argument("--delete-nodes", default="", metavar="I,J,...",
+                        help="tombstone these nodes first")
     return ap
 
 
@@ -163,10 +202,73 @@ def report(args, res, dt: float) -> None:
         print(f"saved pid history to {args.out}")
 
 
+def draw_edges(args, num_nodes: int, rng):
+    """The edges ``add-edges`` inserts: the explicit ``--edge`` triples,
+    else ``--count`` random ones from ``rng`` (the reference's draws)."""
+    if args.edge:
+        triples = [tuple(int(x) for x in e.split(":")) for e in args.edge]
+        return tuple(np.array(c, dtype=np.int32) for c in zip(*triples))
+    src = rng.integers(0, num_nodes, args.count).astype(np.int32)
+    dst = rng.integers(0, num_nodes, args.count).astype(np.int32)
+    lab = rng.integers(0, 4, args.count).astype(np.int32)
+    return src, lab, dst
+
+
+def report_update(rep, dt: float, m) -> None:
+    """The reference's per-level lines of one update."""
+    if rep is not None:
+        path = "device" if rep.device else "host"
+        for j, (chk, chg, part, sec) in enumerate(zip(
+                rep.nodes_checked, rep.nodes_changed,
+                rep.partitions_touched, rep.level_seconds), start=1):
+            print(f"  level {j:2d}: checked={chk} changed={chg} "
+                  f"partitions_touched={part} "
+                  f"{path}_ms={sec * 1e3:.2f}")
+        if rep.rebuilt:
+            print("  rebuilt (rebuild_threshold heuristic fired)")
+    print(f"update: {dt * 1e3:.1f} ms; "
+          f"partitions@k={len(np.unique(m.pid()))}")
+
+
+def run_maintenance(args, g: Graph) -> None:
+    """Build the partition, apply one update subcommand, report it."""
+    t0 = time.perf_counter()
+    m = BisimMaintainer(g, args.k, mode=args.mode, device=args.device,
+                        device_propagation=args.device_maintenance)
+    prop = "device" if m.device_propagation else "host"
+    print(f"initial build (in-memory, k={args.k}, mode={args.mode}, "
+          f"propagation={prop}): {time.perf_counter() - t0:.2f}s")
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    if args.cmd == "add-edges":
+        src, lab, dst = draw_edges(args, m.backend.num_nodes, rng)
+        rep = m.add_edges(src, lab, dst)
+        print(f"add-edges: {src.shape[0]} edges")
+    elif args.cmd == "delete-node":
+        rep = m.delete_node(args.nid)
+        print(f"delete-node {args.nid}: tombstones={m.num_tombstones}")
+    else:  # compact
+        rep = None
+        for nid in (int(x) for x in args.delete_nodes.split(",") if x):
+            m.delete_node(nid)
+        remap = m.compact()
+        print(f"compact: dropped {int((remap < 0).sum())} rows -> "
+              f"{m.backend.num_nodes} nodes, {m.backend.num_edges} edges")
+    report_update(rep, time.perf_counter() - t0, m)
+
+
 def _dispatch(args) -> None:
     resolve_device(args.device)  # raise before generating a graph
+    if args.cmd and args.oocore:
+        raise SystemExit(
+            "maintenance subcommands run in memory in this port; the "
+            "out-of-core backend is ROADMAP.md queue 1 item 2")
     g = make_graph(args)
     print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges")
+    if args.cmd:
+        with obs.span("launch.update", cmd=args.cmd):
+            run_maintenance(args, g)
+        return
     res, dt = run_build(args, g)
     report(args, res, dt)
     if args.oocore and not args.workdir:

@@ -47,6 +47,10 @@ def test_launcher_defaults_match_reference():
     mine = vars(launcher.build_parser().parse_args([]))
     theirs = vars(ref_parser().parse_args([]))
     assert mine.pop("device") == "cuda"
+    # declared divergence: maintenance propagates on the device unless
+    # --host-maintenance asks for the host (the reference opts in)
+    assert mine.pop("device_maintenance") is True
+    assert theirs["device_maintenance"] is False
     for key, value in mine.items():
         assert theirs[key] == value, key
 

@@ -432,3 +432,72 @@ def test_card_serve_equals_cpu_serve(cuda):
                                                      * eng.stats.waves)
     assert got == ServeEngine(cpu, max_batch=2, max_seq=64).serve(
         reqs, max_new=8)
+
+
+# frontier shapes of maintenance: (lanes, num_sigs, padding lanes) —
+# short batches, more rows than lanes (many empty segments), padding
+# lanes with seg >= num_sigs, and one batch past a warp and a CTA tile
+FRONTIER_CASES = [(1, 1, 0), (3, 40, 5), (37, 5, 3), (500, 2000, 12),
+                  (4097, 300, 1023), (70000, 9000, 0)]
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("n,num_sigs,pad", FRONTIER_CASES)
+def test_frontier_fold_matches_plain(cuda, n, num_sigs, pad, dedup):
+    rng = np.random.default_rng(n + num_sigs)
+    seg = np.concatenate([np.sort(rng.integers(0, num_sigs, n)),
+                          num_sigs + rng.integers(0, 3, pad)])
+    a = rng.integers(0, 3, n + pad) - 2 ** 31 + 5
+    b = rng.integers(0, 4, n + pad) + 2 ** 31 - 7
+    order = np.lexsort((b, a, seg))  # presorted: equal triples adjacent
+    lanes = [torch.from_numpy(x[order].astype(np.int64).astype(np.int32))
+             .to(cuda) for x in (a, b, seg)]
+    lanes.append(torch.arange(n + pad, device=cuda) < n)
+    before = tfold.sig_fold.launches
+    got = tfold.frontier_sig_fold(*lanes, num_sigs=num_sigs, dedup=dedup)
+    torch.cuda.synchronize()
+    assert tfold.sig_fold.launches == before + 1
+    want = tfold.sig_fold_plain(*lanes, nodes_per_block=num_sigs,
+                                edges_per_block=n + pad, dedup=dedup,
+                                presorted=True)
+    assert torch.equal(got, want)
+
+
+def _maintenance_stream(m, seed: int, steps: int = 6) -> None:
+    """A seeded stream of edge inserts and deletes, node deletes, a
+    compact and a Change-k (the draws depend only on the rng and the
+    maintained graph)."""
+    rng = np.random.default_rng(seed)
+    for step in range(steps):
+        n = m.backend.num_nodes
+        if step % 3 == 0:
+            cnt = int(rng.integers(1, 40))
+            m.add_edges(rng.integers(0, n, cnt), rng.integers(0, 3, cnt),
+                        rng.integers(0, n, cnt))
+        elif step % 3 == 1:
+            g = m.graph
+            take = rng.integers(0, g.num_edges, 5)
+            m.delete_edges(g.src[take], g.elabel[take], g.dst[take])
+        else:
+            m.delete_node(int(rng.integers(0, n)))
+    m.compact()
+    m.change_k(m.k + 1)
+
+
+@pytest.mark.parametrize("mode", ["sorted", "dedup_hash", "multiset"])
+def test_card_maintenance_equals_cpu(cuda, mode):
+    """The same stream maintained with device propagation on the card
+    (every frontier fold through the kernel) and on the CPU: equal pid
+    histories, next_pid and stores."""
+    from repro_torch.core import BisimMaintainer
+    g = gen.powerlaw_graph(3000, 15000, 4, 3, seed=1)
+    card = BisimMaintainer(g, 4, mode=mode, device=cuda)
+    before = tfold.sig_fold.launches
+    _maintenance_stream(card, 7)
+    assert tfold.sig_fold.launches > before
+    cpu = BisimMaintainer(g, 4, mode=mode, device="cpu")
+    _maintenance_stream(cpu, 7)
+    assert card.k == cpu.k and list(card.next_pid) == list(cpu.next_pid)
+    for j in range(card.k + 1):
+        np.testing.assert_array_equal(card.pids[j], cpu.pids[j])
+        assert card.stores[j].to_dict() == cpu.stores[j].to_dict()
