@@ -50,6 +50,31 @@ Phases, each printing one JSON line:
 7b. frontier_kernels — ``frontier_sig_fold`` against its plain version
              and timed at the largest and the median batch the
              maintenance phase folded, both dedup settings;
+7c. ooc_maintenance_parity — `exmem.OocBackend` maintenance of the
+             parity graph at k=10 (``sorted``, ``multiset``; 2^16-edge
+             chunks, stores that spill at 2^14 entries) on the card with
+             device propagation, on the card with host propagation and on
+             the CPU, fed the same ops (1 and 1,000 random inserts, 100
+             edges deleted, 10 new nodes, DELETE_NODE, compact, Change-k
+             10 -> 6 -> 10): after every op equal pid files, next_pid,
+             tombstones, ``IOStats`` and store states; then a WAL'd card
+             run snapshotted after op 2, its fault points counted, killed
+             at a point drawn from ``default_rng(0)``, restored and
+             finished, must give the never-killed pid history;
+7d. ooc_maintenance — the same 8M-node graph maintained out of core at
+             k=4 (its partition stops changing at level 4), ``sorted``,
+             2^20-edge chunks, with the write-ahead log, beside an
+             in-memory maintainer on the card: the build (its
+             ``chunk_sig_fold`` launches equal the chunks folded), 1,000
+             and 100,000 random inserts, DELETE_NODE, a snapshot,
+             1,000 inserts, a crash (no close) and recovery with device
+             propagation (pid files bit-identical), 1,000 more inserts;
+             one line an op (frontier and changed nodes a level, rebuilt,
+             out-of-core and in-memory walls, the ``IOStats`` delta,
+             ``frontier_sig_fold`` launches, spilled runs, peak card
+             memory); every level the in-memory partition after each op
+             and a fresh card build's at the end; it fails unless some op
+             went through ``frontier_sig_fold`` without a rebuild;
 8. attention — ``flash_attention`` against its plain PyTorch version on
              the card (2e-5 in f32, 2e-2 in bf16) on the JAX package's
              attention test cases, odd lengths, and the bf16 (wgmma)
@@ -1072,6 +1097,402 @@ def phase_frontier_kernels(folds) -> dict:
     return out
 
 
+# the out-of-core maintenance phases: the parity graph at k=10 in two
+# modes with stores that spill, then the full graph at k=4 (its partition
+# stops changing at level 4, so k=4 keeps every level that differs, and
+# each out-of-core level of the backend's build takes 22-28 s there); the
+# ops (name, count) in order, drawn as the launcher draws them
+OOC_PARITY = dict(k=10, modes=("sorted", "multiset"), spill_threshold=1 << 14,
+                  seed=0, snapshot_after=2)
+OOC_PARITY_OPS = (("add-edges", 1), ("add-edges", 1000),
+                  ("delete-edges", 100), ("add-nodes", 10),
+                  ("delete-node", 1), ("compact", 0), ("change-k", 6),
+                  ("change-k", 10))
+OOC_MAINT = dict(k=4, mode="sorted", chunk_edges=1 << 20, io_threads=1,
+                 seed=0)
+# (no single insert: it takes the 1,000-insert op's path and ~20 s, the
+# parity phase runs one, and the whole script must stay near 15 minutes)
+OOC_MAINT_OPS = (("add-edges", 1000), ("add-edges", 100_000),
+                 ("delete-node", 1), ("snapshot", 0), ("add-edges", 1000))
+OOC_WORKDIR = ROOT / "build" / "ooc-maint-smoke"  # removed at exit
+
+
+def _draw_ooc_op(op: str, count: int, g, num_nodes: int, rng, launcher):
+    """The arguments of one op: random inserts as ``add-edges --count``
+    draws them, existing edges of ``g`` (distinct) to delete, labels of
+    new nodes, a random node to delete, the new k."""
+    import argparse
+    if op == "add-edges":
+        return launcher.draw_edges(argparse.Namespace(edge=[], count=count),
+                                   num_nodes, rng)
+    if op == "delete-edges":
+        idx = rng.choice(g.num_edges, count, replace=False)
+        return g.src[idx], g.elabel[idx], g.dst[idx]
+    if op == "add-nodes":
+        return rng.integers(0, 4, count)
+    if op == "delete-node":
+        return int(rng.integers(0, num_nodes))
+    return count
+
+
+def _apply_ooc_op(m, op: str, draw):
+    """Apply one drawn op; its report, else None."""
+    if op == "add-edges":
+        return m.add_edges(*draw)
+    if op == "delete-edges":
+        return m.delete_edges(*draw)
+    if op == "add-nodes":
+        m.add_nodes(draw)
+    elif op == "delete-node":
+        return m.delete_node(draw)
+    elif op == "compact":
+        m.compact()
+    elif op == "change-k":
+        m.change_k(draw)
+    elif op == "snapshot":
+        m.snapshot()
+    return None
+
+
+def _ooc_state(m) -> dict:
+    """What must be equal between out-of-core maintainers: pid files as
+    they lie on disk, next_pid, tombstones, IOStats, and each store's run
+    state after a flush (every maintainer compared is flushed alike)."""
+    import numpy as np
+    for s in m.backend.stores:
+        s.flush()
+    return {"pids": [np.load(p) for p in m.backend.pid_paths],
+            "next_pid": list(m.next_pid), "tombstone": m._tombstone.copy(),
+            "io": m.backend.io.to_dict(),
+            "stores": [s.state() for s in m.backend.stores]}
+
+
+def _same_ooc_state(a: dict, b: dict) -> bool:
+    import numpy as np
+    return (len(a["pids"]) == len(b["pids"])
+            and all(np.array_equal(x, y)
+                    for x, y in zip(a["pids"], b["pids"]))
+            and a["next_pid"] == b["next_pid"]
+            and np.array_equal(a["tombstone"], b["tombstone"])
+            and a["io"] == b["io"] and a["stores"] == b["stores"])
+
+
+def phase_ooc_maintenance_parity() -> dict:
+    """`OocBackend` maintenance on the card with device propagation, on
+    the card with host propagation and on the CPU (plain folds), fed the
+    same ops on the parity graph: after every op the three must be equal
+    bit for bit (pid files, next_pid, tombstones, IOStats, stores).  Then
+    a WAL'd run on the card: snapshot after op 2, an observer pass counts
+    the fault points of the rest, a second run is killed at a point
+    drawn from ``default_rng(0)``, restored and finished; its pid history
+    must equal the never-killed run's."""
+    import numpy as np
+    from repro_torch.core import BisimMaintainer, faults
+    from repro_torch.exmem import OocBackend
+    from repro_torch.graph import generators as gen
+    from repro_torch.kernels.sig_fold import chunk_sig_fold, sig_fold
+    from repro_torch.launch import bisim as launcher
+    t0 = time.perf_counter()
+    g = gen.powerlaw_graph(PARITY["nodes"], PARITY["edges"], 4, 3, seed=0)
+    k = OOC_PARITY["k"]
+    bkw = dict(chunk_edges=OOCORE["parity_chunk_edges"],
+               spill_threshold=OOC_PARITY["spill_threshold"])
+
+    def maintainer(name, mode, device, prop, **kw):
+        be = OocBackend(g, workdir=str(OOC_WORKDIR / f"parity-{name}"),
+                        device=device, **bkw, **kw)
+        return BisimMaintainer(be, k, mode=mode, device_propagation=prop,
+                               wal=kw.get("wal", False))
+
+    def draws():
+        rng = np.random.default_rng(OOC_PARITY["seed"])
+        n = g.num_nodes
+        out = []
+        for op, count in OOC_PARITY_OPS:
+            out.append(_draw_ooc_op(op, count, g, n, rng, launcher))
+            n += count if op == "add-nodes" else 0
+        return out
+
+    rows, ok, clean = [], True, None
+    for mode in OOC_PARITY["modes"]:
+        ms = {name: maintainer(f"{mode}-{name}", mode, dev, prop)
+              for name, dev, prop in (("card", DEVICE, True),
+                                      ("card_host", DEVICE, False),
+                                      ("cpu", "cpu", True))}
+        for (op, count), draw in zip(OOC_PARITY_OPS, draws()):
+            launches = {}
+            for name, m in ms.items():
+                sig_fold.launches = chunk_sig_fold.launches = 0
+                rep = _apply_ooc_op(m, op, draw)
+                launches[name] = (sig_fold.launches, chunk_sig_fold.launches)
+            states = {name: _ooc_state(m) for name, m in ms.items()}
+            equal = (_same_ooc_state(states["card"], states["cpu"])
+                     and _same_ooc_state(states["card_host"],
+                                         states["cpu"]))
+            row = {"phase": "ooc_maintenance_parity", "mode": mode,
+                   "op": op, "count": count,
+                   "frontier": rep.nodes_checked if rep else None,
+                   "rebuilt": bool(rep is not None and rep.rebuilt),
+                   "frontier_sig_fold_launches": launches["card"][0],
+                   "chunk_sig_fold_launches": launches["card"][1],
+                   "cpu_launches": launches["cpu"],
+                   "io": states["card"]["io"], "equal": bool(equal)}
+            emit(row)
+            rows.append(row)
+            ok &= equal and launches["cpu"] == (0, 0)
+        if mode == OOC_PARITY["modes"][0]:
+            clean = states["card"]
+        for m in ms.values():
+            m.backend.close()
+    # the WAL'd run: count the fault points past the snapshot, then kill
+    mode, snap = OOC_PARITY["modes"][0], OOC_PARITY["snapshot_after"]
+    ops = list(zip(OOC_PARITY_OPS, draws()))
+    kw = dict(wal=True, io_threads=0)
+    m = maintainer("wal-observer", mode, DEVICE, True, **kw)
+    lsn_after = []
+    for (op, _), draw in ops[:snap]:
+        _apply_ooc_op(m, op, draw)
+        lsn_after.append(m.backend._wal.last_lsn)
+    m.snapshot()
+    with faults.install_fault_plan(faults.FaultPlan()) as seen:
+        for (op, _), draw in ops[snap:]:
+            _apply_ooc_op(m, op, draw)
+            lsn_after.append(m.backend._wal.last_lsn)
+    # the WAL'd run's IOStats and stores carry its snapshot: compare pids
+    observer = _ooc_state(m)
+    observer_equal = (len(observer["pids"]) == len(clean["pids"])
+                      and all(np.array_equal(a, b) for a, b in
+                              zip(observer["pids"], clean["pids"]))
+                      and observer["next_pid"] == clean["next_pid"])
+    m.backend.close()
+    total = seen.points_seen
+    kill_at = int(np.random.default_rng(0).integers(1, total + 1))
+    m = maintainer("wal-killed", mode, DEVICE, True, **kw)
+    for (op, _), draw in ops[:snap]:
+        _apply_ooc_op(m, op, draw)
+    m.snapshot()
+    crashed = False
+    with faults.install_fault_plan(faults.FaultPlan(crash_at=kill_at)):
+        try:
+            for (op, _), draw in ops[snap:]:
+                _apply_ooc_op(m, op, draw)
+        except faults.InjectedCrash:
+            crashed = True
+    m.backend.aio.close()  # the dead process: no close(), no snapshot
+    be, state = OocBackend.restore(str(OOC_WORKDIR / "parity-wal-killed"),
+                                   io_threads=0, device=DEVICE)
+    m = BisimMaintainer.restore(be, state)
+    done = 0
+    while done < len(ops) and lsn_after[done] <= be._wal.committed_lsn:
+        done += 1
+    for (op, _), draw in ops[done:]:
+        _apply_ooc_op(m, op, draw)
+    recovered = _ooc_state(m)
+    recovered_equal = (crashed and m.k == k and all(
+        np.array_equal(a, b) for a, b in zip(recovered["pids"],
+                                              clean["pids"]))
+        and len(recovered["pids"]) == len(clean["pids"])
+        and recovered["next_pid"] == clean["next_pid"])
+    be.close()
+    out = {"phase": "ooc_maintenance_parity",
+           "graph": {"generator": "powerlaw", "nodes": g.num_nodes,
+                     "edges": g.num_edges},
+           "k": k, "modes": list(OOC_PARITY["modes"]), **bkw,
+           "ops_equal": all(r["equal"] for r in rows),
+           "frontier_sig_fold_launches": sum(
+               r["frontier_sig_fold_launches"] for r in rows),
+           "chunk_sig_fold_launches": sum(
+               r["chunk_sig_fold_launches"] for r in rows),
+           "wal": {"fault_points": total, "killed_at": kill_at,
+                   "crashed": crashed, "ops_replayed_or_kept": done,
+                   "observer_equal_clean": bool(observer_equal),
+                   "recovered_equal_clean": bool(recovered_equal)},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    shutil.rmtree(OOC_WORKDIR, ignore_errors=True)
+    if not (ok and observer_equal and recovered_equal):
+        raise SystemExit("ooc_maintenance_parity: card and CPU differ, or "
+                         "the recovered run is not the clean run")
+    return out
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def phase_ooc_maintenance(g) -> dict:
+    """`OocBackend` maintenance of the full graph at k=4, ``sorted``, with
+    the write-ahead log: one maintainer propagating on the card and an
+    in-memory maintainer on the card beside it take the same ops; after
+    each, every level's partition must equal the in-memory one.  After
+    the snapshot and 1,000 more inserts the out-of-core maintainer is
+    dropped without a close (a crash), restored with device propagation,
+    and must give back the pre-crash pid files bit for bit; one more
+    1,000 inserts go to both, and every level must then be the partition
+    of a fresh card build.  The kernels' counts are set to 0 just before
+    each op and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import BisimMaintainer, build_bisim
+    from repro_torch.exmem import OocBackend
+    from repro_torch.kernels.sig_fold import chunk_sig_fold, sig_fold
+    from repro_torch.launch import bisim as launcher
+    k, mode = OOC_MAINT["k"], OOC_MAINT["mode"]
+    wd = OOC_WORKDIR / "full"
+
+    def same_levels(m, mem) -> bool:
+        return len(m.backend.pid_paths) == k + 1 and all(
+            _same_partition(np.load(p), mem.pids[j])
+            for j, p in enumerate(m.backend.pid_paths))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backend = OocBackend(g, chunk_edges=OOC_MAINT["chunk_edges"],
+                         io_threads=OOC_MAINT["io_threads"], wal=True,
+                         workdir=str(wd), device=DEVICE)
+    spill_s = time.perf_counter() - t0
+    sig_fold.launches = chunk_sig_fold.launches = 0
+    t0 = time.perf_counter()
+    with obs.tracing() as tracer:
+        m = BisimMaintainer(backend, k, mode=mode, wal=True)
+    torch.cuda.synchronize()
+    build = {"phase": "ooc_maintenance", "op": "build",
+             "spill_tables_s": spill_s, "wall_s": time.perf_counter() - t0,
+             "chunk_sig_fold_launches": chunk_sig_fold.launches,
+             "chunks_folded": len(tracer.find("build.fold")),
+             "io": backend.io.to_dict(),
+             "store_sizes": [len(s) for s in backend.stores],
+             "spilled_runs": [s.num_spilled_runs for s in backend.stores],
+             "peak_bytes": torch.cuda.max_memory_allocated()}
+    del tracer
+    t0 = time.perf_counter()
+    mem = BisimMaintainer(g, k, mode=mode, device=DEVICE)
+    torch.cuda.synchronize()
+    build["inmemory_wall_s"] = time.perf_counter() - t0
+    build["same_partition"] = same_levels(m, mem)
+    emit(build)
+    ok = (build["chunk_sig_fold_launches"] == build["chunks_folded"] > 0
+          and build["same_partition"])
+    rng = np.random.default_rng(OOC_MAINT["seed"])
+    rows, snap = [], None
+    for op, count in OOC_MAINT_OPS + (("crash", 0), ("add-edges", 1000)):
+        if op == "crash":
+            before = _ooc_state(m)
+            backend.aio.close()  # the crash: no close(), no snapshot
+            del m, backend
+            t0 = time.perf_counter()
+            backend, state = OocBackend.restore(
+                str(wd), io_threads=OOC_MAINT["io_threads"], device=DEVICE)
+            replayed = []
+            records = backend.wal_replay_records
+
+            def counted(after_lsn=0):
+                for rec in records(after_lsn=after_lsn):
+                    replayed.append(rec[0])
+                    yield rec
+            backend.wal_replay_records = counted
+            m = BisimMaintainer.restore(backend, state)
+            del backend.wal_replay_records
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            io = backend.io.to_dict()
+            after = _ooc_state(m)
+            row = {"phase": "ooc_maintenance", "op": "recover",
+                   "seconds": seconds, "verified_bytes": io["scan_bytes"],
+                   "io": io, "wal_records_replayed": len(replayed),
+                   "wal_lsn": state["wal_lsn"],
+                   "pid_files_equal": (
+                       len(after["pids"]) == len(before["pids"])
+                       and all(np.array_equal(a, b) for a, b in
+                               zip(after["pids"], before["pids"]))),
+                   "next_pid_equal": after["next_pid"] == before["next_pid"],
+                   "tombstones_equal": bool(np.array_equal(
+                       after["tombstone"], before["tombstone"]))}
+            emit(row)
+            ok &= (row["pid_files_equal"] and row["next_pid_equal"]
+                   and row["tombstones_equal"] and len(replayed) > 0)
+            rows.append(row)
+            continue
+        draw = _draw_ooc_op(op, count, g, backend.num_nodes, rng, launcher)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        io0 = backend.io.to_dict()
+        sig_fold.launches = chunk_sig_fold.launches = 0
+        t0 = time.perf_counter()
+        rep = _apply_ooc_op(m, op, draw)
+        torch.cuda.synchronize()
+        ooc_s = time.perf_counter() - t0
+        launches = (sig_fold.launches, chunk_sig_fold.launches)
+        peak = torch.cuda.max_memory_allocated()
+        io1 = backend.io.to_dict()
+        row = {"phase": "ooc_maintenance", "op": op, "count": count,
+               "oocore_s": ooc_s,
+               "io_delta": {key: io1[key] - io0[key] for key in io1},
+               "peak_bytes": peak}
+        if op == "snapshot":
+            row["written_bytes"] = _dir_bytes(wd / "snapshot")
+            row["wal_lsn"] = backend._wal.committed_lsn
+        else:
+            t0 = time.perf_counter()
+            mem_rep = _apply_ooc_op(mem, op, draw)
+            torch.cuda.synchronize()
+            row.update(
+                inmemory_s=time.perf_counter() - t0,
+                frontier=rep.nodes_checked, changed=rep.nodes_changed,
+                rebuilt=rep.rebuilt,
+                frontier_sig_fold_launches=launches[0],
+                chunk_sig_fold_launches=launches[1],
+                spilled_runs=[s.num_spilled_runs for s in backend.stores],
+                store_sizes=[len(s) for s in backend.stores],
+                reports_equal=all(
+                    getattr(rep, f) == getattr(mem_rep, f)
+                    for f in ("nodes_checked", "nodes_changed", "rebuilt")),
+                same_partition=same_levels(m, mem))
+            ok &= row["same_partition"] and row["reports_equal"]
+        emit(row)
+        rows.append(row)
+    t0 = time.perf_counter()
+    final = m.graph
+    graph_equal = all(np.array_equal(getattr(final, c), getattr(mem.graph, c))
+                      for c in ("node_labels", "src", "dst", "elabel"))
+    fresh = build_bisim(final, k, mode=mode, early_stop=False, device=DEVICE)
+    fresh_equal = all(_same_partition(np.load(p), fresh.pids[j])
+                      for j, p in enumerate(m.backend.pid_paths))
+    check_s = time.perf_counter() - t0
+    m.backend.close()
+    shutil.rmtree(OOC_WORKDIR, ignore_errors=True)
+    propagated = [(r["op"], r["count"]) for r in rows
+                  if r.get("frontier_sig_fold_launches")
+                  and not r.get("rebuilt")]
+    out = {"phase": "ooc_maintenance", "k": k, "mode": mode,
+           "graph": {"generator": "powerlaw", "nodes": g.num_nodes,
+                     "edges": g.num_edges},
+           **{key: OOC_MAINT[key] for key in ("chunk_edges", "io_threads")},
+           "build_chunk_sig_fold_launches": build["chunk_sig_fold_launches"],
+           "chunk_sig_fold_launches": build["chunk_sig_fold_launches"] + sum(
+               r.get("chunk_sig_fold_launches", 0) for r in rows),
+           "frontier_sig_fold_launches": sum(
+               r.get("frontier_sig_fold_launches", 0) for r in rows),
+           "propagated_on_device": propagated,
+           "graph_equal_inmemory": graph_equal,
+           "fresh_build_same_partition": fresh_equal, "check_s": check_s,
+           "oocore_s": sum(r.get("oocore_s", 0) for r in rows),
+           "inmemory_s": sum(r.get("inmemory_s", 0) for r in rows),
+           "ok": bool(ok and graph_equal and fresh_equal and propagated)}
+    emit(out)
+    if not propagated:
+        raise SystemExit("ooc_maintenance: no op propagated through "
+                         "frontier_sig_fold on the card without a rebuild")
+    if not out["ok"]:
+        raise SystemExit("ooc_maintenance: the out-of-core maintainer "
+                         "differs from the in-memory one or the fresh "
+                         "build, or recovery is not bit-identical")
+    return out
+
+
 # b, hq, hkv, sq, skv, d, causal, window, softcap, dtype: the JAX
 # package's attention test cases (`tests/test_kernels.py::ATTN_CASES`),
 # then odd lengths as serving prompts have them (the Pallas wrapper
@@ -1461,8 +1882,13 @@ def main() -> int:
         shutil.rmtree(WORKDIR, ignore_errors=True)
     del inmem
     maint, folds = phase_maintenance(g)
-    del g
     frontier = phase_frontier_kernels(folds)
+    try:
+        phase_ooc_maintenance_parity()
+        ooc_maint = phase_ooc_maintenance(g)
+    finally:
+        shutil.rmtree(OOC_WORKDIR, ignore_errors=True)
+    del g
     attn = phase_attention()
     phase_serve_parity()
     serve, eng, reqs = phase_serve()
@@ -1485,6 +1911,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/sig_fold.cu",
         "replaces": "src/repro/kernels/sig_fold.py:199",
         "launches": maint["frontier_sig_fold_launches"],
+        "ooc_maintenance_launches": ooc_maint["frontier_sig_fold_launches"],
         "max_abs_err": frontier["max_abs_err"],
         **{k: big[k] for k in times}, "shape": big["shape"],
         "median_batch": {k: frontier["cases"]["median dedup=True"][k]
@@ -1494,6 +1921,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/sig_fold.cu",
         "replaces": "src/repro/kernels/sig_fold.py:221",
         "launches": ooc["chunk_sig_fold_launches"],
+        "ooc_maintenance_launches": ooc_maint["chunk_sig_fold_launches"],
         "max_abs_err": chunk["max_abs_err"],
         **{k: chunk[k] for k in times}, "shape": chunk["shape"],
         "build_mean_chunk": {k: chunk["shapes"]["build mean chunk"][k]

@@ -14,7 +14,14 @@ The port of `repro.core.maintenance`, split as the reference splits it:
     `InMemoryBackend` below keeps the graph, CSR indexes and pid history
     on the host and, with device propagation, the per-level stores on
     the card (`core.device_maint.DeviceSigStore`).  The out-of-core
-    backend and the write-ahead log are a later slice of the port.
+    backend, `repro_torch.exmem.OocBackend`, keeps all of it on disk and
+    owns the write-ahead log.
+
+  * Durability (``wal=True``, on a backend with a write-ahead log): every
+    outermost logical update is appended to the log before it mutates
+    anything (the redo rule); `snapshot` commits the log and persists the
+    backend's state; `restore` reopens a backend's snapshot and replays
+    the committed records past it through these same update methods.
 
 Signature modes: set semantics (`sorted` / `dedup_hash`, which hash
 identically here) and `multiset`, which skips the (eLabel, pId) dedup as
@@ -38,6 +45,7 @@ the device either ran there or stopped.
 from __future__ import annotations
 
 import abc
+import contextlib
 import dataclasses
 import time
 from typing import Iterable, Optional
@@ -261,9 +269,9 @@ class MaintenanceBackend(abc.ABC):
         the stored state)."""
 
     # ------------------------------------------------------------ durability
-    # A durable backend (the out-of-core one with its write-ahead log, a
-    # later slice of the port) overrides these; the defaults describe a
-    # volatile backend with nothing to log or restore.
+    # A durable backend (`exmem.OocBackend` with its write-ahead log)
+    # overrides these; the defaults describe a volatile backend with
+    # nothing to log or restore.
     wal_supported: bool = False
 
     def wal_append(self, op: str, arrays: dict) -> int:
@@ -573,14 +581,17 @@ class BisimMaintainer:
     port has no silent or degrading fallback (the reference's
     ``device: bool`` had both).
 
-    The write-ahead log (the reference's ``wal=True``) arrives with the
-    out-of-core backend, the only one that has one.
+    ``wal=True`` logs every logical update to the backend's write-ahead
+    log before applying it (the redo rule), so `snapshot()` and
+    `BisimMaintainer.restore` recover the maintained partition after a
+    crash.  It needs a backend with ``wal_supported``
+    (`exmem.OocBackend(wal=True)`) and raises on any other.
     """
 
     def __init__(self, graph, k: int, *, mode: str = "sorted",
                  rebuild_threshold: float = 0.5,
                  result: Optional[BisimResult] = None, device=None,
-                 device_propagation: bool = True):
+                 device_propagation: bool = True, wal: bool = False):
         if mode not in ("sorted", "dedup_hash", "multiset"):
             raise ValueError(f"unknown signature mode: {mode}")
         self.k = k
@@ -595,6 +606,14 @@ class BisimMaintainer:
                     f"{self.backend.device}")
         else:
             self.backend = InMemoryBackend(graph, device=device)
+        if wal and not self.backend.wal_supported:
+            raise ValueError(
+                "wal=True requires a backend with a write-ahead log "
+                "(OocBackend(wal=True)); refusing to silently drop "
+                "durability")
+        self.wal = bool(wal)
+        self._in_replay = False
+        self._wal_depth = 0
         self.device = self.backend.device
         # delete_node leaves an isolated tombstone row (dense id space);
         # compact() later drops the flagged rows and remaps ids.
@@ -610,15 +629,42 @@ class BisimMaintainer:
         # (fresh build, §4.2 rebuild, compact, change_k).
         self.last_changed = None
 
+    # ------------------------------------------------------------ durability
+    @contextlib.contextmanager
+    def _logged(self, op: str, **arrays):
+        """Write-ahead one logical update (the record reaches the log
+        before the mutation starts), then run it.  Nested ops
+        (delete_node's inner delete_edges) and replayed ops are not
+        logged again: the log holds outermost logical updates only."""
+        if self.wal and not self._in_replay and not self._wal_depth:
+            self.backend.wal_append(op, arrays)
+        self._wal_depth += 1
+        try:
+            yield
+        finally:
+            self._wal_depth -= 1
+
+    @contextlib.contextmanager
+    def already_logged(self):
+        """Run update methods without logging them: for callers that
+        appended the records to the log themselves, before applying."""
+        self._wal_depth += 1
+        try:
+            yield
+        finally:
+            self._wal_depth -= 1
+
     def apply_ops(self, ops, *, logged: bool = True):
         """Apply a batch of mixed logical updates in order.
 
         ``ops`` is an iterable of ``(op_name, arrays)`` pairs in
-        `_REPLAY_OPS` form (the reference's WAL record vocabulary).
-        Application order is the given order, so the pid history equals
-        applying each op on its own.  ``logged=False`` (records a caller
-        already logged) skips and counts the ops the backend rejects
-        (ValueError/OverflowError); ``logged=True`` re-raises them.
+        `_REPLAY_OPS` form (the WAL's record vocabulary).  Application
+        order is the given order, so the pid history equals applying each
+        op on its own, and a WAL replay of the same records.
+        ``logged=False`` declares the records already logged by the
+        caller: nothing is logged again, and the ops the backend rejects
+        (ValueError/OverflowError) are skipped and counted, as replay
+        skips them; ``logged=True`` logs each op and re-raises them.
 
         Returns ``(report, rejected)``: the merged `MaintenanceReport`
         (padded to k levels) and the rejected-op count.  Afterwards
@@ -630,30 +676,45 @@ class BisimMaintainer:
         union = [np.empty(0, dtype=np.int64) for _ in range(self.k + 1)]
         poisoned = False
         rejected = 0
-        for op, arrays in ops:
-            self.last_changed = None
-            try:
-                out = self._REPLAY_OPS[op](self, arrays)
-            except (ValueError, OverflowError):
-                if logged:
-                    raise
-                rejected += 1
-                continue
-            if isinstance(out, MaintenanceReport):
-                merged.merge(out)
-            if poisoned:
-                continue
-            if self.last_changed is None or op == "change_k":
-                poisoned = True  # everything, or the level count, moved
-            else:
-                if len(self.last_changed) > len(union):
-                    union.extend(np.empty(0, dtype=np.int64)
-                                 for _ in range(len(self.last_changed)
-                                                - len(union)))
-                union = [np.union1d(u, c) for u, c in
-                         zip(union, self.last_changed)]
+        ctx = contextlib.nullcontext if logged else self.already_logged
+        with ctx():
+            for op, arrays in ops:
+                self.last_changed = None
+                try:
+                    out = self._REPLAY_OPS[op](self, arrays)
+                except (ValueError, OverflowError):
+                    if logged:
+                        raise
+                    rejected += 1
+                    continue
+                if isinstance(out, MaintenanceReport):
+                    merged.merge(out)
+                if poisoned:
+                    continue
+                if self.last_changed is None or op == "change_k":
+                    poisoned = True  # everything, or the level count, moved
+                else:
+                    if len(self.last_changed) > len(union):
+                        union.extend(np.empty(0, dtype=np.int64)
+                                     for _ in range(len(self.last_changed)
+                                                    - len(union)))
+                    union = [np.union1d(u, c) for u, c in
+                             zip(union, self.last_changed)]
         self.last_changed = None if poisoned else union
         return self._pad_report(merged), rejected
+
+    def snapshot(self) -> None:
+        """Persist the maintained partition durably: commit the log, then
+        hand the backend what a restore needs beyond its own storage (k,
+        mode, tombstones, whether the log is on).  The backend prunes the
+        records the snapshot absorbed."""
+        if self.wal:
+            self.backend.wal_flush()
+        self.backend.snapshot(dict(
+            k=int(self.k), mode=self.mode,
+            rebuild_threshold=float(self.rebuild_threshold),
+            wal=bool(self.wal),
+            tombstone=np.asarray(self._tombstone, dtype=bool)))
 
     _REPLAY_OPS = {
         "add_nodes": lambda m, a: m.add_nodes(a["labels"]),
@@ -666,10 +727,51 @@ class BisimMaintainer:
         "change_k": lambda m, a: m.change_k(int(a["new_k"][0])),
     }
 
+    @classmethod
+    def restore(cls, backend: MaintenanceBackend, state: dict, *,
+                device_propagation: bool = True) -> "BisimMaintainer":
+        """A maintainer over a backend's restored snapshot (``(backend,
+        state)`` from `exmem.OocBackend.restore`), with every committed
+        WAL record past the snapshot's lsn replayed through the update
+        methods.  The pre-crash live state is not consulted: recovery is
+        snapshot plus committed redo, so a crash mid-update never leaves
+        a partly applied batch.  ``device_propagation`` as in the
+        constructor: it raises on a backend without the capability."""
+        m = object.__new__(cls)
+        m.k = int(state["k"])
+        m.mode = state["mode"]
+        m.rebuild_threshold = float(state["rebuild_threshold"])
+        m.backend = backend
+        m.device = backend.device
+        m.wal = bool(state.get("wal", False)) and backend.wal_supported
+        m._wal_depth = 0
+        m._tombstone = np.asarray(state["tombstone"], dtype=bool)
+        m.device_propagation = bool(device_propagation)
+        if m.device_propagation and not backend.enable_device():
+            raise ValueError(
+                f"{type(backend).__name__} has no device propagation; "
+                "pass device_propagation=False for the host path")
+        m.last_changed = None
+        m._in_replay = True
+        try:
+            for _lsn, op, arrays in backend.wal_replay_records(
+                    after_lsn=int(state.get("wal_lsn", 0))):
+                try:
+                    cls._REPLAY_OPS[op](m, arrays)
+                except (ValueError, OverflowError):
+                    # the record reaches the log before validation, so an
+                    # op the backend rejected is logged too; it left no
+                    # state behind then and raises the same way now
+                    pass
+        finally:
+            m._in_replay = False
+        return m
+
     # ------------------------------------------------------------- queries
     @property
     def graph(self) -> Graph:
-        """The maintained graph."""
+        """The maintained graph; the out-of-core backend materializes a
+        copy (tests and small graphs only)."""
         return self.backend.graph
 
     @property
@@ -691,6 +793,14 @@ class BisimMaintainer:
     def pid(self, j: Optional[int] = None) -> np.ndarray:
         return self.backend.pid_column(self.k if j is None else j)
 
+    def result(self) -> BisimResult:
+        pids = [np.asarray(self.backend.pid_column(j), dtype=np.int64)
+                for j in range(self.k + 1)]
+        return BisimResult(
+            pids=np.stack(pids),
+            counts=[len(np.unique(p)) for p in pids], stats=[],
+            converged_at=None, k_requested=self.k)
+
     # ------------------------------------------------------- ADD_NODE(S)
     def add_node(self, label: int) -> int:
         """Algorithm 2: add one isolated node."""
@@ -699,23 +809,25 @@ class BisimMaintainer:
     def add_nodes(self, labels: Iterable[int]) -> list:
         """Algorithm 3: bulk insert isolated nodes (merge-join on labels)."""
         labels = np.asarray(list(labels), dtype=np.int32)
-        base = self.backend.add_node_rows(labels)
-        new_ids = list(range(base, base + labels.shape[0]))
-        self._tombstone = np.concatenate(
-            [self._tombstone, np.zeros(labels.shape[0], dtype=bool)])
-        # level 0: one bulk resolve of the label keys (merge-join)
-        p0 = self.backend.resolve(0, label_key(labels))
-        self.backend.append_pid_rows(0, p0)
-        # sig_j of an isolated node is (pId_0, {}) for every j >= 1: the
-        # empty-set combine is the identity (0, 0), so its hash only
-        # depends on p0 — one vectorized hash_triple per level.
-        zero = np.zeros(labels.shape[0], np.uint32)
-        hi, lo = hashes_np.hash_triple(zero, zero, p0)
-        keys = fuse_key(hi, lo)
-        for j in range(1, self.k + 1):
-            self.backend.append_pid_rows(j, self.backend.resolve(j, keys))
-        ids64 = np.asarray(new_ids, dtype=np.int64)
-        self.last_changed = [ids64.copy() for _ in range(self.k + 1)]
+        with self._logged("add_nodes", labels=labels):
+            base = self.backend.add_node_rows(labels)
+            new_ids = list(range(base, base + labels.shape[0]))
+            self._tombstone = np.concatenate(
+                [self._tombstone, np.zeros(labels.shape[0], dtype=bool)])
+            # level 0: one bulk resolve of the label keys (merge-join)
+            p0 = self.backend.resolve(0, label_key(labels))
+            self.backend.append_pid_rows(0, p0)
+            # sig_j of an isolated node is (pId_0, {}) for every j >= 1:
+            # the empty-set combine is the identity (0, 0), so its hash
+            # only depends on p0 — one vectorized hash_triple per level.
+            zero = np.zeros(labels.shape[0], np.uint32)
+            hi, lo = hashes_np.hash_triple(zero, zero, p0)
+            keys = fuse_key(hi, lo)
+            for j in range(1, self.k + 1):
+                self.backend.append_pid_rows(j,
+                                             self.backend.resolve(j, keys))
+            ids64 = np.asarray(new_ids, dtype=np.int64)
+            self.last_changed = [ids64.copy() for _ in range(self.k + 1)]
         return new_ids
 
     # ------------------------------------------------------- ADD_EDGE(S)
@@ -724,13 +836,14 @@ class BisimMaintainer:
         src = np.atleast_1d(np.asarray(src, dtype=np.int32))
         dst = np.atleast_1d(np.asarray(dst, dtype=np.int32))
         elabel = np.atleast_1d(np.asarray(elabel, dtype=np.int32))
-        # the backend range-validates before mutating, so a rejected
-        # insert must not re-animate anything
-        self.backend.add_edge_rows(src, elabel, dst)
-        # an edge incident to a tombstoned node re-animates it
-        self._tombstone[src] = False
-        self._tombstone[dst] = False
-        return self._propagate(frontier0=np.unique(src))
+        with self._logged("add_edges", src=src, elabel=elabel, dst=dst):
+            # the backend range-validates before mutating, so a rejected
+            # insert must not re-animate anything
+            self.backend.add_edge_rows(src, elabel, dst)
+            # an edge incident to a tombstoned node re-animates it
+            self._tombstone[src] = False
+            self._tombstone[dst] = False
+            return self._propagate(frontier0=np.unique(src))
 
     def add_edge(self, s: int, l: int, t: int) -> MaintenanceReport:
         return self.add_edges([s], [l], [t])
@@ -740,8 +853,9 @@ class BisimMaintainer:
         src = np.atleast_1d(np.asarray(src, dtype=np.int32))
         dst = np.atleast_1d(np.asarray(dst, dtype=np.int32))
         elabel = np.atleast_1d(np.asarray(elabel, dtype=np.int32))
-        self.backend.remove_edge_rows(src, elabel, dst)
-        return self._propagate(frontier0=np.unique(src))
+        with self._logged("delete_edges", src=src, elabel=elabel, dst=dst):
+            self.backend.remove_edge_rows(src, elabel, dst)
+            return self._propagate(frontier0=np.unique(src))
 
     def delete_node(self, nid: int) -> MaintenanceReport:
         """Remove a node: first its incident edges, then the node row."""
@@ -749,11 +863,13 @@ class BisimMaintainer:
             # reject before any mutation (negative ids would wrap around
             # and tombstone a live row)
             raise ValueError(f"node id out of range: {nid}")
-        src, elabel, dst = self.backend.incident_edges(nid)
-        rep = self.delete_edges(src, elabel, dst)
-        # The paper then drops the N_t row; a tombstone (isolated node)
-        # keeps the dense id space until compact() runs.
-        self._tombstone[nid] = True
+        with self._logged("delete_node",
+                          nid=np.asarray([nid], dtype=np.int64)):
+            src, elabel, dst = self.backend.incident_edges(nid)
+            rep = self.delete_edges(src, elabel, dst)
+            # The paper then drops the N_t row; a tombstone (isolated
+            # node) keeps the dense id space until compact() runs.
+            self._tombstone[nid] = True
         return rep
 
     def compact(self) -> np.ndarray:
@@ -771,9 +887,10 @@ class BisimMaintainer:
             empty = np.empty(0, dtype=np.int64)
             self.last_changed = [empty.copy() for _ in range(self.k + 1)]
             return remap
-        self.backend.compact(~dead, remap)
-        self._tombstone = np.zeros(self.backend.num_nodes, dtype=bool)
-        self.last_changed = None  # node ids moved: everything changed
+        with self._logged("compact"):
+            self.backend.compact(~dead, remap)
+            self._tombstone = np.zeros(self.backend.num_nodes, dtype=bool)
+            self.last_changed = None  # node ids moved: everything changed
         return remap
 
     @property
@@ -915,9 +1032,11 @@ class BisimMaintainer:
     def change_k(self, new_k: int) -> None:
         """§4 'Change k': decrease slices history; increase runs extra
         iterations of Algorithm 1 on top of the stored state."""
-        if new_k <= self.k:
-            self.backend.truncate_k(new_k)
-        else:
-            self.backend.extend_k(new_k, self.mode)
-        self.k = new_k
-        self.last_changed = None  # the level ladder itself moved
+        with self._logged("change_k",
+                          new_k=np.asarray([new_k], dtype=np.int64)):
+            if new_k <= self.k:
+                self.backend.truncate_k(new_k)
+            else:
+                self.backend.extend_k(new_k, self.mode)
+            self.k = new_k
+            self.last_changed = None  # the level ladder itself moved

@@ -1,8 +1,8 @@
 """External-memory subsystem of the port: graph size independent of RAM
-(paper §3).
+(paper §3-§4).
 
-The port of `repro.exmem`'s out-of-core build.  Each module maps onto a
-paper construct, as in the reference:
+The port of `repro.exmem`'s out-of-core build and maintenance.  Each
+module maps onto a paper construct, as in the reference:
 
   runs.py        §3.1's two I/O primitives: `external_sort` is `sort(X)`
                  (run formation plus a bounded-budget k-way merge of
@@ -16,25 +16,36 @@ paper construct, as in the reference:
                  per-chunk fold on the card through the Hopper
                  `chunk_sig_fold` kernel, and ranking through a
                  `SpillableSigStore`, with per-level checkpoint/resume.
+  maintenance.py §4 out of core: `OocBackend`, the disk-resident
+                 `MaintenanceBackend` of `core.BisimMaintainer` (graph
+                 tables, pid files and spillable stores on disk; frontier
+                 gathers as sequential scans and windowed pid joins, the
+                 frontier fold on the card, the reference's `IOStats`
+                 charge for charge), with snapshot and restore.
   aio.py         the async I/O pipeline (prefetch readers, streaming
                  writers, async run saves); it moves numpy chunks only.
-  durability.py  manifests and atomically published JSON states.
+  durability.py  manifests, atomically published JSON states, the
+                 group-commit write-ahead log of maintenance
+                 (`WriteAheadLog`) and the snapshot directory swap, in the
+                 reference's byte layout.
 
-The maintenance backend (`OocBackend`), the write-ahead log and the
-streaming service arrive with later slices.
+The streaming service arrives with a later slice.
 """
 from .aio import (AioConfig, AioStats, BoundedSaver, Pipeline,
                   PrefetchReader, ReadaheadArray, StreamingWriter)
 from .build import OocBisimResult, build_bisim_oocore
-from .durability import Manifest
+from .durability import (Manifest, WriteAheadLog, atomic_write_json,
+                         commit_dir_swap, read_json)
+from .maintenance import OocBackend
 from .runs import (IOStats, external_sort, lexsort_records, make_records,
                    merge_runs, rebuffer, sort_to_runs)
 from .tables import ChunkedColumn, OocGraph
 
 __all__ = [
-    "OocBisimResult", "build_bisim_oocore", "IOStats", "external_sort",
-    "lexsort_records", "make_records", "merge_runs", "rebuffer",
-    "sort_to_runs", "ChunkedColumn", "OocGraph", "AioConfig", "AioStats",
-    "BoundedSaver", "Pipeline", "PrefetchReader", "ReadaheadArray",
-    "StreamingWriter", "Manifest",
+    "OocBisimResult", "build_bisim_oocore", "OocBackend", "IOStats",
+    "external_sort", "lexsort_records", "make_records", "merge_runs",
+    "rebuffer", "sort_to_runs", "ChunkedColumn", "OocGraph", "AioConfig",
+    "AioStats", "BoundedSaver", "Pipeline", "PrefetchReader",
+    "ReadaheadArray", "StreamingWriter", "Manifest", "WriteAheadLog",
+    "atomic_write_json", "read_json", "commit_dir_swap",
 ]

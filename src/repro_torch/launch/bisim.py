@@ -8,22 +8,31 @@ unless ``--device cpu`` is given.
         --chunk-edges 65536 --generator structured --nodes 300000
 
 The ``add-edges`` / ``delete-node`` / ``compact`` subcommands apply one
-update to the built partition through `BisimMaintainer` (in memory) and
-print the reference's per-level report:
+update to the built partition through `BisimMaintainer` (in memory, or
+over the disk-resident `exmem.OocBackend` with ``--oocore``) and print
+the reference's per-level report; ``--oocore`` adds the update's
+``IOStats`` delta.  ``--wal --workdir DIR`` logs the update to the
+write-ahead log and snapshots afterwards; ``recover`` reopens such a
+workdir (the checksum-verified snapshot plus the committed log):
 
     PYTHONPATH=src python -m repro_torch.launch.bisim --nodes 1000000 \
         --edges 8000000 --k 10 add-edges --count 1000
+    PYTHONPATH=src python -m repro_torch.launch.bisim --oocore --wal \
+        --workdir /tmp/maint --k 4 add-edges --count 1000
+    PYTHONPATH=src python -m repro_torch.launch.bisim --oocore \
+        --workdir /tmp/maint recover
 
 Flags, defaults and output lines are those of `repro.launch.bisim`'s
-builds and maintenance subcommands (its out-of-core maintenance, WAL,
-quotient and streaming subcommands and its distributed engine arrive
-with their slices).  Propagation runs on the device by default
-(``--device-maintenance``, the reference's opt-in); ``--host-maintenance``
-asks for the numpy host path.  ``--checkpoint --workdir DIR`` makes the
-out-of-core build write a per-level checkpoint; ``--resume`` continues a
-killed build from the last finished level.  ``--trace PATH`` writes a
-Chrome-trace JSON and prints the phase table, with the ``build.dispatch``
-/ ``build.sync`` counts.
+builds and maintenance subcommands (its quotient and streaming
+subcommands and its distributed engine arrive with their slices:
+``materialize``, ``query`` and ``serve-updates`` raise).  Propagation
+runs on the device by default (``--device-maintenance``, the reference's
+opt-in); ``--host-maintenance`` asks for the numpy host path.
+``--checkpoint --workdir DIR`` makes the out-of-core build write a
+per-level checkpoint; ``--resume`` continues a killed build from the
+last finished level.  ``--trace PATH`` writes a Chrome-trace JSON and
+prints the phase table, with the ``build.dispatch`` / ``build.sync``
+counts.
 """
 from __future__ import annotations
 
@@ -36,7 +45,7 @@ import torch
 
 from .. import resolve_device
 from ..core import BisimMaintainer, build_bisim
-from ..exmem import build_bisim_oocore
+from ..exmem import OocBackend, build_bisim_oocore
 from ..graph import generators as gen
 from ..graph.storage import Graph
 from ..obs import MetricsReport, write_chrome_trace
@@ -60,6 +69,11 @@ def make_graph(args) -> Graph:
     if args.generator == "dworst":
         return gen.complete_graph(args.nodes)
     raise SystemExit(f"unknown generator {args.generator}")
+
+
+# the reference's subcommands that arrive with later slices, and the
+# ROADMAP.md queue 1 item that brings each
+_LATER = {"materialize": 3, "query": 3, "serve-updates": 4}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -97,6 +111,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true",
                     help="oocore build: resume a checkpointed build from "
                          "the last finished level (implies --checkpoint)")
+    ap.add_argument("--wal", action="store_true",
+                    help="oocore maintenance: write-ahead-log every "
+                         "update and snapshot the backend afterwards "
+                         "(requires --workdir)")
+    ap.add_argument("--wal-group", type=int, default=1,
+                    help="oocore maintenance: WAL group-commit size "
+                         "(records per fsync; at most group-1 "
+                         "acknowledged updates can be lost)")
     ap.add_argument("--no-early-stop", action="store_true")
     ap.add_argument("--sync-every", type=int, default=None, metavar="N",
                     help="force the STAGED build, draining convergence "
@@ -122,8 +144,13 @@ def build_parser() -> argparse.ArgumentParser:
                       help="maintenance subcommands: propagate on the "
                            "numpy host path")
     sub = ap.add_subparsers(
-        dest="cmd", metavar="{add-edges,delete-node,compact}",
-        help="apply one update through BisimMaintainer (in memory)")
+        dest="cmd",
+        metavar="{add-edges,delete-node,compact,recover,materialize,"
+                "query,serve-updates}",
+        help="apply one update through BisimMaintainer (in memory, or "
+             "OocBackend with --oocore), or recover a crashed --wal "
+             "workdir; materialize, query and serve-updates arrive with "
+             "later slices")
     ap_add = sub.add_parser("add-edges",
                             help="insert edges and propagate (Alg. 4)")
     ap_add.add_argument("--count", type=int, default=1,
@@ -140,7 +167,24 @@ def build_parser() -> argparse.ArgumentParser:
                             help="drop tombstoned rows, remap ids densely")
     ap_cmp.add_argument("--delete-nodes", default="", metavar="I,J,...",
                         help="tombstone these nodes first")
+    sub.add_parser("recover",
+                   help="re-open a crashed --wal workdir: restore the last "
+                        "snapshot (checksum-verified) and replay the "
+                        "committed WAL tail")
+    for name in _LATER:
+        sub.add_parser(name, help="not ported yet")
     return ap
+
+
+def _io_threads(args) -> int:
+    return 0 if args.no_prefetch else args.io_threads
+
+
+def _report_overlap(aio_stats, compute_s: float) -> None:
+    line = MetricsReport.format_overlap(
+        aio_stats.as_dict() if aio_stats is not None else None, compute_s)
+    if line is not None:
+        print(line)
 
 
 def _engine(args) -> str:
@@ -157,7 +201,7 @@ def run_build(args, g: Graph):
         kwargs.update(
             chunk_edges=args.chunk_edges, chunk_nodes=args.chunk_nodes,
             workdir=args.workdir, spill_threshold=args.spill_threshold,
-            io_threads=0 if args.no_prefetch else args.io_threads,
+            io_threads=_io_threads(args),
             prefetch_depth=args.prefetch_depth,
             checkpoint=args.checkpoint or args.resume, resume=args.resume)
     else:
@@ -182,11 +226,7 @@ def report(args, res, dt: float) -> None:
     print(f"total {dt:.2f}s; converged_at={res.converged_at}")
     if args.oocore:
         print(MetricsReport.format_io(res.io.as_dict()))
-        line = MetricsReport.format_overlap(
-            res.aio.as_dict() if res.aio is not None else None,
-            sum(s.seconds for s in res.stats))
-        if line is not None:
-            print(line)
+        _report_overlap(res.aio, sum(s.seconds for s in res.stats))
         if args.workdir:
             print(f"workdir: {res.workdir}")
     if args.out:
@@ -230,14 +270,53 @@ def report_update(rep, dt: float, m) -> None:
           f"partitions@k={len(np.unique(m.pid()))}")
 
 
+def run_recover(args) -> None:
+    """Re-open a crashed --wal workdir: verified snapshot + WAL replay."""
+    if not (args.oocore and args.workdir):
+        raise SystemExit("recover needs --oocore and --workdir")
+    t0 = time.perf_counter()
+    backend, state = OocBackend.restore(
+        args.workdir, io_threads=_io_threads(args),
+        prefetch_depth=args.prefetch_depth, device=args.device)
+    m = BisimMaintainer.restore(backend, state,
+                                device_propagation=args.device_maintenance)
+    dt = time.perf_counter() - t0
+    print(f"recovered: k={m.k} mode={m.mode} "
+          f"nodes={backend.num_nodes} tombstones={m.num_tombstones} "
+          f"wal_lsn={state['wal_lsn']} in {dt:.2f}s")
+    print(MetricsReport.format_io(
+        backend.io.as_dict(), label="recovery io",
+        fields=["sort_cost", "scan_cost", "sort_bytes", "scan_bytes"]))
+    _report_overlap(backend.aio.stats, dt)
+    print(f"partitions@k={len(np.unique(m.pid()))}")
+    print(f"workdir: {backend.workdir}")
+
+
 def run_maintenance(args, g: Graph) -> None:
     """Build the partition, apply one update subcommand, report it."""
+    if args.wal and not (args.oocore and args.workdir):
+        raise SystemExit("--wal needs --oocore and --workdir (a tempdir "
+                         "workdir would be deleted on exit, defeating "
+                         "the point of durability)")
     t0 = time.perf_counter()
-    m = BisimMaintainer(g, args.k, mode=args.mode, device=args.device,
-                        device_propagation=args.device_maintenance)
+    if args.oocore:
+        backend = OocBackend(
+            g, chunk_edges=args.chunk_edges, chunk_nodes=args.chunk_nodes,
+            spill_threshold=args.spill_threshold, workdir=args.workdir,
+            io_threads=_io_threads(args), prefetch_depth=args.prefetch_depth,
+            wal=args.wal, wal_group=args.wal_group, device=args.device)
+        m = BisimMaintainer(backend, args.k, mode=args.mode,
+                            device_propagation=args.device_maintenance,
+                            wal=args.wal)
+    else:
+        backend = None
+        m = BisimMaintainer(g, args.k, mode=args.mode, device=args.device,
+                            device_propagation=args.device_maintenance)
+    engine = "oocore" if args.oocore else "in-memory"
     prop = "device" if m.device_propagation else "host"
-    print(f"initial build (in-memory, k={args.k}, mode={args.mode}, "
+    print(f"initial build ({engine}, k={args.k}, mode={args.mode}, "
           f"propagation={prop}): {time.perf_counter() - t0:.2f}s")
+    io0 = backend.io.to_dict() if backend is not None else None
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     if args.cmd == "add-edges":
@@ -254,15 +333,38 @@ def run_maintenance(args, g: Graph) -> None:
         remap = m.compact()
         print(f"compact: dropped {int((remap < 0).sum())} rows -> "
               f"{m.backend.num_nodes} nodes, {m.backend.num_edges} edges")
-    report_update(rep, time.perf_counter() - t0, m)
+    dt = time.perf_counter() - t0
+    report_update(rep, dt, m)
+    if args.wal:
+        t0 = time.perf_counter()
+        with obs.span("launch.snapshot"):
+            m.snapshot()
+        print(f"snapshot: {time.perf_counter() - t0:.2f}s "
+              f"(wal truncated to lsn {backend._wal.committed_lsn})")
+    if backend is not None:
+        io1 = backend.io.to_dict()
+        delta = {key: io1[key] - io0[key] for key in io1}
+        print(MetricsReport.format_io(
+            delta, label="io delta",
+            fields=["sort_cost", "scan_cost", "sort_bytes", "scan_bytes",
+                    "merge_passes", "spills"]))
+        _report_overlap(backend.aio.stats, dt)
+        if args.workdir:
+            print(f"workdir: {backend.workdir}")
+        else:
+            backend.close()
 
 
 def _dispatch(args) -> None:
     resolve_device(args.device)  # raise before generating a graph
-    if args.cmd and args.oocore:
+    if args.cmd in _LATER:
         raise SystemExit(
-            "maintenance subcommands run in memory in this port; the "
-            "out-of-core backend is ROADMAP.md queue 1 item 2")
+            f"{args.cmd} is not ported yet: it arrives with ROADMAP.md "
+            f"queue 1 item {_LATER[args.cmd]}")
+    if args.cmd == "recover":
+        with obs.span("launch.recover"):
+            run_recover(args)  # no graph: state comes from the workdir
+        return
     g = make_graph(args)
     print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges")
     if args.cmd:
@@ -276,7 +378,12 @@ def _dispatch(args) -> None:
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    # the subcommands of later slices take the reference's flags, which
+    # this parser does not know: _dispatch names their slice instead
+    args, rest = ap.parse_known_args(argv)
+    if rest and args.cmd not in _LATER:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if not args.trace:
         _dispatch(args)
         return

@@ -501,3 +501,82 @@ def test_card_maintenance_equals_cpu(cuda, mode):
     for j in range(card.k + 1):
         np.testing.assert_array_equal(card.pids[j], cpu.pids[j])
         assert card.stores[j].to_dict() == cpu.stores[j].to_dict()
+
+
+def _ooc_state(m) -> tuple:
+    """Pid files as they lie on disk, next_pid, tombstones, IOStats."""
+    return ([np.load(p) for p in m.backend.pid_paths], list(m.next_pid),
+            m._tombstone.copy(), m.backend.io.to_dict())
+
+
+@pytest.mark.parametrize("mode", ["sorted", "dedup_hash", "multiset"])
+def test_card_ooc_maintenance_equals_cpu(cuda, tmp_path, mode):
+    """The same stream over the out-of-core backend on the card (builds
+    through the chunk kernel, frontier folds through the flat kernel)
+    with device and host propagation, and on the CPU: equal pid files,
+    next_pid, tombstones, IOStats and stores."""
+    from repro_torch.core import BisimMaintainer
+    from repro_torch.exmem import OocBackend
+    g = gen.powerlaw_graph(3000, 15000, 4, 3, seed=1)
+    runs = []
+    for name, device, prop in (("card", cuda, True), ("card-host", cuda,
+                                                      False),
+                               ("cpu", "cpu", True)):
+        chunks, folds = (tfold.chunk_sig_fold.launches,
+                         tfold.sig_fold.launches)
+        be = OocBackend(g, chunk_edges=4096, spill_threshold=1024,
+                        workdir=str(tmp_path / name), io_threads=0,
+                        device=device)
+        m = BisimMaintainer(be, 4, mode=mode, device_propagation=prop)
+        _maintenance_stream(m, 7)
+        if name == "card":
+            assert tfold.chunk_sig_fold.launches > chunks
+            assert tfold.sig_fold.launches > folds
+        for s in m.stores:
+            s.flush()
+        runs.append((_ooc_state(m), [s.state() for s in m.stores]))
+        be.close()
+    (want, want_stores) = runs[-1]
+    for got, got_stores in runs[:-1]:
+        for a, b in zip(got[0], want[0]):
+            np.testing.assert_array_equal(a, b)
+        assert got[1:2] == want[1:2] and got[3] == want[3]
+        np.testing.assert_array_equal(got[2], want[2])
+        assert got_stores == want_stores
+
+
+def test_card_ooc_recovery_equals_cpu(cuda, tmp_path):
+    """A WAL'd stream on the card, snapshotted, continued, dropped without
+    a close and restored with device propagation: the pre-crash pid files
+    again, and the restored maintainer goes on as the CPU's does."""
+    from repro_torch.core import BisimMaintainer
+    from repro_torch.exmem import OocBackend
+    g = gen.powerlaw_graph(3000, 15000, 4, 3, seed=2)
+    wd = str(tmp_path / "card")
+    be = OocBackend(g, chunk_edges=4096, spill_threshold=1024, workdir=wd,
+                    io_threads=0, wal=True, device=cuda)
+    m = BisimMaintainer(be, 3, wal=True)
+    _maintenance_stream(m, 3, steps=3)
+    m.snapshot()
+    _maintenance_stream(m, 4, steps=3)
+    before = _ooc_state(m)
+    be.aio.close()  # the crash: no close(), no snapshot
+    be2, state = OocBackend.restore(wd, io_threads=0, device=cuda)
+    m2 = BisimMaintainer.restore(be2, state)
+    got = _ooc_state(m2)
+    for a, b in zip(got[0], before[0]):
+        np.testing.assert_array_equal(a, b)
+    assert got[1] == before[1]
+    np.testing.assert_array_equal(got[2], before[2])
+    cpu = BisimMaintainer(OocBackend(g, chunk_edges=4096,
+                                     spill_threshold=1024,
+                                     workdir=str(tmp_path / "cpu"),
+                                     io_threads=0, device="cpu"), 3)
+    _maintenance_stream(cpu, 3, steps=3)
+    _maintenance_stream(cpu, 4, steps=3)
+    for mm in (m2, cpu):
+        _maintenance_stream(mm, 5, steps=3)
+    for a, b in zip(_ooc_state(m2)[0], _ooc_state(cpu)[0]):
+        np.testing.assert_array_equal(a, b)
+    be2.close()
+    cpu.backend.close()

@@ -456,7 +456,11 @@ def test_launcher_subcommands_match_reference(capsys, argv, route):
 
 
 def test_launcher_subcommand_refuses_oocore():
-    with pytest.raises(SystemExit, match="queue 1 item 2"):
+    """Out-of-core maintenance runs (tests/test_torch_ooc_maintenance.py);
+    what the launcher still refuses, before building anything, is an
+    out-of-core write-ahead log without a workdir to keep it in."""
+    with pytest.raises(SystemExit, match="--wal needs --oocore and "
+                                         "--workdir"):
         launcher.main(["--device", "cpu", "--generator", "random",
                        "--nodes", "50", "--edges", "100", "--oocore",
-                       "add-edges"])
+                       "--wal", "add-edges"])
