@@ -75,6 +75,38 @@ Phases, each printing one JSON line:
              memory); every level the in-memory partition after each op
              and a fresh card build's at the end; it fails unless some op
              went through ``frontier_sig_fold`` without a rebuild;
+7e. quotient_parity — the quotient engine (`repro_torch.quotient`) on the
+             parity graph at k=10 in every mode: `QuotientService`
+             materializes the card maintainer's partition, and the card
+             engine, a CPU engine over the same index, `eval_ref` and
+             `eval_brute` on the original graph agree on a seeded query
+             suite at levels 1, 5 and 10; then (``sorted``) 1,000
+             inserts, DELETE_NODE, compact and Change-k 10 -> 6 through
+             the service, after each the same agreement, and a patched
+             index answers as a freshly materialized one;
+7f. quotient — the full graph's quotient at k=4 (``sorted``, an
+             in-memory card maintainer, 2^20-row sort budgets), run by a
+             worker process of this script beside 7c-7e: blocks
+             and edges a level, the materialize wall and `IOStats`, the
+             engine's device bytes; every answer of 64 path queries and
+             64 point lookups against `eval_ref` and 16 against
+             `eval_brute`; then 1,000 and 100,000 inserts absorbed by
+             the service (patch ms, levels touched, ``sig_fold`` and
+             ``frontier_sig_fold`` launches) and the queries again on
+             the patched index; last, once no other process uses the
+             card, the queries once more through the engine, its waves
+             and hops timed by CUDA events and its own spans, and its
+             device->host copies a wave;
+7g. stream — ``serve-updates`` with the launcher's defaults on the
+             parity graph (200 ops, batches of 32, k=10, ``--oocore
+             --wal``) in two worker processes of this script, started
+             with 7f's before 7c: the card's ``--kill-at-op 120`` crash
+             drill, whose uninterrupted run is the stream straight
+             through (updates/s, batches, snapshots, staleness against
+             its bound, epoch, ``chunk_sig_fold`` and
+             ``frontier_sig_fold`` launches) and whose recovered history
+             is bit-identical, and the CPU; both card histories equal
+             the CPU's;
 8. attention — ``flash_attention`` against its plain PyTorch version on
              the card (2e-5 in f32, 2e-2 in bf16) on the JAX package's
              attention test cases, odd lengths, and the bf16 (wgmma)
@@ -1493,6 +1525,670 @@ def phase_ooc_maintenance(g) -> dict:
     return out
 
 
+# ------------------------------------------------------------- quotient
+# the quotient engine: parity graph at k=10 (levels 1, 5, 10), then the
+# full graph at k=4 (its partition stops changing at level 4)
+QPARITY = dict(k=10, levels=(1, 5, 10), seed=0, batch=64, points=8,
+               ops=(("add-edges", 1000), ("delete-node", 1), ("compact", 0),
+                    ("change-k", 6)))
+QUOTIENT = dict(k=4, mode="sorted", batch=64, budget_rows=1 << 20,
+                path_queries=64, point_lookups=64, brute_sample=16,
+                seed=0, ops=(("add-edges", 1000), ("add-edges", 100_000)))
+QUOTIENT_WORKDIR = ROOT / "build" / "quotient-smoke"  # removed at exit
+# the streaming service: the launcher's serve-updates defaults on the
+# parity graph
+STREAM = dict(k=10, mode="sorted", kill_at=120, ops=200, batch_ops=32,
+              drill_snapshot_every=2)
+STREAM_WORKDIR = ROOT / "build" / "stream-smoke"  # removed at exit
+# the host-bound runs of the quotient and stream phases go to worker
+# processes of this script (logs and results here, removed at exit)
+WORKER_DIR = ROOT / "build" / "smoke-workers"
+
+
+def _walk_labels(g, off, rng, length: int, tries: int = 120):
+    """Edge labels of a random walk of ``length`` hops, or None."""
+    for _ in range(tries):
+        cur, labs = int(rng.integers(g.num_nodes)), []
+        for _ in range(length):
+            lo, hi = int(off[cur]), int(off[cur + 1])
+            if hi == lo:
+                labs = None
+                break
+            e = int(rng.integers(lo, hi))
+            labs.append(int(g.elabel[e]))
+            cur = int(g.dst[e])
+        if labs is not None:
+            return tuple(labs)
+    return None
+
+
+def _parity_queries(g, rng, levels, points: int) -> list:
+    """`tests/test_quotient.py`'s suite, cut to three path lengths a
+    level: at each level realizable paths of lengths 1, half the level
+    and the level (random walks) as a `LabelPath` and as `ReachTemplate`s
+    with a source or a target label, one unrealizable path, then point
+    lookups at the first, last and random nodes."""
+    from repro_torch.quotient import LabelPath, PointLookup, ReachTemplate
+    off, qs = g.out_offsets(), []
+    for level in levels:
+        for length in sorted({1, max(1, level // 2), level}):
+            p = _walk_labels(g, off, rng, length)
+            if p is not None:
+                qs += [LabelPath(p, level=level),
+                       ReachTemplate(p, src_label=0, level=level),
+                       ReachTemplate(p, tgt_label=1, level=level)]
+        qs.append(LabelPath((9,) * level, level=level))
+    nodes = [0, g.num_nodes - 1] + [int(x) for x in
+                                    rng.integers(0, g.num_nodes, points)]
+    qs += [PointLookup(n, level) for n in nodes for level in levels]
+    return qs
+
+
+def _same_answers(a, b) -> bool:
+    import numpy as np
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    return a == b
+
+
+def _brute_hist(m):
+    return [m.backend.pid_column(j) for j in range(m.k + 1)]
+
+
+def _launches_by_row(rows) -> dict:
+    """The ``sig_fold`` wrapper's launches of a quotient phase's rows by
+    kernel row: the builds' and those of any op that took the §4.2
+    rebuild (row 1, `sig_fold`), the other ops' (row 2, their
+    `frontier_sig_fold` calls)."""
+    build = [r["sig_fold_launches"] for r in rows
+             if r.get("op") in ("build", "materialize") or r.get("rebuilt")]
+    ops = [r["sig_fold_launches"] for r in rows
+           if "sig_fold_launches" in r and r.get("op") not in (
+               "build", "materialize") and not r.get("rebuilt")]
+    return {"build_sig_fold_launches": sum(build),
+            "frontier_sig_fold_launches": sum(ops)}
+
+
+def _service_op(svc, op: str, count: int, rng, launcher):
+    """One update through the `QuotientService`, drawn as the launcher
+    draws it; returns the maintainer's report or None."""
+    import argparse
+    m = svc.m
+    if op == "add-edges":
+        src, lab, dst = launcher.draw_edges(
+            argparse.Namespace(edge=[], count=count), m.backend.num_nodes,
+            rng)
+        return svc.add_edges(src, lab, dst)
+    if op == "delete-node":
+        return svc.delete_node(int(rng.integers(0, m.backend.num_nodes)))
+    if op == "compact":
+        svc.compact()
+        return None
+    svc.change_k(count)
+    return None
+
+
+def phase_quotient_parity() -> dict:
+    """The quotient engine on the parity graph at k=10 in every mode: the
+    maintainer builds on the card (`sig_fold`), `QuotientService`
+    materializes, and its card engine, a CPU engine over the same index
+    and `eval_ref` must agree exactly on a seeded query suite at levels 1,
+    5 and 10, together with `eval_brute` on the original graph.  Then
+    (``sorted``) 1,000 inserts, a DELETE_NODE, a compact and a Change-k
+    10 -> 6 go through the service (its frontier folds through
+    `frontier_sig_fold`): after each the same agreement, and the patched
+    index answers as a freshly materialized one.  ``sig_fold.launches``
+    is set to 0 just before each build and each op and read just after:
+    an op's launches are its frontier folds, and count with the builds
+    if it took the §4.2 rebuild (whose build folds the same way)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import BisimMaintainer
+    from repro_torch.graph import generators as gen
+    from repro_torch.kernels.sig_fold import sig_fold
+    from repro_torch.launch import bisim as launcher
+    from repro_torch.quotient import (QuotientEngine, QuotientService,
+                                      eval_brute, eval_ref,
+                                      materialize_quotient)
+    t_phase = time.perf_counter()
+    g = gen.powerlaw_graph(PARITY["nodes"], PARITY["edges"], 4, 3, seed=0)
+    k, rows, ok = QPARITY["k"], [], True
+
+    def check(svc, queries, tag) -> dict:
+        m = svc.m
+        t0 = time.perf_counter()
+        card = svc.query(queries)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        cpu = QuotientEngine(svc.index, max_batch=QPARITY["batch"],
+                             device="cpu").query(queries)
+        hist = _brute_hist(m)
+        ref = [eval_ref(svc.index, q) for q in queries]
+        brute = [eval_brute(m.graph, q, hist) for q in queries]
+        return {"tag": tag, "queries": len(queries), "card_s": card_s,
+                "card_eq_cpu": all(map(_same_answers, card, cpu)),
+                "card_eq_ref": all(map(_same_answers, card, ref)),
+                "card_eq_brute": all(map(_same_answers, card, brute)),
+                "answer_nodes": int(sum(a.shape[0] for a in card
+                                        if isinstance(a, np.ndarray)))}
+
+    for mode in MODES:
+        rng = np.random.default_rng(QPARITY["seed"])
+        sig_fold.launches = 0
+        t0 = time.perf_counter()
+        m = BisimMaintainer(g, k, mode=mode, device=DEVICE)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_launches = sig_fold.launches
+        t0 = time.perf_counter()
+        svc = QuotientService(m, str(QUOTIENT_WORKDIR / "parity" / mode),
+                              max_batch=QPARITY["batch"])
+        mat_s = time.perf_counter() - t0
+        queries = _parity_queries(g, rng, QPARITY["levels"],
+                                  QPARITY["points"])
+        row = {"phase": "quotient_parity", "mode": mode, "op": "build",
+               "build_s": build_s, "sig_fold_launches": build_launches,
+               "materialize_s": mat_s, "counts": svc.index.counts,
+               "edges": [svc.index.levels[j].num_edges
+                         for j in range(1, k + 1)],
+               **check(svc, queries, "build")}
+        row["equal"] = (row["card_eq_cpu"] and row["card_eq_ref"]
+                        and row["card_eq_brute"] and build_launches > 0)
+        emit(row)
+        rows.append(row)
+        if mode == "sorted":
+            for op, count in QPARITY["ops"]:
+                sig_fold.launches = 0
+                t0 = time.perf_counter()
+                rep = _service_op(svc, op, count, rng, launcher)
+                torch.cuda.synchronize()
+                patch_s = time.perf_counter() - t0
+                launches = sig_fold.launches
+                rebuilt = bool(rep is not None and rep.rebuilt)
+                queries = _parity_queries(m.graph, rng, tuple(
+                    lv for lv in QPARITY["levels"] if lv <= m.k),
+                    QPARITY["points"])
+                op_row = {"phase": "quotient_parity", "mode": mode,
+                          "op": op, "count": count, "patch_s": patch_s,
+                          "epoch": svc.epoch, "engine_epoch":
+                          svc.engine.epoch, "patches": svc.patches,
+                          "rematerializations": svc.rematerializations,
+                          "rebuilt": rebuilt,
+                          "sig_fold_launches": launches,
+                          **check(svc, queries, op)}
+                fresh = True
+                if op in ("add-edges", "delete-node"):
+                    oracle = materialize_quotient(
+                        m.graph, m.backend,
+                        str(QUOTIENT_WORKDIR / "parity" / f"oracle-{op}"),
+                        counts=[int(x) for x in m.next_pid], mode=m.mode)
+                    fresh = all(_same_answers(eval_ref(svc.index, q),
+                                              eval_ref(oracle, q))
+                                for q in queries)
+                op_row["patched_eq_rematerialized"] = fresh
+                op_row["equal"] = (op_row["card_eq_cpu"]
+                                   and op_row["card_eq_ref"]
+                                   and op_row["card_eq_brute"] and fresh
+                                   and svc.engine.epoch == svc.epoch)
+                emit(op_row)
+                rows.append(op_row)
+            ok &= _launches_by_row(rows)["frontier_sig_fold_launches"] > 0
+        ok &= all(r["equal"] for r in rows)
+        del svc, m
+        torch.cuda.empty_cache()
+    shutil.rmtree(QUOTIENT_WORKDIR / "parity", ignore_errors=True)
+    out = {"phase": "quotient_parity",
+           "graph": {"generator": "powerlaw", "nodes": g.num_nodes,
+                     "edges": g.num_edges},
+           "k": k, "levels": list(QPARITY["levels"]), "modes": list(MODES),
+           # row 1: the builds (and any §4.2 rebuild); row 2: the
+           # ops' frontier folds
+           **_launches_by_row(rows),
+           "all_equal": bool(ok), "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if not ok:
+        raise SystemExit("quotient_parity: the card engine, the CPU engine, "
+                         "eval_ref and eval_brute disagree, or a patched "
+                         "index differs from a rematerialized one")
+    return out
+
+
+def _full_queries(g, rng, k: int, n_paths: int, n_points: int) -> list:
+    """``n_paths`` path queries at level k in k buckets of hop counts
+    (one wave each at the phase's batch): realizable random walks, one in
+    eight a `LabelPath`, the rest `ReachTemplate`s with a source and a
+    target label; then ``n_points`` point lookups."""
+    from repro_torch.quotient import LabelPath, PointLookup, ReachTemplate
+    off, qs = g.out_offsets(), []
+    for i in range(n_paths):
+        hops = 1 + i * k // n_paths
+        p = _walk_labels(g, off, rng, hops)
+        if i % 8 == 0:
+            qs.append(LabelPath(p, level=k))
+        else:
+            qs.append(ReachTemplate(p, src_label=int(rng.integers(0, 4)),
+                                    tgt_label=int(rng.integers(0, 4)),
+                                    level=k))
+    qs += [PointLookup(int(n), int(lv)) for n, lv in zip(
+        rng.integers(0, g.num_nodes, n_points),
+        rng.integers(1, k + 1, n_points))]
+    return qs
+
+
+def _timed_waves(svc, queries) -> tuple:
+    """One pass of ``queries`` through the service's engine as it runs:
+    its `_init_mask` and `_hop` calls bracketed by CUDA events (a wave's
+    device ms from its endpoint mask through its last hop, each hop's),
+    its own spans on the host clock (``quotient.wave_mask``: the want
+    upload, the hops and the mask's transfer; ``quotient.query_wave``:
+    with the answers' expansion).  Returns the answers and one dict a
+    wave."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.quotient import engine as qe
+    init, hop, marks = qe._init_mask, qe._hop, []
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def timed_init(*args, **kwargs):
+        start = event()
+        out = init(*args, **kwargs)
+        marks.append([start, event()])
+        return out
+
+    def timed_hop(*args, **kwargs):
+        out = hop(*args, **kwargs)
+        marks[-1].append(event())
+        return out
+
+    qe._init_mask, qe._hop = timed_init, timed_hop
+    try:
+        with obs.tracing() as tracer:
+            answers = svc.query(queries)
+    finally:
+        qe._init_mask, qe._hop = init, hop
+    torch.cuda.synchronize()
+    waves = []
+    for span, mask, ev in zip(tracer.find("quotient.query_wave"),
+                              tracer.find("quotient.wave_mask"), marks):
+        j, m = span["attrs"]["level"], span["attrs"]["hops"]
+        waves.append({
+            "level": j, "hops": m, "batch": span["attrs"]["batch"],
+            "wave_device_ms": ev[0].elapsed_time(ev[-1]),
+            "hop_device_ms": {j - m + 1 + i: ev[1 + i].elapsed_time(
+                ev[2 + i]) for i in range(m)},
+            "wave_mask_host_ms": mask["dur"] / 1e6,
+            "wave_host_ms": span["dur"] / 1e6})
+    return answers, waves
+
+
+def _transfers_a_wave(svc, queries) -> dict:
+    """Device->host copies the profiler sees over one query batch, and
+    the waves the batch took."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    engine = svc.engine
+    waves0 = engine.stats["waves"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        svc.query(queries)
+        torch.cuda.synchronize()
+    waves = engine.stats["waves"] - waves0
+    dtoh = sum(e.count for e in prof.key_averages()
+               if "DtoH" in e.key or "Device -> Pageable" in e.key)
+    return {"waves": waves, "device_to_host_copies": dtoh,
+            "per_wave": dtoh / max(waves, 1)}
+
+
+def phase_quotient(g, quiet=None) -> dict:
+    """The quotient engine at full size: an in-memory maintainer on the
+    card at k=4 (``sorted``), `QuotientService` materializing with
+    2^20-row sort budgets (blocks and edges a level, the wall, its
+    `IOStats`, the engine's device bytes), 64 path queries (16 a hop
+    count, so one wave each of 64 fixed slots) and 64 point lookups,
+    every answer equal to `eval_ref`'s and a seeded 16 of them to
+    `eval_brute`'s on the original graph; then 1,000 and 100,000 inserts
+    absorbed by the service (patch ms, levels touched, kernel launches:
+    ``sig_fold.launches`` set to 0 just before the build and each op and
+    read just after, counted by `_launches_by_row`), and the same
+    queries against `eval_ref` on the index both patches made.  Last,
+    once ``quiet()`` returns (no other process on the card), the queries
+    once more through the engine as it runs, timed (`_timed_waves`; the
+    answers must equal the previous round's) and profiled for the
+    device->host copies a wave.  Answers average two million node ids
+    here, and their host expansion (shared by the engine and `eval_ref`)
+    sets the query count and the rounds."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import BisimMaintainer
+    from repro_torch.kernels.sig_fold import sig_fold
+    from repro_torch.launch import bisim as launcher
+    from repro_torch.quotient import QuotientService, eval_brute, eval_ref
+    t_phase = time.perf_counter()
+    k, rng = QUOTIENT["k"], np.random.default_rng(QUOTIENT["seed"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sig_fold.launches = 0
+    t0 = time.perf_counter()
+    m = BisimMaintainer(g, k, mode=QUOTIENT["mode"], device=DEVICE)
+    torch.cuda.synchronize()
+    build_s, build_launches = time.perf_counter() - t0, sig_fold.launches
+    t0 = time.perf_counter()
+    svc = QuotientService(m, str(QUOTIENT_WORKDIR / "full"),
+                          max_batch=QUOTIENT["batch"],
+                          budget_rows=QUOTIENT["budget_rows"])
+    torch.cuda.synchronize()
+    mat_s = time.perf_counter() - t0
+    idx, engine = svc.index, svc.engine
+    out = {"phase": "quotient", "op": "materialize", "k": k,
+           "mode": QUOTIENT["mode"], "build_s": build_s,
+           "sig_fold_launches": build_launches,
+           "budget_rows": QUOTIENT["budget_rows"], "materialize_s": mat_s,
+           "blocks": idx.counts[1:],
+           "edges": [idx.levels[j].num_edges for j in range(1, k + 1)],
+           "io": svc.io.to_dict(), "device_bytes": engine.device_bytes,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    queries = _full_queries(g, rng, k, QUOTIENT["path_queries"],
+                            QUOTIENT["point_lookups"])
+
+    def serve(tag, brute=False) -> tuple:
+        """The batch through the engine (host clock), each answer
+        against eval_ref, a sample against eval_brute."""
+        stats0 = dict(engine.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = svc.query(queries)
+        query_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref_equal = all(_same_answers(a, eval_ref(svc.index, q))
+                        for a, q in zip(answers, queries))
+        ref_s = time.perf_counter() - t0
+        sample = (rng.choice(len(queries), QUOTIENT["brute_sample"],
+                             replace=False) if brute else [])
+        hist = _brute_hist(m)
+        t0 = time.perf_counter()
+        brute_equal = all(_same_answers(
+            answers[i], eval_brute(m.graph, queries[i], hist))
+            for i in sample)
+        brute_s = time.perf_counter() - t0
+        sizes = [a.shape[0] for a in answers if isinstance(a, np.ndarray)]
+        return answers, {
+            "tag": tag, "epoch": engine.epoch,
+            "stats": {key: engine.stats[key] - stats0[key]
+                      for key in engine.stats},
+            "query_s": query_s,
+            "answer_nodes": {"sum": int(sum(sizes)), "max": int(max(sizes))},
+            "eval_ref_equal": ref_equal, "eval_ref_s": ref_s,
+            "eval_brute_sample": int(len(sample)),
+            "eval_brute_equal": brute_equal, "eval_brute_s": brute_s}
+
+    _, first = serve("materialized", brute=True)
+    emit({"phase": "quotient", "op": "query", **first})
+    rows, ok = [first], (first["eval_ref_equal"] and first["eval_brute_equal"]
+                         and first["eval_brute_sample"] > 0)
+    for op, count in QUOTIENT["ops"]:
+        sig_fold.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        io0 = svc.io.to_dict()
+        t0 = time.perf_counter()
+        with obs.tracing() as tracer:
+            rep = _service_op(svc, op, count, rng, launcher)
+        torch.cuda.synchronize()
+        op_s = time.perf_counter() - t0
+        launches, rebuilt = sig_fold.launches, bool(rep.rebuilt)
+        patch = tracer.find("quotient.patch")
+        io1 = svc.io.to_dict()
+        row = {"phase": "quotient", "op": op, "count": count,
+               "op_s": op_s,
+               "patch_ms": patch[0]["dur"] / 1e6 if patch else None,
+               "levels_touched": [j for j, c in enumerate(m.last_changed
+                                                          or [])
+                                  if j and len(c)],
+               "frontier": rep.nodes_checked, "rebuilt": rebuilt,
+               "patches": svc.patches,
+               "rematerializations": svc.rematerializations,
+               "sig_fold_launches": launches,
+               "io_delta": {key: io1[key] - io0[key] for key in io1},
+               "edges": [svc.index.levels[j].num_edges
+                         for j in range(1, k + 1)],
+               "device_bytes": engine.device_bytes,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        emit(row)
+        rows.append(row)
+    del tracer
+    # the queries again on the index patched by every op
+    last, again = serve(f"after {len(QUOTIENT['ops'])} patches")
+    emit({"phase": "quotient", "op": "query", **again})
+    ok &= again["eval_ref_equal"]
+    if quiet is not None:
+        quiet()
+    answers, waves = _timed_waves(svc, queries)
+    transfers = _transfers_a_wave(
+        svc, [q for q in queries if getattr(q, "labels", None)
+              and len(q.labels) == k][:QUOTIENT["batch"]])
+    timed = {"phase": "quotient", "op": "timed query",
+             "epoch": engine.epoch, "waves": waves, "transfers": transfers,
+             "equal_previous_round": all(map(_same_answers, answers, last))}
+    emit(timed)
+    ok &= timed["equal_previous_round"] and transfers["per_wave"] == 1
+    del answers, last
+    res = {"phase": "quotient",
+           "graph": {"generator": "powerlaw", "nodes": g.num_nodes,
+                     "edges": g.num_edges},
+           **_launches_by_row([out] + rows[1:]),
+           "patched": any(r.get("patches") for r in rows[1:]),
+           "ok": bool(ok), "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    del svc, m, engine, idx
+    torch.cuda.empty_cache()
+    shutil.rmtree(QUOTIENT_WORKDIR / "full", ignore_errors=True)
+    if not (ok and res["frontier_sig_fold_launches"] and res["patched"]):
+        raise SystemExit("quotient: answers differ from eval_ref, "
+                         "eval_brute or the previous round, a wave made "
+                         "other than one transfer, or no patch went "
+                         "through frontier_sig_fold")
+    return res
+
+
+def _stream_argv(device: str, workdir, kill_at: int = 0) -> list:
+    argv = ["--device", device, "--generator", "powerlaw", "--nodes",
+            str(PARITY["nodes"]), "--edges", str(PARITY["edges"]), "--k",
+            str(STREAM["k"]), "--mode", STREAM["mode"], "--oocore", "--wal",
+            "--workdir", str(workdir), "serve-updates"]
+    # the drill snapshots every 2 batches: the launcher's cadence (8) has
+    # taken no snapshot by op 120, and recovery needs one to start from
+    return argv + (["--kill-at-op", str(kill_at), "--snapshot-every",
+                    str(STREAM["drill_snapshot_every"])] if kill_at else [])
+
+
+def stream_worker(device: str, workdir: str, kill_at: int,
+                  out_path: str) -> int:
+    """One ``serve-updates`` run through the launcher (in a worker
+    process): its kernel counts set to 0 just before and read just after
+    (a drill's cover its three runs); the final pid history, stats and
+    counts go to ``out_path``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sig_fold import chunk_sig_fold, sig_fold
+    from repro_torch.launch import bisim as launcher
+    args = launcher.build_parser().parse_args(
+        _stream_argv(device, workdir, kill_at))
+    if (args.ops, args.batch_ops) != (STREAM["ops"], STREAM["batch_ops"]):
+        raise SystemExit("the launcher's serve-updates defaults moved")
+    sig_fold.launches = chunk_sig_fold.launches = 0
+    t0 = time.perf_counter()
+    res = launcher.main(_stream_argv(device, workdir, kill_at))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info = {"device": device, "kill_at": kill_at, "wall_s": wall,
+            "stats": res["stats"], "ref_stats": res.get("ref_stats"),
+            "next_pid": res["next_pid"],
+            "frontier_sig_fold_launches": sig_fold.launches,
+            "chunk_sig_fold_launches": chunk_sig_fold.launches,
+            "survived": res.get("survived")}
+    np.savez(out_path, info=np.array(json.dumps(info)),
+             **{f"pids_{j}": p for j, p in enumerate(res["pids"])},
+             **{f"ref_pids_{j}": p for j, p in
+                enumerate(res.get("ref_pids", []))})
+    return 0
+
+
+def run_worker(argv: list) -> int:
+    """A worker process: ``quotient`` runs `phase_quotient` on the full
+    graph (its JSON lines go to its log; it times its waves once a line
+    arrives on its standard input); ``stream DEVICE WORKDIR KILL_AT OUT``
+    one `stream_worker` run."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(2)  # the workers share the host's cores
+    if argv[0] == "quotient":
+        from repro_torch.launch import bisim as launcher
+        g = launcher.make_graph(launcher.build_parser().parse_args(
+            _full_argv()))
+        phase_quotient(g, quiet=sys.stdin.readline)
+        return 0
+    device, workdir, kill_at, out_path = argv[1:5]
+    return stream_worker(device, workdir, int(kill_at), out_path)
+
+
+def start_workers() -> dict:
+    """Start the host-bound runs as worker processes of this script, each
+    with its log under `WORKER_DIR`: the full graph's quotient phase, the
+    stream phase's card crash drill (``--kill-at-op``; its uninterrupted
+    run is the stream straight through) and its CPU run."""
+    for d in (WORKER_DIR, STREAM_WORKDIR):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    runs = {"quotient": ["quotient"]}
+    for name, device, kill_at in (("drill", DEVICE, STREAM["kill_at"]),
+                                  ("cpu", "cpu", 0)):
+        runs[name] = ["stream", device, str(STREAM_WORKDIR / name),
+                      str(kill_at), str(WORKER_DIR / f"{name}.npz")]
+    procs = {}
+    for name, argv in runs.items():
+        log = open(WORKER_DIR / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+             *argv], stdin=subprocess.PIPE, stdout=log,
+            stderr=subprocess.STDOUT, cwd=str(ROOT)),
+            log, time.perf_counter())
+    return procs
+
+
+def stop_workers(procs: dict) -> None:
+    for proc, log, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        proc.stdin.close()
+        log.close()
+
+
+def _wait_worker(procs: dict, name: str) -> str:
+    """Wait for a worker; its log, or raise with its tail if it failed."""
+    proc, log, _ = procs[name]
+    rc = proc.wait(timeout=1100)
+    log.flush()
+    text = (WORKER_DIR / f"{name}.log").read_text()
+    if rc != 0:
+        raise SystemExit(f"the {name} worker failed (rc {rc}):\n"
+                         f"{text[-3000:]}")
+    return text
+
+
+def collect_quotient(procs: dict) -> dict:
+    """Let the quotient worker time its waves (no other process uses the
+    card by now), then print its JSON lines here; returns its summary."""
+    proc = procs["quotient"][0]
+    try:
+        proc.stdin.write(b"time\n")
+        proc.stdin.flush()
+    except BrokenPipeError:
+        pass  # it has ended: its log says how
+    lines = [json.loads(ln) for ln in _wait_worker(
+        procs, "quotient").splitlines() if ln.startswith('{"phase"')]
+    for line in lines:
+        emit(line)
+    return lines[-1]
+
+
+def phase_stream(procs: dict) -> dict:
+    """``serve-updates`` with the launcher's defaults (200 ops, batches
+    of 32, k=10, ``sorted``, ``--oocore --wal``) on the parity graph: the
+    card's crash drill killed at op 120 with a snapshot every 2 batches,
+    whose uninterrupted run is the stream straight through (updates/s,
+    batches, snapshots, staleness against its bound, epoch) and whose
+    recovered history must be bit-identical to it (else the launcher
+    fails), and a CPU run of the same stream; both card histories must
+    equal the CPU's.  The kernel launches are the drill process's, over
+    its three runs."""
+    import numpy as np
+    res = {}
+    for name in ("drill", "cpu"):
+        tail = _wait_worker(procs, name)[-3000:]
+        with np.load(WORKER_DIR / f"{name}.npz") as z:
+            info = json.loads(str(z["info"]))
+            info["pids"] = [z[f"pids_{j}"] for j in range(STREAM["k"] + 1)]
+            info["ref_pids"] = [z[key] for key in sorted(
+                (x for x in z.files if x.startswith("ref_pids_")),
+                key=lambda x: int(x.split("_")[-1]))]
+        info["process_s"] = time.perf_counter() - procs[name][2]
+        info["lines"] = [ln for ln in tail.splitlines()
+                         if ln.startswith(("stream:", "staleness:", "serve:",
+                                           "killed", "recovered:",
+                                           "recovery:"))]
+        res[name] = info
+
+    def same(a, b) -> bool:
+        return len(a) == len(b) and all(np.array_equal(x, y)
+                                        for x, y in zip(a, b))
+    cpu, drill = res["cpu"], res["drill"]
+    st = drill["ref_stats"]
+    out = {"phase": "stream",
+           "graph": {"generator": "powerlaw", "nodes": PARITY["nodes"]},
+           **STREAM,
+           "runs": {name: {key: r[key] for key in (
+               "device", "kill_at", "wall_s", "process_s", "stats",
+               "ref_stats", "frontier_sig_fold_launches",
+               "chunk_sig_fold_launches", "survived", "lines")}
+               for name, r in res.items()},
+           "updates_per_sec": st["updates_per_sec"],
+           "batches": st["applied_batches"], "snapshots": st["snapshots"],
+           "max_staleness": st["max_staleness"],
+           "staleness_bound": st["staleness_bound"], "epoch": st["epoch"],
+           "cpu_updates_per_sec": cpu["stats"]["updates_per_sec"],
+           "chunk_sig_fold_launches": drill["chunk_sig_fold_launches"],
+           "frontier_sig_fold_launches": drill["frontier_sig_fold_launches"],
+           "card_eq_cpu": same(drill["ref_pids"], cpu["pids"]),
+           "drill_recovered_eq_uninterrupted": same(drill["pids"],
+                                                    drill["ref_pids"]),
+           "drill_eq_cpu": same(drill["pids"], cpu["pids"])
+           and drill["next_pid"] == cpu["next_pid"],
+           "cpu_launches": (cpu["frontier_sig_fold_launches"],
+                            cpu["chunk_sig_fold_launches"])}
+    out["ok"] = bool(
+        out["card_eq_cpu"] and out["drill_recovered_eq_uninterrupted"]
+        and out["drill_eq_cpu"] and out["cpu_launches"] == (0, 0)
+        and all(s["max_staleness"] <= s["staleness_bound"]
+                for s in (st, drill["stats"], cpu["stats"]))
+        and drill["chunk_sig_fold_launches"] > 0
+        and drill["frontier_sig_fold_launches"] > 0)
+    emit(out)
+    if not out["ok"]:
+        raise SystemExit("stream: a card history differs from the CPU's, "
+                         "the drill did not recover bit-identically, the "
+                         "staleness bound broke, or a kernel never ran")
+    return out
+
+
 # b, hq, hkv, sq, skv, d, causal, window, softcap, dtype: the JAX
 # package's attention test cases (`tests/test_kernels.py::ATTN_CASES`),
 # then odd lengths as serving prompts have them (the Pallas wrapper
@@ -1852,7 +2548,19 @@ def phase_serve_profile(eng, reqs) -> dict:
     return out
 
 
+def _full_argv() -> list:
+    """The launcher's arguments of the full graph."""
+    return ["--generator", "powerlaw", "--nodes", str(FULL["nodes"]),
+            "--edges", str(FULL["edges"]), "--k", str(FULL["k"]),
+            "--mode", "sorted", "--device", DEVICE]
+
+
+T0 = time.perf_counter()
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        return run_worker(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -1861,10 +2569,7 @@ def main() -> int:
     from repro_torch.launch import bisim as launcher
 
     phase_build()
-    args = launcher.build_parser().parse_args([
-        "--generator", "powerlaw", "--nodes", str(FULL["nodes"]),
-        "--edges", str(FULL["edges"]), "--k", str(FULL["k"]),
-        "--mode", "sorted", "--device", DEVICE])
+    args = launcher.build_parser().parse_args(_full_argv())
     t0 = time.perf_counter()
     g = launcher.make_graph(args)
     gen_seconds = time.perf_counter() - t0
@@ -1883,12 +2588,28 @@ def main() -> int:
     del inmem
     maint, folds = phase_maintenance(g)
     frontier = phase_frontier_kernels(folds)
+    print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
+    # the full graph's quotient phase and the stream's runs are
+    # host-bound: worker processes run them beside the out-of-core
+    # maintenance and quotient parity phases; the quotient worker times
+    # its waves once the others have ended, and its lines print below
+    workers = start_workers()
     try:
-        phase_ooc_maintenance_parity()
-        ooc_maint = phase_ooc_maintenance(g)
+        try:
+            phase_ooc_maintenance_parity()
+            ooc_maint = phase_ooc_maintenance(g)
+        finally:
+            shutil.rmtree(OOC_WORKDIR, ignore_errors=True)
+        del g
+        qparity = phase_quotient_parity()
+        stream = phase_stream(workers)
+        print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
+        quotient = collect_quotient(workers)
     finally:
-        shutil.rmtree(OOC_WORKDIR, ignore_errors=True)
-    del g
+        stop_workers(workers)
+        for d in (QUOTIENT_WORKDIR, STREAM_WORKDIR, WORKER_DIR):
+            shutil.rmtree(d, ignore_errors=True)
+    print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
     attn = phase_attention()
     phase_serve_parity()
     serve, eng, reqs = phase_serve()
@@ -1904,6 +2625,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/sig_fold.cu",
         "replaces": "src/repro/kernels/sig_fold.py:113",
         "launches": full["runs"][0]["sig_fold_launches"],
+        "quotient_launches": quotient["build_sig_fold_launches"],
+        "quotient_parity_launches": qparity["build_sig_fold_launches"],
         "max_abs_err": kern["max_abs_err"],
         **{k: kern[k] for k in times}, "shape": kern["shape"],
         "bound_by": "bytes", "library_ms": None}, {
@@ -1912,6 +2635,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/sig_fold.py:199",
         "launches": maint["frontier_sig_fold_launches"],
         "ooc_maintenance_launches": ooc_maint["frontier_sig_fold_launches"],
+        "quotient_launches": quotient["frontier_sig_fold_launches"],
+        "quotient_parity_launches": qparity["frontier_sig_fold_launches"],
+        "stream_launches": stream["frontier_sig_fold_launches"],
         "max_abs_err": frontier["max_abs_err"],
         **{k: big[k] for k in times}, "shape": big["shape"],
         "median_batch": {k: frontier["cases"]["median dedup=True"][k]
@@ -1922,6 +2648,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/sig_fold.py:221",
         "launches": ooc["chunk_sig_fold_launches"],
         "ooc_maintenance_launches": ooc_maint["chunk_sig_fold_launches"],
+        "stream_launches": stream["chunk_sig_fold_launches"],
         "max_abs_err": chunk["max_abs_err"],
         **{k: chunk[k] for k in times}, "shape": chunk["shape"],
         "build_mean_chunk": {k: chunk["shapes"]["build mean chunk"][k]

@@ -492,6 +492,18 @@ class InMemoryBackend(MaintenanceBackend):
         idx, _ = _csr_gather(self.in_off, nodes)
         return np.unique(self.graph.src[self.in_ord[idx]]).astype(np.int64)
 
+    def out_edges_of(self, nodes: np.ndarray):
+        """(src, elabel, dst) of every out-edge of the sorted-unique
+        ``nodes``, in the canonical (src, elabel, dst) order: the gather
+        the quotient service patches touched blocks' rows from."""
+        idx, _ = _csr_gather(self.out_off,
+                             np.asarray(nodes, dtype=np.int64))
+        g = self.graph
+        return g.src[idx], g.elabel[idx], g.dst[idx]
+
+    def node_labels_of(self, nodes: np.ndarray) -> np.ndarray:
+        return self.graph.node_labels[np.asarray(nodes, dtype=np.int64)]
+
     def incident_edges(self, nid: int):
         g = self.graph
         mask = (g.src == nid) | (g.dst == nid)
@@ -626,8 +638,13 @@ class BisimMaintainer:
                 "pass device_propagation=False for the host path")
         # per-level changed-node sets of the LAST update (index j = nodes
         # whose pId_j changed, 0..k); None = "assume everything changed"
-        # (fresh build, §4.2 rebuild, compact, change_k).
+        # (fresh build, §4.2 rebuild, compact, change_k).  The quotient
+        # service reads this to patch touched blocks.
         self.last_changed = None
+        # optional scheduling hook: called as on_rebuild(level, frontier)
+        # whenever the §4.2 heuristic fires mid-propagation, so a service
+        # loop can account for the rebuild (e.g. force an early snapshot)
+        self.on_rebuild = None
 
     # ------------------------------------------------------------ durability
     @contextlib.contextmanager
@@ -752,6 +769,7 @@ class BisimMaintainer:
                 f"{type(backend).__name__} has no device propagation; "
                 "pass device_propagation=False for the host path")
         m.last_changed = None
+        m.on_rebuild = None
         m._in_replay = True
         try:
             for _lsn, op, arrays in backend.wal_replay_records(
@@ -968,6 +986,8 @@ class BisimMaintainer:
                     self.backend.build(self.k, self.mode)
                 report.rebuilt = True
                 self.last_changed = None  # rebuild re-ranks every level
+                if self.on_rebuild is not None:
+                    self.on_rebuild(j, int(frontier.size))
                 return self._pad_report(report)
             with obs.span("maint.level", level=j,
                           frontier=int(frontier.size),

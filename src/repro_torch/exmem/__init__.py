@@ -28,8 +28,10 @@ module maps onto a paper construct, as in the reference:
                  group-commit write-ahead log of maintenance
                  (`WriteAheadLog`) and the snapshot directory swap, in the
                  reference's byte layout.
-
-The streaming service arrives with a later slice.
+  service.py     the streaming maintenance service
+                 (`StreamingMaintenanceService`): WAL'd ingest, batched
+                 apply, snapshot and compaction cadence, the quotient
+                 index kept live within a staleness bound, and recovery.
 """
 from .aio import (AioConfig, AioStats, BoundedSaver, Pipeline,
                   PrefetchReader, ReadaheadArray, StreamingWriter)
@@ -39,6 +41,8 @@ from .durability import (Manifest, WriteAheadLog, atomic_write_json,
 from .maintenance import OocBackend
 from .runs import (IOStats, external_sort, lexsort_records, make_records,
                    merge_runs, rebuffer, sort_to_runs)
+from .service import (StreamConfig, StreamingMaintenanceService,
+                      replay_open_loop, synthesize_ops)
 from .tables import ChunkedColumn, OocGraph
 
 __all__ = [
@@ -47,5 +51,6 @@ __all__ = [
     "rebuffer", "sort_to_runs", "ChunkedColumn", "OocGraph", "AioConfig",
     "AioStats", "BoundedSaver", "Pipeline", "PrefetchReader",
     "ReadaheadArray", "StreamingWriter", "Manifest", "WriteAheadLog",
-    "atomic_write_json", "read_json", "commit_dir_swap",
+    "atomic_write_json", "read_json", "commit_dir_swap", "StreamConfig",
+    "StreamingMaintenanceService", "replay_open_loop", "synthesize_ops",
 ]

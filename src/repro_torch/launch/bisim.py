@@ -22,21 +22,36 @@ workdir (the checksum-verified snapshot plus the committed log):
     PYTHONPATH=src python -m repro_torch.launch.bisim --oocore \
         --workdir /tmp/maint recover
 
+Quotient serving (`repro_torch.quotient`): ``materialize`` persists the
+per-level quotient graphs and extents, ``query`` answers structural
+queries over them on the card (optionally absorbing update batches
+live), and ``serve-updates`` runs the streaming maintenance service
+(`exmem.StreamingMaintenanceService`) over ``--oocore --wal --workdir``:
+
+    PYTHONPATH=src python -m repro_torch.launch.bisim --generator \
+        structured --nodes 9000 --k 5 materialize --quotient-dir /tmp/q
+    PYTHONPATH=src python -m repro_torch.launch.bisim --generator \
+        structured --nodes 9000 --k 5 query --path 0:1 --point 7 --update 8
+    PYTHONPATH=src python -m repro_torch.launch.bisim --nodes 200000 \
+        --edges 1000000 --oocore --wal --workdir /tmp/s serve-updates \
+        --kill-at-op 120
+
 Flags, defaults and output lines are those of `repro.launch.bisim`'s
-builds and maintenance subcommands (its quotient and streaming
-subcommands and its distributed engine arrive with their slices:
-``materialize``, ``query`` and ``serve-updates`` raise).  Propagation
-runs on the device by default (``--device-maintenance``, the reference's
-opt-in); ``--host-maintenance`` asks for the numpy host path.
-``--checkpoint --workdir DIR`` makes the out-of-core build write a
-per-level checkpoint; ``--resume`` continues a killed build from the
-last finished level.  ``--trace PATH`` writes a Chrome-trace JSON and
-prints the phase table, with the ``build.dispatch`` / ``build.sync``
-counts.
+builds, maintenance, quotient and streaming subcommands (its distributed
+engine arrives with its slice).  Propagation runs on the device by
+default (``--device-maintenance``, the reference's opt-in);
+``--host-maintenance`` asks for the numpy host path.  ``--checkpoint
+--workdir DIR`` makes the out-of-core build write a per-level
+checkpoint; ``--resume`` continues a killed build from the last
+finished level.  ``--trace PATH`` writes a Chrome-trace JSON and prints
+the phase table, with the ``build.dispatch`` / ``build.sync`` counts.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
+import tempfile
 import time
 import zipfile
 
@@ -45,7 +60,9 @@ import torch
 
 from .. import resolve_device
 from ..core import BisimMaintainer, build_bisim
-from ..exmem import OocBackend, build_bisim_oocore
+from ..exmem import (OocBackend, StreamConfig, StreamingMaintenanceService,
+                     build_bisim_oocore, replay_open_loop, synthesize_ops)
+from ..exmem.runs import IOStats
 from ..graph import generators as gen
 from ..graph.storage import Graph
 from ..obs import MetricsReport, write_chrome_trace
@@ -69,11 +86,6 @@ def make_graph(args) -> Graph:
     if args.generator == "dworst":
         return gen.complete_graph(args.nodes)
     raise SystemExit(f"unknown generator {args.generator}")
-
-
-# the reference's subcommands that arrive with later slices, and the
-# ROADMAP.md queue 1 item that brings each
-_LATER = {"materialize": 3, "query": 3, "serve-updates": 4}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -131,8 +143,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="save pid history as .npz (one stacked 'pids' "
                          "array)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="where the build runs (default: the card; cpu "
-                         "runs the plain-PyTorch route)")
+                    help="where the build, propagation and query waves "
+                         "run (default: the card; cpu runs the "
+                         "plain-PyTorch route)")
     prop = ap.add_mutually_exclusive_group()
     prop.add_argument("--device-maintenance", dest="device_maintenance",
                       action="store_true", default=True,
@@ -148,9 +161,9 @@ def build_parser() -> argparse.ArgumentParser:
         metavar="{add-edges,delete-node,compact,recover,materialize,"
                 "query,serve-updates}",
         help="apply one update through BisimMaintainer (in memory, or "
-             "OocBackend with --oocore), or recover a crashed --wal "
-             "workdir; materialize, query and serve-updates arrive with "
-             "later slices")
+             "OocBackend with --oocore), recover a crashed --wal "
+             "workdir, materialize/query the quotient artifact, or run "
+             "the streaming maintenance service")
     ap_add = sub.add_parser("add-edges",
                             help="insert edges and propagate (Alg. 4)")
     ap_add.add_argument("--count", type=int, default=1,
@@ -171,8 +184,78 @@ def build_parser() -> argparse.ArgumentParser:
                    help="re-open a crashed --wal workdir: restore the last "
                         "snapshot (checksum-verified) and replay the "
                         "committed WAL tail")
-    for name in _LATER:
-        sub.add_parser(name, help="not ported yet")
+    ap_mat = sub.add_parser("materialize",
+                            help="build the partition and persist the "
+                                 "per-level quotient graphs + extents")
+    ap_mat.add_argument("--quotient-dir", required=True,
+                        help="artifact directory (overwritten)")
+    ap_qry = sub.add_parser(
+        "query", help="serve structural queries over the quotient on "
+                      "--device: load an existing --quotient-dir "
+                      "read-only, or build + materialize first; --update "
+                      "absorbs random inserts through the live service "
+                      "between queries")
+    ap_qry.add_argument("--quotient-dir", default=None,
+                        help="load this artifact read-only (no --update) "
+                             "instead of building one")
+    ap_qry.add_argument("--path", action="append", default=[],
+                        metavar="L:L:...",
+                        help="label-path query, colon-separated edge "
+                             "labels (repeatable)")
+    ap_qry.add_argument("--level", type=int, default=None,
+                        help="quotient level to answer at (default: "
+                             "path length)")
+    ap_qry.add_argument("--point", action="append", default=[], type=int,
+                        metavar="NID",
+                        help="pId/block-size lookup for this node "
+                             "(repeatable)")
+    ap_qry.add_argument("--update", type=int, default=0, metavar="N",
+                        help="apply N random edge inserts through the "
+                             "live QuotientService, then re-query at "
+                             "the new epoch")
+    ap_qry.add_argument("--batch", type=int, default=64,
+                        help="engine wave width (fixed slots per wave)")
+    ap_srv = sub.add_parser(
+        "serve-updates", help="streaming maintenance service: replay an "
+                              "open-loop stream of mixed ops through the "
+                              "WAL'd ingest loop (batched apply, "
+                              "compaction/snapshot cadence, live quotient "
+                              "index within a staleness bound); requires "
+                              "--oocore --wal --workdir")
+    ap_srv.add_argument("--ops", type=int, default=200,
+                        help="synthesized stream length (mixed "
+                             "insert/delete/add-node ops)")
+    ap_srv.add_argument("--rate", type=float, default=0.0,
+                        help="arrival rate in ops/sec (0 = closed-loop, "
+                             "as fast as the service absorbs)")
+    ap_srv.add_argument("--batch-ops", type=int, default=32,
+                        help="apply the pending batch at this many ops")
+    ap_srv.add_argument("--batch-deadline-ms", type=float, default=50.0,
+                        help="... or when the oldest pending op is this "
+                             "old")
+    ap_srv.add_argument("--snapshot-every", type=int, default=8,
+                        help="snapshot cadence in applied batches "
+                             "(0 = only the final close snapshot)")
+    ap_srv.add_argument("--staleness-batches", type=int, default=1,
+                        help="absorb the quotient index after this many "
+                             "applied batches (the staleness bound)")
+    ap_srv.add_argument("--compact-threshold", type=float, default=0.25,
+                        help="tombstone fraction that schedules a WAL'd "
+                             "compact op (0 disables; forced to 0 with "
+                             "--kill-at-op for bit-identical recovery)")
+    ap_srv.add_argument("--async-wal", action="store_true",
+                        help="run WAL group-commit fsync rounds on the "
+                             "aio executor (drained at snapshot/close)")
+    ap_srv.add_argument("--no-quotient", action="store_true",
+                        help="ingest + durability only: skip the live "
+                             "quotient index")
+    ap_srv.add_argument("--kill-at-op", type=int, default=0, metavar="N",
+                        help="crash drill: abandon the service after N "
+                             "submitted ops (no clean close), recover "
+                             "from the snapshot + committed WAL, resubmit "
+                             "the lost suffix, and verify the pid "
+                             "history is bit-identical to an "
+                             "uninterrupted reference run")
     return ap
 
 
@@ -292,6 +375,23 @@ def run_recover(args) -> None:
     print(f"workdir: {backend.workdir}")
 
 
+def _make_maintainer(args, g: Graph):
+    """A `BisimMaintainer` from the engine flags (shared by the
+    maintenance and quotient subcommands), with its `OocBackend` or
+    None."""
+    if args.oocore:
+        backend = OocBackend(
+            g, chunk_edges=args.chunk_edges, chunk_nodes=args.chunk_nodes,
+            spill_threshold=args.spill_threshold, workdir=args.workdir,
+            io_threads=_io_threads(args), prefetch_depth=args.prefetch_depth,
+            wal=args.wal, wal_group=args.wal_group, device=args.device)
+        return BisimMaintainer(backend, args.k, mode=args.mode,
+                               device_propagation=args.device_maintenance,
+                               wal=args.wal), backend
+    return BisimMaintainer(g, args.k, mode=args.mode, device=args.device,
+                           device_propagation=args.device_maintenance), None
+
+
 def run_maintenance(args, g: Graph) -> None:
     """Build the partition, apply one update subcommand, report it."""
     if args.wal and not (args.oocore and args.workdir):
@@ -299,19 +399,7 @@ def run_maintenance(args, g: Graph) -> None:
                          "workdir would be deleted on exit, defeating "
                          "the point of durability)")
     t0 = time.perf_counter()
-    if args.oocore:
-        backend = OocBackend(
-            g, chunk_edges=args.chunk_edges, chunk_nodes=args.chunk_nodes,
-            spill_threshold=args.spill_threshold, workdir=args.workdir,
-            io_threads=_io_threads(args), prefetch_depth=args.prefetch_depth,
-            wal=args.wal, wal_group=args.wal_group, device=args.device)
-        m = BisimMaintainer(backend, args.k, mode=args.mode,
-                            device_propagation=args.device_maintenance,
-                            wal=args.wal)
-    else:
-        backend = None
-        m = BisimMaintainer(g, args.k, mode=args.mode, device=args.device,
-                            device_propagation=args.device_maintenance)
+    m, backend = _make_maintainer(args, g)
     engine = "oocore" if args.oocore else "in-memory"
     prop = "device" if m.device_propagation else "host"
     print(f"initial build ({engine}, k={args.k}, mode={args.mode}, "
@@ -355,45 +443,259 @@ def run_maintenance(args, g: Graph) -> None:
             backend.close()
 
 
-def _dispatch(args) -> None:
+def run_materialize(args, g: Graph):
+    """Build the partition and persist its quotient artifact; returns the
+    `QuotientIndex`."""
+    from ..quotient import materialize_quotient
+    t0 = time.perf_counter()
+    m, backend = _make_maintainer(args, g)
+    print(f"initial build: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    io = IOStats()
+    index = materialize_quotient(
+        backend.ooc if backend is not None else g, m.backend,
+        args.quotient_dir, counts=[int(x) for x in m.next_pid],
+        mode=m.mode, stats=io, overwrite=True)
+    dt = time.perf_counter() - t0
+    for j in range(1, index.k + 1):
+        print(f"  Q_{j}: {index.counts[j]} blocks, "
+              f"{index.levels[j].num_edges} edges")
+    print(MetricsReport.format_io(
+        io.as_dict(), label="materialize io",
+        fields=["sort_cost", "scan_cost", "sort_bytes", "scan_bytes"]))
+    print(f"materialized {args.quotient_dir} in {dt:.2f}s "
+          f"(k={index.k}, mode={index.mode}, epoch={index.epoch})")
+    if backend is not None and not args.workdir:
+        backend.close()
+    return index
+
+
+def run_query(args) -> list:
+    """Answer ``--path``/``--point`` queries on the card (a loaded
+    artifact, or a freshly built and materialized one), optionally
+    absorbing ``--update`` random inserts live; returns the answers of
+    each epoch queried."""
+    from ..quotient import (LabelPath, PointLookup, QuotientEngine,
+                            QuotientIndex, QuotientService)
+    paths = [tuple(int(x) for x in p.split(":")) for p in args.path]
+    svc = None
+    if args.quotient_dir and os.path.exists(
+            os.path.join(args.quotient_dir, "manifest.json")):
+        if args.update:
+            raise SystemExit("--update needs a live service; drop "
+                             "--quotient-dir to build one")
+        index = QuotientIndex.load(args.quotient_dir, verify=True)
+        engine = QuotientEngine(index, max_batch=args.batch,
+                                device=args.device)
+        print(f"loaded {args.quotient_dir}: k={index.k} "
+              f"mode={index.mode} epoch={index.epoch}")
+    else:
+        g = make_graph(args)
+        print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges")
+        t0 = time.perf_counter()
+        m, _ = _make_maintainer(args, g)
+        workdir = args.workdir or tempfile.mkdtemp(prefix="quotient-")
+        svc = QuotientService(m, workdir, max_batch=args.batch)
+        engine, index = svc.engine, svc.index
+        print(f"build + materialize: {time.perf_counter() - t0:.2f}s "
+              f"(epoch {svc.epoch})")
+
+    queries = [LabelPath(p, level=args.level) for p in paths]
+    queries += [PointLookup(nid, index.k) for nid in args.point]
+    if not queries:
+        queries = [PointLookup(0, index.k)]
+
+    def _report(answers):
+        for q, a in zip(queries, answers):
+            if isinstance(q, PointLookup):
+                print(f"  point {q.node}@{q.level}: pid={a.pid} "
+                      f"block_size={a.block_size}")
+            else:
+                head = ",".join(str(x) for x in a[:8])
+                more = "..." if a.shape[0] > 8 else ""
+                print(f"  path {q.labels}: {a.shape[0]} nodes "
+                      f"[{head}{more}]")
+
+    t0 = time.perf_counter()
+    answers = engine.query(queries)
+    print(f"epoch {engine.epoch}: {len(queries)} queries "
+          f"in {(time.perf_counter() - t0) * 1e3:.1f} ms "
+          f"({engine.stats['waves']} waves, {engine.stats['hops']} hops)")
+    _report(answers)
+    epochs = [answers]
+    if args.update and svc is not None:
+        rng = np.random.default_rng(args.seed)
+        n = svc.m.backend.num_nodes
+        src = rng.integers(0, n, args.update).astype(np.int32)
+        dst = rng.integers(0, n, args.update).astype(np.int32)
+        lab = rng.integers(0, 4, args.update).astype(np.int32)
+        t0 = time.perf_counter()
+        svc.add_edges(src, lab, dst)
+        print(f"absorbed {args.update} edge inserts in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms "
+              f"(patches={svc.patches}, "
+              f"rematerializations={svc.rematerializations})")
+        answers = svc.query(queries)
+        print(f"epoch {svc.engine.epoch}:")
+        _report(answers)
+        epochs.append(answers)
+    return epochs
+
+
+def _stream_pids(m) -> list:
+    return [np.asarray(m.pids[j]).copy() for j in range(m.k + 1)]
+
+
+def run_serve(args, g: Graph) -> dict:
+    """Open-loop streaming maintenance over the WAL'd ingest loop; with
+    ``--kill-at-op`` the crash drill.  Returns the final service's
+    ``stats()`` and pid history (and, for the drill, the uninterrupted
+    run's ``stats()`` and pid history)."""
+    from ..quotient import QuotientService
+    if not (args.oocore and args.wal and args.workdir):
+        raise SystemExit("serve-updates needs --oocore --wal --workdir")
+    cfg = StreamConfig(
+        batch_ops=args.batch_ops,
+        batch_deadline_s=args.batch_deadline_ms / 1e3,
+        snapshot_every=args.snapshot_every,
+        staleness_batches=args.staleness_batches,
+        compact_threshold=args.compact_threshold,
+        async_wal=args.async_wal)
+    ops = synthesize_ops(args.ops, num_nodes=g.num_nodes, seed=args.seed)
+
+    def _spinup(workdir):
+        backend = OocBackend(
+            g, chunk_edges=args.chunk_edges, chunk_nodes=args.chunk_nodes,
+            spill_threshold=args.spill_threshold, workdir=workdir,
+            io_threads=_io_threads(args),
+            prefetch_depth=args.prefetch_depth,
+            wal=True, wal_group=args.wal_group, device=args.device)
+        m = BisimMaintainer(backend, args.k, mode=args.mode,
+                            device_propagation=args.device_maintenance,
+                            wal=True)
+        q = (None if args.no_quotient
+             else QuotientService(m, workdir, aio=backend.aio))
+        return StreamingMaintenanceService(m, config=cfg, quotient=q), \
+            backend
+
+    def _print_stats(svc):
+        st = svc.stats()
+        print(f"stream: {st['applied_ops']} ops in {st['wall_s']:.2f}s "
+              f"= {st['updates_per_sec']:.0f} updates/s "
+              f"({st['applied_batches']} batches, "
+              f"{st['snapshots']} snapshots, {st['rejected']} rejected, "
+              f"{st['compactions_scheduled']} compactions, "
+              f"{st['rebuilds']} rebuilds)")
+        if svc.q is not None:
+            ok = st["max_staleness"] <= st["staleness_bound"]
+            print(f"staleness: max={st['max_staleness']} batches "
+                  f"bound={st['staleness_bound']} "
+                  f"{'OK' if ok else 'VIOLATED'} "
+                  f"(epoch {st['epoch']})")
+            if not ok:
+                raise SystemExit("staleness bound violated")
+        return st
+
+    if not args.kill_at_op:
+        svc, backend = _spinup(args.workdir)
+        t0 = time.perf_counter()
+        with obs.span("launch.serve", ops=len(ops)):
+            replay_open_loop(svc, ops, rate=args.rate or None)
+            svc.close()
+        st = _print_stats(svc)
+        print(f"serve: wall {time.perf_counter() - t0:.2f}s, "
+              f"wal committed lsn {backend._wal.committed_lsn}")
+        print(f"workdir: {backend.workdir}")
+        out = dict(stats=st, pids=_stream_pids(svc.m),
+                   next_pid=list(svc.m.next_pid))
+        backend.close()
+        return out
+
+    # crash drill: reference run, killed run, recover, finish, compare.
+    # Compaction scheduling is state-timed, so it is disabled for the
+    # drill: a lost (uncommitted) compact record would re-schedule at a
+    # different position in the op order and honestly diverge.
+    cfg = dataclasses.replace(cfg, compact_threshold=0.0)
+    kill_at = min(int(args.kill_at_op), len(ops))
+    ref_svc, ref_backend = _spinup(os.path.join(args.workdir, "ref"))
+    replay_open_loop(ref_svc, ops)
+    ref_svc.close()
+    ref_stats, ref_pids = ref_svc.stats(), _stream_pids(ref_svc.m)
+    ref_backend.close()
+
+    wd = os.path.join(args.workdir, "live")
+    svc, backend = _spinup(wd)
+    lsns = replay_open_loop(svc, ops[:kill_at])
+    backend.aio.close()   # the "dead" process: no clean close, no drain
+    print(f"killed after {kill_at}/{len(ops)} submitted ops "
+          f"(last acked lsn {lsns[-1] if lsns else 0})")
+
+    svc2 = StreamingMaintenanceService.recover(
+        wd, io_threads=_io_threads(args),
+        prefetch_depth=args.prefetch_depth, device=args.device,
+        device_propagation=args.device_maintenance, config=cfg,
+        quotient=not args.no_quotient)
+    committed = svc2.m.backend._wal.committed_lsn
+    done = sum(1 for lsn in lsns if lsn <= committed)
+    print(f"recovered: committed lsn {committed} -> "
+          f"{done} ops survived, resubmitting {len(ops) - done}")
+    replay_open_loop(svc2, ops[done:])
+    svc2.close()
+    st = _print_stats(svc2)
+    pids = _stream_pids(svc2.m)
+    out = dict(stats=st, pids=pids, next_pid=list(svc2.m.next_pid),
+               ref_stats=ref_stats, ref_pids=ref_pids, survived=done)
+    svc2.m.backend.close()
+    if len(pids) != len(ref_pids):
+        raise SystemExit("recovery diverged from the uninterrupted run: "
+                         f"{len(pids)} levels, not {len(ref_pids)}")
+    for j, (a, b) in enumerate(zip(pids, ref_pids)):
+        if not np.array_equal(a, b):
+            raise SystemExit(
+                f"recovery diverged from the uninterrupted run at "
+                f"level {j}")
+    print("recovery: pid history bit-identical to uninterrupted run")
+    return out
+
+
+def _dispatch(args):
+    """Run the subcommand (or the build); returns what it returns."""
     resolve_device(args.device)  # raise before generating a graph
-    if args.cmd in _LATER:
-        raise SystemExit(
-            f"{args.cmd} is not ported yet: it arrives with ROADMAP.md "
-            f"queue 1 item {_LATER[args.cmd]}")
     if args.cmd == "recover":
         with obs.span("launch.recover"):
-            run_recover(args)  # no graph: state comes from the workdir
-        return
+            return run_recover(args)  # no graph: state from the workdir
+    if args.cmd == "query":
+        with obs.span("launch.query"):
+            return run_query(args)  # loads its own graph/artifact
     g = make_graph(args)
     print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges")
+    if args.cmd == "materialize":
+        with obs.span("launch.materialize"):
+            return run_materialize(args, g)
+    if args.cmd == "serve-updates":
+        return run_serve(args, g)  # spans live inside the service loop
     if args.cmd:
         with obs.span("launch.update", cmd=args.cmd):
-            run_maintenance(args, g)
-        return
+            return run_maintenance(args, g)
     res, dt = run_build(args, g)
     report(args, res, dt)
     if args.oocore and not args.workdir:
         res.cleanup()  # tempdir workdir: don't strand the spilled tables
+    return res
 
 
-def main(argv=None) -> None:
-    ap = build_parser()
-    # the subcommands of later slices take the reference's flags, which
-    # this parser does not know: _dispatch names their slice instead
-    args, rest = ap.parse_known_args(argv)
-    if rest and args.cmd not in _LATER:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     if not args.trace:
-        _dispatch(args)
-        return
+        return _dispatch(args)
     tracer = obs.Tracer()
     with obs.tracing(tracer):
-        _dispatch(args)
+        out = _dispatch(args)
     write_chrome_trace(tracer, args.trace)
     print(f"trace: {args.trace} ({len(tracer.spans)} spans, "
           f"{len(tracer.events)} events)")
     print(MetricsReport.from_tracer(tracer).format())
+    return out
 
 
 if __name__ == "__main__":

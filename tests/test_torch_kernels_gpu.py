@@ -580,3 +580,88 @@ def test_card_ooc_recovery_equals_cpu(cuda, tmp_path):
         np.testing.assert_array_equal(a, b)
     be2.close()
     cpu.backend.close()
+
+
+def _quotient_queries(g, rng, k, n=24):
+    """Random-walk label paths at every level, some with endpoint label
+    constraints, and point lookups."""
+    from repro_torch.quotient import LabelPath, PointLookup, ReachTemplate
+    off, qs = g.out_offsets(), []
+    while len(qs) < n:
+        level = int(rng.integers(1, k + 1))
+        hops = int(rng.integers(1, level + 1))
+        cur, labs = int(rng.integers(g.num_nodes)), []
+        for _ in range(hops):
+            lo, hi = int(off[cur]), int(off[cur + 1])
+            if hi == lo:
+                break
+            e = int(rng.integers(lo, hi))
+            labs.append(int(g.elabel[e]))
+            cur = int(g.dst[e])
+        if len(labs) == hops:
+            qs.append(LabelPath(tuple(labs), level=level) if len(qs) % 2
+                      else ReachTemplate(tuple(labs), src_label=len(qs) % 4,
+                                         tgt_label=1, level=level))
+    qs += [PointLookup(int(x), k) for x in rng.integers(0, g.num_nodes, 4)]
+    return qs
+
+
+def _same_answers(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(y, np.ndarray):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y
+
+
+@pytest.mark.parametrize("hop_elems", [64, 1 << 26])
+def test_quotient_engine_card_equals_cpu(cuda, tmp_path, monkeypatch,
+                                         hop_elems):
+    """The engine's waves on the card give the CPU engine's answers and
+    stats, and `eval_ref`'s, before and after patches the service
+    absorbs (frontier folds through the kernel), at any hop tiling."""
+    from repro_torch.core import BisimMaintainer
+    from repro_torch.quotient import (QuotientEngine, QuotientService,
+                                      engine, eval_ref)
+    monkeypatch.setattr(engine, "HOP_ELEMS", hop_elems)
+    g = gen.powerlaw_graph(3000, 15000, 4, 3, seed=1)
+    rng = np.random.default_rng(5)
+    m = BisimMaintainer(g, 4, device=cuda)
+    svc = QuotientService(m, str(tmp_path), max_batch=8)
+    assert svc.engine.device.type == "cuda"
+    for step in range(3):
+        queries = _quotient_queries(m.graph, rng, m.k)
+        card = svc.query(queries)
+        cpu = QuotientEngine(svc.index, max_batch=8, device="cpu")
+        _same_answers(card, cpu.query(queries))
+        _same_answers(card, [eval_ref(svc.index, q) for q in queries])
+        n = m.backend.num_nodes
+        before = tfold.sig_fold.launches
+        svc.add_edges(rng.integers(0, n, 20), rng.integers(0, 3, 20),
+                      rng.integers(0, n, 20))
+        assert tfold.sig_fold.launches > before
+        assert svc.patches == step + 1 and svc.engine.epoch == svc.epoch
+
+
+def test_quotient_engine_one_transfer_a_wave(cuda, tmp_path):
+    """A batch of path queries makes one device->host copy a wave."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import BisimMaintainer
+    from repro_torch.quotient import QuotientService
+    g = gen.powerlaw_graph(3000, 15000, 4, 3, seed=2)
+    m = BisimMaintainer(g, 4, device=cuda)
+    svc = QuotientService(m, str(tmp_path), max_batch=4)
+    queries = [q for q in _quotient_queries(g, np.random.default_rng(3), 4)
+               if hasattr(q, "labels")]
+    svc.query(queries)  # warm-up
+    waves0 = svc.engine.stats["waves"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        svc.query(queries)
+        torch.cuda.synchronize()
+    waves = svc.engine.stats["waves"] - waves0
+    dtoh = sum(e.count for e in prof.key_averages() if "DtoH" in e.key)
+    assert waves >= 3 and dtoh == waves

@@ -463,11 +463,97 @@ def test_launcher_wal_needs_a_workdir(capsys):
         launcher.main(["--device", "cpu", "recover"])
 
 
-@pytest.mark.parametrize("cmd,item", [
-    (["materialize", "--quotient-dir", "q"], 3),
-    (["query", "--path", "0:1"], 3),
-    (["serve-updates", "--ops", "10"], 4)])
-def test_launcher_later_subcommands_name_their_item(cmd, item):
-    with pytest.raises(SystemExit, match=f"queue 1 item {item}"):
-        launcher.main(["--device", "cpu", "--oocore", "--wal",
-                       "--workdir", "unused"] + cmd)
+_RATE = re.compile(r"= \d+ updates/s")
+QUOTIENT_CASES = {
+    "materialize": ["materialize", "--quotient-dir", "{wd}/q"],
+    "query": ["query", "--path", "0:1", "--path", "1", "--point", "7",
+              "--point", "0", "--batch", "2"],
+    "query-update": ["query", "--path", "0:1", "--path", "1:0:1",
+                     "--level", "3", "--point", "7", "--update", "8"],
+    "query-loaded": ["query", "--quotient-dir", "{wd}/q", "--path", "0:1",
+                     "--point", "7"],
+    # batches close on their op count alone (a deadline of a minute), so
+    # the batch and snapshot counts both launchers print do not hang on
+    # the host's pace
+    "serve-updates": ["--oocore", "--wal", "--workdir", "{wd}/s",
+                      "--chunk-edges", "1024", "--io-threads", "0",
+                      "serve-updates", "--ops", "40", "--batch-ops", "8",
+                      "--batch-deadline-ms", "60000",
+                      "--snapshot-every", "2"],
+    "serve-updates-kill": ["--oocore", "--wal", "--workdir", "{wd}/s",
+                           "--chunk-edges", "1024", "--io-threads", "0",
+                           "serve-updates", "--ops", "40", "--batch-ops",
+                           "8", "--batch-deadline-ms", "60000",
+                           "--snapshot-every", "2", "--kill-at-op", "23"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(QUOTIENT_CASES))
+def test_launcher_quotient_and_stream_match_reference(capsys, tmp_path,
+                                                      case):
+    """``materialize``, ``query`` (fresh, with ``--update``, and from a
+    loaded ``--quotient-dir``) and ``serve-updates`` (straight through
+    and with the ``--kill-at-op`` crash drill): the reference launcher's
+    lines, times and rates apart.  A loaded artifact is the other
+    package's: each launcher serves the one its twin materialized."""
+    common = ["--generator", "structured", "--nodes", "900", "--k", "4",
+              "--seed", "3"]
+    outs = []
+    for who in ("ref", "mine"):
+        wd = tmp_path / who
+        other = tmp_path / ("mine" if who == "ref" else "ref")
+        if case == "query-loaded":
+            wd = other  # serve the other package's artifact
+        argv = common + [a.format(wd=wd) for a in QUOTIENT_CASES[case]]
+        if who == "ref":
+            if case == "query-loaded":
+                ref_launcher._dispatch(ref_launcher.build_parser(
+                ).parse_args(common + ["materialize", "--quotient-dir",
+                                       str(tmp_path / "mine" / "q")]))
+                capsys.readouterr()
+            ref_launcher._dispatch(ref_launcher.build_parser()
+                                   .parse_args(argv))
+        else:
+            if case == "query-loaded":
+                launcher.main(["--device", "cpu"] + common + [
+                    "materialize", "--quotient-dir",
+                    str(tmp_path / "ref" / "q")])
+                capsys.readouterr()
+            out = launcher.main(["--device", "cpu"] + argv)
+        outs.append([_RATE.sub("= R updates/s", ln) for ln in
+                     _lines(capsys.readouterr().out, wd)])
+    want, got = outs
+    assert got == want
+    text = "\n".join(got)
+    if case.startswith("serve"):
+        assert "staleness: max=1 batches bound=1 OK" in text
+    if case == "serve-updates":
+        assert out["stats"]["applied_ops"] == 40
+    if case == "serve-updates-kill":
+        assert "recovery: pid history bit-identical" in text
+        assert out["stats"]["applied_ops"] == 40 - out["survived"]
+        for a, b in zip(out["pids"], out["ref_pids"]):
+            np.testing.assert_array_equal(a, b)
+    if case == "query-update":
+        assert "patches=1, rematerializations=0" in text
+        assert len(out) == 2
+
+
+def test_launcher_quotient_and_stream_refusals(capsys, tmp_path):
+    """The reference's refusals: serve-updates without its durable
+    workdir, --update against a read-only artifact."""
+    argv = ["--generator", "random", "--nodes", "50", "--edges", "100",
+            "serve-updates"]
+    with pytest.raises(SystemExit) as ref_exit:
+        ref_launcher._dispatch(ref_launcher.build_parser().parse_args(argv))
+    with pytest.raises(SystemExit) as mine:
+        launcher.main(["--device", "cpu"] + argv)
+    assert str(mine.value) == str(ref_exit.value)
+    assert "serve-updates needs --oocore --wal --workdir" in str(mine.value)
+    q = str(tmp_path / "q")
+    launcher.main(["--device", "cpu", "--generator", "random", "--nodes",
+                   "50", "--edges", "100", "--k", "2", "materialize",
+                   "--quotient-dir", q])
+    with pytest.raises(SystemExit, match="--update needs a live service"):
+        launcher.main(["--device", "cpu", "query", "--quotient-dir", q,
+                       "--update", "3"])
