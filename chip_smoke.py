@@ -36,7 +36,28 @@ Phases, each printing one JSON line:
              count set to 0 just before and read just after, with the
              fold's and the uploads' CUDA-event time; its counts and last
              partition must equal the in-memory build's;
-7a. maintenance — Algorithms 2-4 on the same graph at k=10, ``sorted``
+7a. distributed_parity — `core.build_bisim_distributed` on the parity
+             graph at k=10, every mode with both rankings, in three
+             groups: one rank on the card under NCCL (in this process),
+             and eight gloo ranks (``--worker dist_parity`` processes)
+             building on the CPU and then sharing the card; card D=8 =
+             CPU D=8 and card D=1 ``allgather`` = CPU D=8 ``allgather``
+             bit for bit, every run's counts the single-card build's and
+             each level its partition, ``fold_flat`` once an iteration on
+             the card; one line a group (per run: rank 0's per-iteration
+             ms; every rank's collective ms and bytes a rank-iteration by
+             CUDA events around the build's collectives, peak card memory
+             and ``fold_flat`` launches);
+7b. distributed — the launcher's ``--distributed`` build of the full
+             graph (saved once under ``build/dist-smoke/``, read with
+             ``--graph``) under ``python -m torch.distributed.run
+             --standalone``: one rank under NCCL (``allgather``) and four
+             gloo ranks sharing the card (``bucketed``), each rank a
+             ``--worker dist_launch`` process with its ``sig_fold`` count
+             set to 0 just before the launcher runs and read just after;
+             counts equal and the same partition at every level as the
+             in-memory ``sorted`` build; one line a run, as 7a's;
+7c. maintenance — Algorithms 2-4 on the same graph at k=10, ``sorted``
              and ``multiset``: a maintainer with device propagation on
              the card and one on the numpy host path take the same ops
              (1, 1,000 and 100,000 random edge inserts, 1,000 existing
@@ -47,10 +68,10 @@ Phases, each printing one JSON line:
              and, at every level, the partition of a fresh card build;
              it fails unless some op propagated on the device through the
              kernel without the §4.2 rebuild;
-7b. frontier_kernels — ``frontier_sig_fold`` against its plain version
+7d. frontier_kernels — ``frontier_sig_fold`` against its plain version
              and timed at the largest and the median batch the
              maintenance phase folded, both dedup settings;
-7c. ooc_maintenance_parity — `exmem.OocBackend` maintenance of the
+7e. ooc_maintenance_parity — `exmem.OocBackend` maintenance of the
              parity graph at k=10 (``sorted``, ``multiset``; 2^16-edge
              chunks, stores that spill at 2^14 entries) on the card with
              device propagation, on the card with host propagation and on
@@ -61,7 +82,7 @@ Phases, each printing one JSON line:
              run snapshotted after op 2, its fault points counted, killed
              at a point drawn from ``default_rng(0)``, restored and
              finished, must give the never-killed pid history;
-7d. ooc_maintenance — the same 8M-node graph maintained out of core at
+7f. ooc_maintenance — the same 8M-node graph maintained out of core at
              k=4 (its partition stops changing at level 4), ``sorted``,
              2^20-edge chunks, with the write-ahead log, beside an
              in-memory maintainer on the card: the build (its
@@ -75,7 +96,8 @@ Phases, each printing one JSON line:
              memory); every level the in-memory partition after each op
              and a fresh card build's at the end; it fails unless some op
              went through ``frontier_sig_fold`` without a rebuild;
-7e. quotient_parity — the quotient engine (`repro_torch.quotient`) on the
+7g. quotient_parity — run by the quotient worker (7h) before its own
+             phase: the quotient engine (`repro_torch.quotient`) on the
              parity graph at k=10 in every mode: `QuotientService`
              materializes the card maintainer's partition, and the card
              engine, a CPU engine over the same index, `eval_ref` and
@@ -84,9 +106,9 @@ Phases, each printing one JSON line:
              inserts, DELETE_NODE, compact and Change-k 10 -> 6 through
              the service, after each the same agreement, and a patched
              index answers as a freshly materialized one;
-7f. quotient — the full graph's quotient at k=4 (``sorted``, an
+7h. quotient — the full graph's quotient at k=4 (``sorted``, an
              in-memory card maintainer, 2^20-row sort budgets), run by a
-             worker process of this script beside 7c-7e: blocks
+             worker process of this script beside 7e-7f, after 7g: blocks
              and edges a level, the materialize wall and `IOStats`, the
              engine's device bytes; every answer of 64 path queries and
              64 point lookups against `eval_ref` and 16 against
@@ -97,10 +119,10 @@ Phases, each printing one JSON line:
              card, the queries once more through the engine, its waves
              and hops timed by CUDA events and its own spans, and its
              device->host copies a wave;
-7g. stream — ``serve-updates`` with the launcher's defaults on the
+7i. stream — ``serve-updates`` with the launcher's defaults on the
              parity graph (200 ops, batches of 32, k=10, ``--oocore
              --wal``) in two worker processes of this script, started
-             with 7f's before 7c: the card's ``--kill-at-op 120`` crash
+             with 7h's before 7e: the card's ``--kill-at-op 120`` crash
              drill, whose uninterrupted run is the stream straight
              through (updates/s, batches, snapshots, staleness against
              its bound, epoch, ``chunk_sig_fold`` and
@@ -2045,12 +2067,19 @@ def run_worker(argv: list) -> int:
     """A worker process: ``quotient`` runs `phase_quotient` on the full
     graph (its JSON lines go to its log; it times its waves once a line
     arrives on its standard input); ``stream DEVICE WORKDIR KILL_AT OUT``
-    one `stream_worker` run."""
+    one `stream_worker` run; ``dist_parity OUT_DIR`` one rank of
+    `dist_parity_worker`; ``dist_launch OUT_DIR ARGV...`` one rank of
+    `dist_launch_worker`."""
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     torch.set_num_threads(2)  # the workers share the host's cores
+    if argv[0] == "dist_parity":
+        return dist_parity_worker(argv[1])
+    if argv[0] == "dist_launch":
+        return dist_launch_worker(argv[1], argv[2:])
     if argv[0] == "quotient":
         from repro_torch.launch import bisim as launcher
+        phase_quotient_parity()
         g = launcher.make_graph(launcher.build_parser().parse_args(
             _full_argv()))
         phase_quotient(g, quiet=sys.stdin.readline)
@@ -2061,8 +2090,8 @@ def run_worker(argv: list) -> int:
 
 def start_workers() -> dict:
     """Start the host-bound runs as worker processes of this script, each
-    with its log under `WORKER_DIR`: the full graph's quotient phase, the
-    stream phase's card crash drill (``--kill-at-op``; its uninterrupted
+    with its log under `WORKER_DIR`: the quotient parity phase and then
+    the full graph's quotient phase, the stream phase's card crash drill (``--kill-at-op``; its uninterrupted
     run is the stream straight through) and its CPU run."""
     for d in (WORKER_DIR, STREAM_WORKDIR):
         shutil.rmtree(d, ignore_errors=True)
@@ -2104,9 +2133,10 @@ def _wait_worker(procs: dict, name: str) -> str:
     return text
 
 
-def collect_quotient(procs: dict) -> dict:
+def collect_quotient(procs: dict) -> tuple:
     """Let the quotient worker time its waves (no other process uses the
-    card by now), then print its JSON lines here; returns its summary."""
+    card by now), then print its JSON lines here; returns the summaries
+    of its two phases (``quotient_parity``, ``quotient``)."""
     proc = procs["quotient"][0]
     try:
         proc.stdin.write(b"time\n")
@@ -2117,7 +2147,9 @@ def collect_quotient(procs: dict) -> dict:
         procs, "quotient").splitlines() if ln.startswith('{"phase"')]
     for line in lines:
         emit(line)
-    return lines[-1]
+    qparity = [ln for ln in lines if ln["phase"] == "quotient_parity"
+               and "all_equal" in ln]
+    return qparity[-1], lines[-1]
 
 
 def phase_stream(procs: dict) -> dict:
@@ -2187,6 +2219,380 @@ def phase_stream(procs: dict) -> dict:
                          "the drill did not recover bit-identically, the "
                          "staleness bound broke, or a kernel never ran")
     return out
+
+
+# the distributed build (`repro_torch.core.build_bisim_distributed`):
+# ``distributed_parity`` on the parity graph in three groups (one rank on
+# the card under NCCL, in this process; eight gloo ranks, each building on
+# the CPU and then on the one card), ``distributed`` on the full graph
+# through the launcher under torchrun (runs: name, ranks, backend,
+# ranking)
+DIST = dict(parity_ranks=8, rankings=("allgather", "bucketed"),
+            runs=(("d1_nccl_allgather", 1, "nccl", "allgather"),
+                  ("d4_gloo_bucketed", 4, "gloo", "bucketed")))
+DIST_DIR = ROOT / "build" / "dist-smoke"  # graph copy, rank logs; removed
+
+
+def _rank_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's variables for rank ``rank`` of ``world`` on this host."""
+    import os
+    return {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _instrument_collectives(log: list):
+    """Wrap the distributed build's collectives: each call appends (name,
+    bytes it leaves in this rank's output, timer) to ``log``; the timer is
+    a pair of CUDA events on a card tensor, host seconds on a CPU one.
+    Returns the undo."""
+    import torch
+    from repro_torch.core import distributed as dmod
+    saved = {n: getattr(dmod, n) for n in ("_all_gather", "_all_to_all",
+                                           "_all_reduce")}
+
+    def wrap(name, fn):
+        def timed(t, group):
+            if t.is_cuda:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = fn(t, group)
+                ev[1].record()
+            else:
+                t0 = time.perf_counter()
+                out = fn(t, group)
+                ev = time.perf_counter() - t0
+            log.append((name, out.numel() * out.element_size(), ev))
+            return out
+        return timed
+    for n, fn in saved.items():
+        setattr(dmod, n, wrap(n, fn))
+    return lambda: [setattr(dmod, n, fn) for n, fn in saved.items()]
+
+
+def _collective_summary(log: list, iterations: int) -> dict:
+    """Collective ms and bytes a rank-iteration, and by collective."""
+    by = {}
+    for name, nbytes, ev in log:
+        ms = ev[0].elapsed_time(ev[1]) if isinstance(ev, tuple) else ev * 1e3
+        d = by.setdefault(name.strip("_"), {"calls": 0, "ms": 0.0,
+                                            "bytes": 0})
+        d["calls"] += 1
+        d["ms"] += ms
+        d["bytes"] += nbytes
+    it = max(iterations, 1)
+    return {"collective_ms_per_iteration": sum(
+        d["ms"] for d in by.values()) / it,
+        "collective_bytes_per_iteration": sum(
+            d["bytes"] for d in by.values()) / it,
+        "collectives": by}
+
+
+def _measured(build, device: str):
+    """``build()`` with its launches, peak card memory and collectives
+    measured: (result, info)."""
+    import torch
+    from repro_torch.kernels.sig_fold import sig_fold
+    log = []
+    undo = _instrument_collectives(log)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sig_fold.launches = 0
+        t0 = time.perf_counter()
+        res = build()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = sig_fold.launches
+    finally:
+        undo()
+    iterations = len(res.counts) - 1
+    return res, {"device": device, "wall_s": wall,
+                 "iteration_ms": [s.seconds * 1e3 for s in res.stats[1:]],
+                 "iterations": iterations, "fold_flat_launches": launches,
+                 "peak_bytes": torch.cuda.max_memory_allocated(),
+                 **_collective_summary(log, iterations)}
+
+
+def dist_parity_worker(out_dir: str) -> int:
+    """One rank of ``distributed_parity``'s gloo group (torchrun's
+    variables in its environment): every mode and ranking on the parity
+    graph on the CPU, then on the card; writes its results (pids from
+    rank 0 only) to ``out_dir``."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import build_bisim_distributed
+    from repro_torch.graph import generators as gen
+    from repro_torch.launch.cluster import init_cluster
+    rank, world = init_cluster(device=DEVICE, backend="gloo")
+    g = gen.powerlaw_graph(PARITY["nodes"], PARITY["edges"], 4, 3, seed=0)
+    infos, arrays = {}, {}
+    for device in ("cpu", DEVICE):
+        for mode in MODES:
+            for ranking in DIST["rankings"]:
+                key = f"{device}/{mode}/{ranking}"
+                res, infos[key] = _measured(
+                    lambda: build_bisim_distributed(
+                        g, PARITY["k"], mode=mode, ranking=ranking,
+                        device=device), device)
+                infos[key].update(counts=res.counts,
+                                  converged_at=res.converged_at)
+                if rank == 0:
+                    arrays[key] = res.pids
+    dist.destroy_process_group()
+    np.savez(Path(out_dir) / f"rank{rank}.npz",
+             info=np.array(json.dumps(infos)), **arrays)
+    return 0
+
+
+def dist_launch_worker(out_dir: str, argv: list) -> int:
+    """One rank of a ``distributed`` run under torchrun: the launcher's
+    ``main(argv)`` measured as `_measured` measures a build; every rank
+    writes its numbers, rank 0 also the pid history."""
+    import os
+    import numpy as np
+    from repro_torch.launch import bisim as launcher
+    rank = int(os.environ["RANK"])
+    res, info = _measured(lambda: launcher.main(argv), DEVICE)
+    np.savez(Path(out_dir) / f"rank{rank}.npz", info=np.array(json.dumps(
+        {**info, "counts": res.counts, "converged_at": res.converged_at})),
+        **({"pids": res.pids} if rank == 0 else {}))
+    return 0
+
+
+def _run_ranks(name: str, procs: list, log_paths: list, timeout: float):
+    """Wait for a run's processes; raise with a failing one's log tail."""
+    for proc, path in zip(procs, log_paths):
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise SystemExit(f"{name}: {path.name} timed out")
+        if rc != 0:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            raise SystemExit(f"{name}: {path.name} failed (rc {rc}):\n"
+                             f"{path.read_text()[-3000:]}")
+
+
+def _load_ranks(out_dir: Path, world: int):
+    """Every rank's info and rank 0's arrays of a run."""
+    import numpy as np
+    infos, arrays = [], {}
+    for r in range(world):
+        with np.load(out_dir / f"rank{r}.npz") as z:
+            infos.append(json.loads(str(z["info"])))
+            if r == 0:
+                arrays = {key: z[key] for key in z.files if key != "info"}
+    return infos, arrays
+
+
+def _run_line(infos: list) -> dict:
+    """One run's line: rank 0's per-iteration ms, every rank's collective
+    ms and bytes a rank-iteration, peak card memory and fold launches."""
+    return {"iteration_ms": infos[0]["iteration_ms"],
+            "counts": infos[0]["counts"],
+            "converged_at": infos[0]["converged_at"],
+            **{key: [info[key] for info in infos] for key in (
+                "wall_s", "collective_ms_per_iteration",
+                "collective_bytes_per_iteration", "peak_bytes",
+                "fold_flat_launches")},
+            "collectives_rank0": infos[0]["collectives"]}
+
+
+def phase_distributed_parity() -> dict:
+    """The distributed build on the parity graph, every mode and both
+    rankings, in three groups: eight gloo ranks (processes of this
+    script) building on the CPU and on the one card, and one NCCL rank on
+    the card in this process.  Bit for bit: card D=8 = CPU D=8, card D=1
+    ``allgather`` = CPU D=8 ``allgather`` (= card D=1 ``bucketed``); every
+    run's counts are the single-card build's and each level the same
+    partition; the card folds through ``fold_flat`` once an iteration."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import build_bisim, build_bisim_distributed
+    from repro_torch.graph import generators as gen
+    from repro_torch.launch.cluster import init_cluster
+    t0 = time.perf_counter()
+    out_dir = DIST_DIR / "parity"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    world, port = DIST["parity_ranks"], _free_port()
+    logs = [out_dir / f"rank{r}.log" for r in range(world)]
+    procs = []
+    for r, path in enumerate(logs):
+        with open(path, "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+                 "dist_parity", str(out_dir)], stdout=log,
+                stderr=subprocess.STDOUT, cwd=str(ROOT),
+                env=_rank_env(r, world, port)))
+    try:
+        g = gen.powerlaw_graph(PARITY["nodes"], PARITY["edges"], 4, 3,
+                               seed=0)
+        single = {m: build_bisim(g, PARITY["k"], mode=m, device=DEVICE)
+                  for m in MODES}
+        one, one_pids = {}, {}
+        if init_cluster(device=DEVICE) != (0, 1):
+            raise SystemExit("distributed_parity: this process is not a "
+                             "one-rank group")
+        try:
+            for mode in MODES:
+                for ranking in DIST["rankings"]:
+                    key = f"{mode}/{ranking}"
+                    res, one[key] = _measured(
+                        lambda: build_bisim_distributed(
+                            g, PARITY["k"], mode=mode, ranking=ranking,
+                            device=DEVICE), DEVICE)
+                    one[key].update(counts=res.counts,
+                                    converged_at=res.converged_at)
+                    one_pids[key] = res.pids
+        finally:
+            dist.destroy_process_group()
+        _run_ranks("distributed_parity", procs, logs, 600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    infos, pids = _load_ranks(out_dir, world)
+    checks, groups = {}, {"card_d1_nccl": {}, "card_d8_gloo": {},
+                          "cpu_d8_gloo": {}}
+    for mode in MODES:
+        ref = single[mode]
+        for ranking in DIST["rankings"]:
+            key = f"{mode}/{ranking}"
+            runs = {"card_d1_nccl": ([one[key]], one_pids[key]),
+                    "card_d8_gloo": ([i[f"{DEVICE}/{key}"] for i in infos],
+                                     pids[f"{DEVICE}/{key}"]),
+                    "cpu_d8_gloo": ([i[f"cpu/{key}"] for i in infos],
+                                    pids[f"cpu/{key}"])}
+            for group, (run_infos, _) in runs.items():
+                groups[group][key] = _run_line(run_infos)
+            card8, cpu8 = runs["card_d8_gloo"], runs["cpu_d8_gloo"]
+            ok = {"card_d8_eq_cpu_d8": bool(
+                np.array_equal(card8[1], cpu8[1])
+                and card8[0][0]["counts"] == cpu8[0][0]["counts"]
+                and card8[0][0]["converged_at"]
+                == cpu8[0][0]["converged_at"])}
+            if ranking == "allgather":
+                ok["card_d1_eq_cpu_d8"] = bool(np.array_equal(
+                    one_pids[key], cpu8[1]))
+            else:
+                ok["card_d1_eq_d1_allgather"] = bool(np.array_equal(
+                    one_pids[key], one_pids[f"{mode}/allgather"]))
+            ok["ranks_agree"] = all(
+                i["counts"] == run_infos[0]["counts"]
+                for run_infos, _ in runs.values() for i in run_infos)
+            ok["counts_eq_single"] = all(
+                run_infos[0]["counts"] == ref.counts
+                for run_infos, _ in runs.values())
+            ok["same_partition_every_level"] = all(
+                p.shape == ref.pids.shape and all(
+                    _same_partition(p[j], ref.pids[j])
+                    for j in range(p.shape[0]))
+                for _, p in runs.values())
+            ok["card_folds_once_an_iteration"] = all(
+                i["fold_flat_launches"] == i["iterations"] > 0
+                for group in ("card_d1_nccl", "card_d8_gloo")
+                for i in runs[group][0])
+            ok["cpu_launches_nothing"] = all(
+                i["fold_flat_launches"] == 0 for i in cpu8[0])
+            checks[key] = ok
+    for group, lines in groups.items():
+        emit({"phase": "distributed_parity", "group": group,
+              "graph": {"generator": "powerlaw", "nodes": g.num_nodes,
+                        "edges": g.num_edges}, "k": PARITY["k"],
+              "runs": lines})
+    out = {"phase": "distributed_parity", "checks": checks,
+           "single_counts": {m: single[m].counts for m in MODES},
+           "seconds": time.perf_counter() - t0}
+    out["ok"] = all(all(v.values()) for v in checks.values())
+    emit(out)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if not out["ok"]:
+        raise SystemExit("distributed_parity: a distributed build differs "
+                         "from its twin or from the single-card build, or "
+                         "a card run did not fold through fold_flat once "
+                         "an iteration")
+    return out
+
+
+def save_full_graph(g) -> Path:
+    """The full graph, saved once (uncompressed) for ``--graph``."""
+    import numpy as np
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    path = DIST_DIR / "full_graph.npz"
+    np.savez(path, node_labels=g.node_labels, src=g.src, dst=g.dst,
+             elabel=g.elabel)
+    return path
+
+
+def phase_distributed(graph_path: Path, inmem) -> dict:
+    """The launcher's ``--distributed`` build of the full graph under
+    ``python -m torch.distributed.run --standalone``: one rank under NCCL
+    (``allgather``) and four gloo ranks sharing the card (``bucketed``).
+    Each equals the in-memory ``sorted`` build: counts, and the same
+    partition at every level; every rank folds through ``fold_flat`` once
+    an iteration.  One line a run."""
+    lines = {}
+    for name, world, backend, ranking in DIST["runs"]:
+        out_dir = DIST_DIR / name
+        shutil.rmtree(out_dir, ignore_errors=True)
+        out_dir.mkdir(parents=True)
+        argv = ["--graph", str(graph_path), "--k", str(FULL["k"]),
+                "--mode", "sorted", "--device", DEVICE, "--distributed",
+                "--ranking", ranking, "--dist-backend", backend]
+        log = out_dir / "torchrun.log"
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", str(world),
+                 str(ROOT / "chip_smoke.py"), "--worker", "dist_launch",
+                 str(out_dir), *argv], stdout=f, stderr=subprocess.STDOUT,
+                cwd=str(ROOT))
+        _run_ranks(f"distributed {name}", [proc], [log], 600)
+        infos, arrays = _load_ranks(out_dir, world)
+        pids = arrays["pids"]
+        text = log.read_text()
+        line = {"phase": "distributed", "run": name, "ranks": world,
+                "backend": backend, "ranking": ranking, "mode": "sorted",
+                "k": FULL["k"], "process_s": time.perf_counter() - t0,
+                **_run_line(infos),
+                "launcher_lines": [ln for ln in text.splitlines() if
+                                   ln.startswith(("graph:", "k=", "  iter",
+                                                  "total"))],
+                "counts_eq_inmemory": infos[0]["counts"] == inmem.counts,
+                "same_partition_every_level": pids.shape == inmem.pids.shape
+                and all(_same_partition(pids[j], inmem.pids[j])
+                        for j in range(pids.shape[0])),
+                "ranks_agree": all(i["counts"] == infos[0]["counts"]
+                                   for i in infos),
+                "folds_once_an_iteration": all(
+                    i["fold_flat_launches"] == i["iterations"] > 0
+                    for i in infos)}
+        line["ok"] = bool(line["counts_eq_inmemory"]
+                          and line["same_partition_every_level"]
+                          and line["ranks_agree"]
+                          and line["folds_once_an_iteration"])
+        emit(line)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        if not line["ok"]:
+            raise SystemExit(f"distributed {name}: differs from the "
+                             "in-memory build, or a rank did not fold "
+                             "through fold_flat once an iteration")
+        lines[name] = line
+    return lines
 
 
 # b, hq, hkv, sq, skv, d, causal, window, softcap, dtype: the JAX
@@ -2583,15 +2989,18 @@ def main() -> int:
         full, inmem = phase_full(args, g, gen_seconds)
         phase_profile(args, g)
         ooc = phase_oocore(args, g, inmem)
+        phase_distributed_parity()
+        dist_runs = phase_distributed(save_full_graph(g), inmem)
     finally:
         shutil.rmtree(WORKDIR, ignore_errors=True)
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
     del inmem
     maint, folds = phase_maintenance(g)
     frontier = phase_frontier_kernels(folds)
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
-    # the full graph's quotient phase and the stream's runs are
-    # host-bound: worker processes run them beside the out-of-core
-    # maintenance and quotient parity phases; the quotient worker times
+    # the quotient phases and the stream's runs are host-bound: worker
+    # processes run them beside the out-of-core maintenance phases; the
+    # quotient worker runs quotient_parity, then the full graph's, times
     # its waves once the others have ended, and its lines print below
     workers = start_workers()
     try:
@@ -2601,10 +3010,9 @@ def main() -> int:
         finally:
             shutil.rmtree(OOC_WORKDIR, ignore_errors=True)
         del g
-        qparity = phase_quotient_parity()
         stream = phase_stream(workers)
         print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
-        quotient = collect_quotient(workers)
+        qparity, quotient = collect_quotient(workers)
     finally:
         stop_workers(workers)
         for d in (QUOTIENT_WORKDIR, STREAM_WORKDIR, WORKER_DIR):
@@ -2620,6 +3028,9 @@ def main() -> int:
     # ms: the wrapper a call (CUDA events); kernel_ms: the kernel's own
     # device time (torch.profiler); host_us: the host's time a call
     times = ("ms", "kernel_ms", "host_us", "plain_ms", "bound_ms")
+    # fold_flat launches a rank of the full graph's distributed runs
+    dist_launches = {name: line["fold_flat_launches"]
+                     for name, line in dist_runs.items()}
     emit({"kernels": [{
         "name": "sig_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sig_fold.cu",
@@ -2627,6 +3038,7 @@ def main() -> int:
         "launches": full["runs"][0]["sig_fold_launches"],
         "quotient_launches": quotient["build_sig_fold_launches"],
         "quotient_parity_launches": qparity["build_sig_fold_launches"],
+        "distributed_launches": dist_launches,
         "max_abs_err": kern["max_abs_err"],
         **{k: kern[k] for k in times}, "shape": kern["shape"],
         "bound_by": "bytes", "library_ms": None}, {
@@ -2638,6 +3050,7 @@ def main() -> int:
         "quotient_launches": quotient["frontier_sig_fold_launches"],
         "quotient_parity_launches": qparity["frontier_sig_fold_launches"],
         "stream_launches": stream["frontier_sig_fold_launches"],
+        "distributed_launches": dist_launches,
         "max_abs_err": frontier["max_abs_err"],
         **{k: big[k] for k in times}, "shape": big["shape"],
         "median_batch": {k: frontier["cases"]["median dedup=True"][k]

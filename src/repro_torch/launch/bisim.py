@@ -1,11 +1,22 @@
-"""Bisimulation launcher of the port: run Build_Bisim (in memory, or
-out-of-core with ``--oocore``) on a generated or saved graph, on the card
-unless ``--device cpu`` is given.
+"""Bisimulation launcher of the port: run Build_Bisim (in memory,
+distributed over a process group with ``--distributed``, or out-of-core
+with ``--oocore``) on a generated or saved graph, on the card unless
+``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.bisim --generator powerlaw \
         --nodes 100000 --edges 400000 --k 10 --mode sorted
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.bisim --distributed \
+        --ranking bucketed --generator structured --nodes 50000
     PYTHONPATH=src python -m repro_torch.launch.bisim --oocore \
         --chunk-edges 65536 --generator structured --nodes 300000
+
+``--distributed`` starts the process group from torchrun's or Slurm's
+variables (`launch.cluster.init_cluster`; without them, one rank in this
+process) and runs `core.build_bisim_distributed` on every rank; only
+rank 0 prints and writes ``--out``.  ``--dist-backend`` (the port's own
+flag) is ``nccl`` on the card and ``gloo`` with ``--device cpu``; gloo on
+the card lets several ranks share one card.
 
 The ``add-edges`` / ``delete-node`` / ``compact`` subcommands apply one
 update to the built partition through `BisimMaintainer` (in memory, or
@@ -37,8 +48,8 @@ live), and ``serve-updates`` runs the streaming maintenance service
         --kill-at-op 120
 
 Flags, defaults and output lines are those of `repro.launch.bisim`'s
-builds, maintenance, quotient and streaming subcommands (its distributed
-engine arrives with its slice).  Propagation runs on the device by
+builds (single, distributed and out-of-core), maintenance, quotient and
+streaming subcommands.  Propagation runs on the device by
 default (``--device-maintenance``, the reference's opt-in);
 ``--host-maintenance`` asks for the numpy host path.  ``--checkpoint
 --workdir DIR`` makes the out-of-core build write a per-level
@@ -49,7 +60,9 @@ the phase table, with the ``build.dispatch`` / ``build.sync`` counts.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import os
 import tempfile
 import time
@@ -57,9 +70,10 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
-from ..core import BisimMaintainer, build_bisim
+from ..core import BisimMaintainer, build_bisim, build_bisim_distributed
 from ..exmem import (OocBackend, StreamConfig, StreamingMaintenanceService,
                      build_bisim_oocore, replay_open_loop, synthesize_ops)
 from ..exmem.runs import IOStats
@@ -67,6 +81,7 @@ from ..graph import generators as gen
 from ..graph.storage import Graph
 from ..obs import MetricsReport, write_chrome_trace
 from ..obs import tracer as obs
+from .cluster import BACKENDS, init_cluster
 
 
 def make_graph(args) -> Graph:
@@ -98,8 +113,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--mode", default="sorted",
                     choices=["sorted", "dedup_hash", "multiset"])
-    ap.add_argument("--oocore", action="store_true",
-                    help="disk-resident streamed build (repro_torch.exmem)")
+    # one engine per session: the distributed builder has no out-of-core
+    # tables (and no maintenance backend), so the flags cannot combine
+    engine = ap.add_mutually_exclusive_group()
+    engine.add_argument("--distributed", action="store_true",
+                        help="Algorithm 1 over a torch.distributed process "
+                             "group (torchrun's or Slurm's ranks; else "
+                             "one rank)")
+    engine.add_argument("--oocore", action="store_true",
+                        help="disk-resident streamed build "
+                             "(repro_torch.exmem)")
+    ap.add_argument("--ranking", default="allgather",
+                    choices=["allgather", "bucketed"])
+    ap.add_argument("--dist-backend", default=None, choices=BACKENDS,
+                    help="--distributed: the process group's backend "
+                         "(default: nccl on the card, gloo with --device "
+                         "cpu; gloo on the card lets ranks share it)")
     ap.add_argument("--chunk-edges", type=int, default=1 << 16,
                     help="oocore: E_t chunk rows (memory budget)")
     ap.add_argument("--chunk-nodes", type=int, default=None,
@@ -271,7 +300,8 @@ def _report_overlap(aio_stats, compute_s: float) -> None:
 
 
 def _engine(args) -> str:
-    return "oocore" if args.oocore else "single"
+    return ("oocore" if args.oocore else
+            "dist/" + args.ranking if args.distributed else "single")
 
 
 def run_build(args, g: Graph):
@@ -287,6 +317,9 @@ def run_build(args, g: Graph):
             io_threads=_io_threads(args),
             prefetch_depth=args.prefetch_depth,
             checkpoint=args.checkpoint or args.resume, resume=args.resume)
+    elif args.distributed:
+        build = build_bisim_distributed
+        kwargs.update(ranking=args.ranking)
     else:
         build = build_bisim
         if args.sync_every is not None:
@@ -379,6 +412,10 @@ def _make_maintainer(args, g: Graph):
     """A `BisimMaintainer` from the engine flags (shared by the
     maintenance and quotient subcommands), with its `OocBackend` or
     None."""
+    if args.distributed:
+        raise SystemExit(
+            "this subcommand supports the single and --oocore engines "
+            "(the distributed builder keeps no store)")
     if args.oocore:
         backend = OocBackend(
             g, chunk_edges=args.chunk_edges, chunk_nodes=args.chunk_nodes,
@@ -394,6 +431,10 @@ def _make_maintainer(args, g: Graph):
 
 def run_maintenance(args, g: Graph) -> None:
     """Build the partition, apply one update subcommand, report it."""
+    if args.distributed:
+        raise SystemExit(
+            "maintenance subcommands support the single and --oocore "
+            "engines (the distributed builder keeps no store)")
     if args.wal and not (args.oocore and args.workdir):
         raise SystemExit("--wal needs --oocore and --workdir (a tempdir "
                          "workdir would be deleted on exit, defeating "
@@ -684,8 +725,35 @@ def _dispatch(args):
     return res
 
 
+@contextlib.contextmanager
+def _ranks(args):
+    """A ``--distributed`` build starts the process group (unless one is
+    running) and stops the one it started; every rank but 0 runs with
+    its output swallowed and no ``--out`` or ``--trace`` to write.
+    Yields the arguments this rank runs with."""
+    if not (args.distributed and args.cmd is None):
+        yield args
+        return
+    started = not dist.is_initialized()
+    rank, _ = init_cluster(args.device, args.dist_backend)
+    try:
+        if rank == 0:
+            yield args
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                yield argparse.Namespace(**{**vars(args), "out": None,
+                                            "trace": None})
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    with _ranks(build_parser().parse_args(argv)) as args:
+        return _main(args)
+
+
+def _main(args):
     if not args.trace:
         return _dispatch(args)
     tracer = obs.Tracer()

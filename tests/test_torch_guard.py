@@ -51,6 +51,10 @@ def test_launcher_defaults_match_reference():
     # --host-maintenance asks for the host (the reference opts in)
     assert mine.pop("device_maintenance") is True
     assert theirs["device_maintenance"] is False
+    # declared divergence: the port's own --dist-backend picks the process
+    # group's backend (nccl on the card, gloo with --device cpu)
+    assert mine.pop("dist_backend") is None
+    assert "dist_backend" not in theirs
     for key, value in mine.items():
         assert theirs[key] == value, key
 

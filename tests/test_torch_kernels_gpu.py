@@ -665,3 +665,31 @@ def test_quotient_engine_one_transfer_a_wave(cuda, tmp_path):
     waves = svc.engine.stats["waves"] - waves0
     dtoh = sum(e.count for e in prof.key_averages() if "DtoH" in e.key)
     assert waves >= 3 and dtoh == waves
+
+
+@pytest.mark.parametrize("ranking", ["allgather", "bucketed"])
+@pytest.mark.parametrize("mode", ["sorted", "dedup_hash", "multiset"])
+def test_card_distributed_one_rank_equals_cpu(cuda, mode, ranking):
+    """A one-rank NCCL build on the card equals the one-rank gloo build on
+    the CPU, and folds through ``fold_flat`` once an iteration."""
+    import torch.distributed as dist
+    from repro_torch.core import build_bisim_distributed
+    from repro_torch.launch.cluster import init_cluster
+    g = gen.powerlaw_graph(3000, 15000, 4, 3, seed=1)
+    got = {}
+    for device in ("cuda", "cpu"):
+        assert init_cluster(device=device) == (0, 1)
+        try:
+            assert dist.get_backend() == ("nccl" if device == "cuda"
+                                          else "gloo")
+            before = tfold.sig_fold.launches
+            res = build_bisim_distributed(g, 6, mode=mode, ranking=ranking,
+                                          device=device)
+            got[device] = res, tfold.sig_fold.launches - before
+        finally:
+            dist.destroy_process_group()
+    (card, launches), (cpu, cpu_launches) = got["cuda"], got["cpu"]
+    np.testing.assert_array_equal(card.pids, cpu.pids)
+    assert card.counts == cpu.counts
+    assert card.converged_at == cpu.converged_at
+    assert launches == len(card.counts) - 1 > 0 and cpu_launches == 0
