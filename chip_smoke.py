@@ -70,7 +70,8 @@ Phases, each printing one JSON line:
              kernel without the §4.2 rebuild;
 7d. frontier_kernels — ``frontier_sig_fold`` against its plain version
              and timed at the largest and the median batch the
-             maintenance phase folded, both dedup settings;
+             maintenance phase folded, both dedup settings (run once the
+             workers of 7h-7i have ended, alone on the card);
 7e. ooc_maintenance_parity — `exmem.OocBackend` maintenance of the
              parity graph at k=10 (``sorted``, ``multiset``; 2^16-edge
              chunks, stores that spill at 2^14 entries) on the card with
@@ -108,21 +109,23 @@ Phases, each printing one JSON line:
              index answers as a freshly materialized one;
 7h. quotient — the full graph's quotient at k=4 (``sorted``, an
              in-memory card maintainer, 2^20-row sort budgets), run by a
-             worker process of this script beside 7e-7f, after 7g: blocks
+             worker process of this script beside 7c and 7e-7f, after
+             7g: blocks
              and edges a level, the materialize wall and `IOStats`, the
              engine's device bytes; every answer of 64 path queries and
              64 point lookups against `eval_ref` and 16 against
              `eval_brute`; then 1,000 and 100,000 inserts absorbed by
              the service (patch ms, levels touched, ``sig_fold`` and
              ``frontier_sig_fold`` launches) and the queries again on
-             the patched index; last, once no other process uses the
+             the patched index (not against `eval_ref`: that round is
+             cut for time); last, once no other process uses the
              card, the queries once more through the engine, its waves
              and hops timed by CUDA events and its own spans, and its
              device->host copies a wave;
 7i. stream — ``serve-updates`` with the launcher's defaults on the
              parity graph (200 ops, batches of 32, k=10, ``--oocore
              --wal``) in two worker processes of this script, started
-             with 7h's before 7e: the card's ``--kill-at-op 120`` crash
+             with 7h's before 7c: the card's ``--kill-at-op 120`` crash
              drill, whose uninterrupted run is the stream straight
              through (updates/s, batches, snapshots, staleness against
              its bound, epoch, ``chunk_sig_fold`` and
@@ -144,6 +147,16 @@ Phases, each printing one JSON line:
              events and the host's time a call; prints both attention libraries'
              ``-Xptxas -v`` lines, a register/spill/wgmma count of each
              kernel's SASS and the route each dtype takes;
+8a. attention_bwd — ``flash_attention_bwd`` against its plain version
+             (`_bwd_rule`'s port) on the card on the cases of
+             `tests/test_torch_kernels_gpu.py` (f32 within 1e-4 of each
+             output's max |x|, bf16 within 2e-2), both forward kernels'
+             ``lse`` against `_fwd_impl`'s, then gemma2's train shape (bf16,
+             16/8 heads, head_dim 256, 4096 tokens, causal, softcap 50,
+             with and without the 4096 window) timed as phase 8 times the
+             forward, beside its bound (the rule's five products) and
+             SDPA's backward (fwd + bwd minus fwd, no softcap); prints its
+             ``-Xptxas -v`` lines and SASS counts;
 9. serve_parity — a 4-layer, d_model-512 gemma2 in f32 served by
              ``ServeEngine`` on the card and on the CPU from one seeded
              init: equal tokens, the card's prefill logits within 1e-4 of
@@ -155,7 +168,23 @@ Phases, each printing one JSON line:
              the ``flash_attention`` count set to 0 just before and read
              just after (it must be 42 x waves);
 11. serve_profile — device time by kernel and the device's idle share
-             for one wave of that server, under `torch.profiler`.
+             for one wave of that server, under `torch.profiler`;
+12. train_parity — a 4-layer, d_model-512 gemma2 in f32 (weight matrices
+             at std 1/sqrt(d_in)) trained on the card and on the CPU from
+             one init: the card's first-step gradients within 1e-4 of each
+             leaf's max |g| of the CPU's float64 evaluation, the
+             ``flash_attention`` forward and backward launches a step equal
+             to the two-level remat's count (`models.lm.remat_forwards`),
+             3 steps' losses within 1e-4, and a checkpointed run killed at
+             step 2 and restored giving the uninterrupted losses;
+13. train  — the train launcher's `make_trainer` on gemma2-9b at full
+             width cut to 20 of its 42 layers (bf16, f32 AdamW state),
+             5 steps of `TokenPipeline` at seq 4096, batch 1, with the
+             kernel counts set to 0 just before and read just after (they
+             must equal the remat's count): loss, step ms, tokens/s and
+             grad_norm a step, peak memory and its share of the card; then
+             one more step under `torch.profiler` (device time by kernel,
+             the device's idle share).
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Any failure raises and exits non-zero.  It needs one card and imports
@@ -1877,7 +1906,8 @@ def phase_quotient(g, quiet=None) -> dict:
     absorbed by the service (patch ms, levels touched, kernel launches:
     ``sig_fold.launches`` set to 0 just before the build and each op and
     read just after, counted by `_launches_by_row`), and the same
-    queries against `eval_ref` on the index both patches made.  Last,
+    queries on the index both patches made (their `eval_ref` round is
+    cut for time; the timed round must equal them).  Last,
     once ``quiet()`` returns (no other process on the card), the queries
     once more through the engine as it runs, timed (`_timed_waves`; the
     answers must equal the previous round's) and profiled for the
@@ -1919,9 +1949,10 @@ def phase_quotient(g, quiet=None) -> dict:
     queries = _full_queries(g, rng, k, QUOTIENT["path_queries"],
                             QUOTIENT["point_lookups"])
 
-    def serve(tag, brute=False) -> tuple:
+    def serve(tag, brute=False, ref=True) -> tuple:
         """The batch through the engine (host clock), each answer
-        against eval_ref, a sample against eval_brute."""
+        against eval_ref (unless not ``ref``), a sample against
+        eval_brute."""
         stats0 = dict(engine.stats)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1929,7 +1960,7 @@ def phase_quotient(g, quiet=None) -> dict:
         query_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ref_equal = all(_same_answers(a, eval_ref(svc.index, q))
-                        for a, q in zip(answers, queries))
+                        for a, q in zip(answers, queries)) if ref else None
         ref_s = time.perf_counter() - t0
         sample = (rng.choice(len(queries), QUOTIENT["brute_sample"],
                              replace=False) if brute else [])
@@ -1985,10 +2016,12 @@ def phase_quotient(g, quiet=None) -> dict:
         emit(row)
         rows.append(row)
     del tracer
-    # the queries again on the index patched by every op
-    last, again = serve(f"after {len(QUOTIENT['ops'])} patches")
+    # the queries again on the index patched by every op, held to the
+    # timed round below; their eval_ref round is cut for the script's
+    # time (quotient_parity holds patched indexes to eval_ref and
+    # eval_brute, and a patched index to a rematerialized one)
+    last, again = serve(f"after {len(QUOTIENT['ops'])} patches", ref=False)
     emit({"phase": "quotient", "op": "query", **again})
-    ok &= again["eval_ref_equal"]
     if quiet is not None:
         quiet()
     answers, waves = _timed_waves(svc, queries)
@@ -2901,7 +2934,8 @@ def phase_serve():
            "flash_attention_launches": launches,
            "layers_x_waves": cfg.num_layers * st.waves,
            "logits_finite": all(finite), "outputs_well_formed": shapes_ok,
-           "peak_bytes": peak, "peak_share": peak / card, "card_bytes": card,
+           "peak_bytes": peak, "peak_share": peak / card,
+           "card_bytes": card,
            "host_cpu": _host_cpu(), "first_output": outs[0][:8]}
     emit(out)
     if launches != cfg.num_layers * st.waves or launches == 0:
@@ -2954,6 +2988,412 @@ def phase_serve_profile(eng, reqs) -> dict:
     return out
 
 
+# the backward's cases, those of `tests/test_torch_kernels_gpu.py`: the
+# reference's gradient test, causal on and off, window, softcap, GQA groups
+# 1, 2 and 4, right-aligned and shifted queries, rows with no key
+BWD_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset
+    (2, 4, 2, 64, 64, 16, True, 16, 25.0, 0),
+    (1, 2, 2, 48, 48, 32, False, None, None, 0),
+    (1, 4, 2, 48, 48, 32, True, None, None, 0),
+    (1, 4, 4, 40, 64, 64, True, 8, None, 24),
+    (2, 4, 2, 40, 40, 64, True, None, 30.0, 7),
+    (1, 4, 1, 33, 33, 128, True, 4, 50.0, -5),
+    (1, 2, 1, 16, 16, 16, True, 0, None, 0),
+    (1, 4, 2, 100, 100, 256, False, None, 50.0, 0),
+    (1, 16, 8, 200, 200, 256, True, 64, 50.0, 0),
+]
+# gemma2-9b's train attention: one sequence of train_4k's 4096 tokens, bf16
+GEMMA_TRAIN_ATTN = dict(b=1, hq=16, hkv=8, s=4096, d=256, softcap=50.0,
+                        window=4096)
+# the full-width train cell: gemma2-9b cut from 42 to 20 layers (12 bytes a
+# parameter: bf16 weight and gradient, f32 m and v: 58.6 GB at 20 layers,
+# 111 GB at 42), the launcher's seq 4096, batch 1
+TRAIN = dict(layers=20, seq=4096, batch=1, steps=5)
+
+
+def phase_attention_bwd() -> dict:
+    """flash_attention_bwd on the card against `_bwd_rule`'s port on the
+    card, both forward kernels' lse against `_fwd_impl`'s, then gemma2's
+    train shape timed beside its bound and the SDPA yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels.ref import attention_mask
+    dev = torch.device(DEVICE)
+
+    def inputs(b, hq, hkv, sq, skv, d, dtype, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
+                for h, s in ((hq, sq), (hkv, skv), (hkv, skv), (hq, sq))]
+
+    def check(case, dtype):
+        b, hq, hkv, sq, skv, d, causal, window, softcap, off = case
+        dt = getattr(torch, dtype)
+        q, k, v, do = inputs(b, hq, hkv, sq, skv, d, dt, sq + d)
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  q_offset=off)
+        o, lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
+        launches = tfa.flash_attention_bwd.launches
+        got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        launched = tfa.flash_attention_bwd.launches - launches
+        want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        o_k, lse_k = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == "bfloat16" else 1e-4
+        errs = {n: float((g.float() - w.float()).abs().max())
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        scales = {n: float(w.float().abs().max())
+                  for n, w in zip(("dq", "dk", "dv"), want)}
+        big = lse == tfa.BIG
+        lse_err = float((lse_k - lse).abs().masked_fill(big, 0.0).max())
+        lse_scale = max(1.0, float(lse.masked_fill(big, 0.0).abs().max()))
+        lse_tol = 1e-3 if dtype == "bfloat16" else 1e-4
+        ok = (launched == 1
+              and all(errs[n] <= tol * max(scales[n], 1e-30) for n in errs)
+              and torch.equal(lse_k == tfa.BIG, big)
+              and lse_err <= lse_tol * lse_scale
+              and torch.equal(o_k, tfa.flash_attention(q, k, v, **kw)))
+        return {"case": dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
+                             causal=causal, window=window, softcap=softcap,
+                             q_offset=off, dtype=dtype),
+                "fwd_route": tfa.kernel_route(dt), "max_abs_err": errs,
+                "max_abs": scales, "tol_of_max": tol,
+                "lse_max_abs_err": lse_err, "lse_tol": lse_tol * lse_scale,
+                "empty_rows": int(big.sum()), "ok": ok}
+
+    cases = [check(c, dt) for dt in ("float32", "bfloat16")
+             for c in BWD_CASES]
+
+    def timed(window, softcap):
+        g = GEMMA_TRAIN_ATTN
+        b, hq, hkv, s, d = g["b"], g["hq"], g["hkv"], g["s"], g["d"]
+        q, k, v, do = inputs(b, hq, hkv, s, s, d, torch.bfloat16, 7)
+        kw = dict(causal=True, window=window, softcap=softcap)
+        o, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+        def fn():
+            return tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        got = fn()
+        want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        errs = {n: float((a.float() - w.float()).abs().max())
+                / max(float(w.float().abs().max()), 1e-30)
+                for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        del got, want
+        keep = attention_mask(s, s, causal=True, window=window, device=dev)
+        pairs = int(keep.sum())
+        # the rule's five products (s, dv, dp, dq, dk), 2 D flops a
+        # visible pair each, on the bf16 tensor cores' peak; bytes: q, k,
+        # v, o, dO and the outputs once, lse once
+        flop_ms = 10 * d * pairs * b * hq / FLOP_PER_S["bfloat16"] * 1e3
+        byte_ms = (q.element_size() * (4 * q.numel() + 2 * k.numel()
+                                       + 2 * v.numel())
+                   + 4 * lse.numel()) / HBM_BYTES_PER_S * 1e3
+        # a call's device time: the mean event of each of its passes (the
+        # profiler may see only some of the 20 calls' events)
+        names = device_ms_by_name(fn)
+        passes = {kind: x["ms"] for n, x in names.items()
+                  for kind in ("bwd_delta", "bwd_dkdv", "bwd_dq") if kind in n}
+        b2b = back_to_back_ms(fn)
+        kernel_ms = sum(passes.values())
+        source = "torch.profiler, the mean event of each pass seen"
+        if not {"bwd_dkdv", "bwd_dq"} <= passes.keys():
+            kernel_ms, source = b2b, "cuda events, 20 calls in a row"
+        # the yardstick: SDPA's backward (fwd + bwd minus fwd), same causal
+        # mask (the 4096 window masks nothing more at 4096 tokens), no
+        # softcap (SDPA has none): the same function without the cap
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, is_causal=True, enable_gqa=True)
+        sdpa_fwd_ms = cuda_ms(sdpa, 10)
+        sdpa_fb_ms = cuda_ms(lambda: sdpa().backward(do), 10)
+        row = {"case": dict(b=b, hq=hq, hkv=hkv, s=s, d=d, causal=True,
+                            window=window, softcap=softcap,
+                            dtype="bfloat16"),
+               "err_of_max": errs, "ok": max(errs.values()) <= 2e-2,
+               "pairs_per_head": pairs, "kernel_ms": kernel_ms,
+               "kernel_ms_source": source, "device_ms_by_name": names,
+               "ms": cuda_ms(fn, 10), "back_to_back_ms": b2b,
+               "host_us": host_us(fn),
+               "plain_ms": cuda_ms(lambda: tfa.flash_attention_bwd_plain(
+                   q, k, v, o, lse, do, **kw), 3),
+               "fwd_ms": cuda_ms(lambda: tfa.flash_attention(
+                   q, k, v, return_lse=True, **kw), 10),
+               "library_fwd_bwd_ms": sdpa_fb_ms,
+               "library_fwd_ms": sdpa_fwd_ms,
+               "library_ms": sdpa_fb_ms - sdpa_fwd_ms,
+               "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
+               "bound_ms": max(flop_ms, byte_ms),
+               "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+        del q, k, v, do, o, lse, qs, ks, vs, keep
+        torch.cuda.empty_cache()
+        return row
+
+    g = GEMMA_TRAIN_ATTN
+    timing = {"global": timed(None, g["softcap"]),
+              "local": timed(g["window"], g["softcap"])}
+    ptxas = [ln.strip() for ln in _build.ptxas_report(
+        "flash_attention_bwd").splitlines()
+        if "Used" in ln or "spill" in ln or "Compiling" in ln]
+    for ln in ptxas:
+        print(f"ptxas flash_attention_bwd: {ln}", flush=True)
+    sass = _sass_summary("flash_attention_bwd")
+    bad = [c for c in cases + list(timing.values()) if not c["ok"]]
+    out = {"phase": "attention_bwd", "kernel": "flash_attention_bwd",
+           "replaces": "none: the JAX package differentiates in XLA "
+                       "(src/repro/models/flash_xla.py:100, _bwd_rule)",
+           "library": "scaled_dot_product_attention fwd+bwd minus fwd "
+                      "(is_causal, enable_gqa), without softcap",
+           "cases": cases, "mismatches": bad,
+           "max_abs_err": max(max(c["max_abs_err"].values())
+                              for c in cases),
+           "gemma2_9b_train": timing, "ptxas": ptxas, "sass": sass}
+    emit(out)
+    if bad:
+        raise SystemExit("flash_attention_bwd or an lse disagrees with its "
+                         "plain version")
+    return out
+
+
+def _trained_scale(params) -> None:
+    """Each weight matrix ``w`` (stacked [G, d_in, d_out] or [d_in, d_out])
+    rescaled in place from the init's std 1/sqrt(shape[0]) to
+    1/sqrt(d_in), as a trained model keeps its activations O(1)."""
+    import torch
+
+    def walk(tree):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                walk(val)
+            elif key == "w":
+                with torch.no_grad():
+                    val.mul_((val.shape[0] / val.shape[-2]) ** 0.5)
+    walk(params)
+
+
+def _leaf_errors(got, want) -> dict:
+    """{path: max |got - want| / max |want|} over two gradient trees."""
+    out = {}
+
+    def walk(g, w, prefix):
+        for key in sorted(w):
+            if isinstance(w[key], dict):
+                walk(g[key], w[key], f"{prefix}{key}/")
+            else:
+                a = g[key].detach().cpu().double()
+                b = w[key].detach().double()
+                out[prefix + key] = float(
+                    (a - b).abs().max() / max(float(b.abs().max()), 1e-300))
+    walk(got, want, "")
+    return out
+
+
+def _grads(model, batch):
+    import torch
+    from repro_torch.models.params import tree_leaves, tree_map
+    loss = model.loss_fn(model.params, batch)
+    it = iter(torch.autograd.grad(loss, tree_leaves(model.params)))
+    return float(loss.detach()), tree_map(lambda _: next(it), model.params)
+
+
+def phase_train_parity() -> dict:
+    """A 4-layer gemma2 (d_model 512) in f32 trained on the card and on
+    the CPU from one init: first-step gradients against the CPU's float64
+    evaluation, the kernels' launches a step against the remat's count,
+    3 steps' losses, and a checkpointed run killed at step 2 and
+    restored."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import Model
+    from repro_torch.models.lm import _sqrt_split, remat_forwards
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    t0 = time.perf_counter()
+    cfg = get_config("gemma2_9b").scaled(**PARITY_LM)
+    init = Model(cfg).init(0, torch.float32, DEVICE).params
+    _trained_scale(init)
+    host = tree_map(lambda t: t.detach().cpu(), init)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab_size, 2, 128, seed=0))
+    batch = {k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()}
+    card = Model(cfg).load(tree_map(lambda t: t.detach().clone(), init),
+                           trainable=True)
+    cpu = Model(cfg).load(tree_map(torch.clone, host), trainable=True)
+    cpu64 = Model(cfg).load(tree_map(lambda t: t.double(), host),
+                            trainable=True)
+    tfa.flash_attention.launches = tfa.flash_attention_bwd.launches = 0
+    loss_card, g_card = _grads(card, {k: v.to(DEVICE)
+                                      for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = {"fwd": tfa.flash_attention.launches,
+                "bwd": tfa.flash_attention_bwd.launches}
+    loss_cpu, g_cpu = _grads(cpu, batch)
+    loss64, g64 = _grads(cpu64, batch)
+    expect = {"fwd": remat_forwards(cfg), "bwd": cfg.num_layers}
+    err_card, err_cpu = _leaf_errors(g_card, g64), _leaf_errors(g_cpu, g64)
+    del g_card, g_cpu, g64, card, cpu, cpu64
+    opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=40)
+
+    def trainer(device, params, ckpt=None):
+        return Trainer(Model(cfg), opt, pipe, ckpt=ckpt, device=device,
+                       params=tree_map(lambda t: t.detach().clone().to(
+                           device), params))
+    steps = 3
+    card_losses = trainer(DEVICE, init).run(steps).losses
+    cpu_losses = trainer("cpu", host).run(steps).losses
+    # a checkpointed card run: a step fails at step 2 (the trainer
+    # restores its step-2 checkpoint and goes on), and a new trainer on
+    # the same directory (a killed process's successor) restores and
+    # finishes
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        fired = []
+
+        def kill_at_2(step):
+            if step == 2 and not fired:
+                fired.append(step)
+                raise RuntimeError("killed at step 2")
+        tr = trainer(DEVICE, init, CheckpointManager(d, keep=2))
+        res = tr.run(steps, ckpt_every=1, fault_injector=kill_at_2)
+        fault_losses, restarts = res.losses, res.restarts
+        del tr
+        # the directory as a process killed during step 2 leaves it
+        shutil.rmtree(Path(d) / f"step_{steps:08d}")
+        tr2 = trainer(DEVICE, init, CheckpointManager(d, keep=2))
+        restored_from = tr2.step
+        resumed = tr2.run(steps - tr2.step).losses
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    out = {"phase": "train_parity", "config": PARITY_LM, "dtype": "float32",
+           "batch": 2, "seq": 128, "init": "Model.init(0), weight matrices "
+           "at std 1/sqrt(d_in)",
+           "loss": {"card": loss_card, "cpu": loss_cpu, "f64": loss64},
+           "grad_err_of_max_card_vs_f64": err_card,
+           "grad_err_of_max_cpu_vs_f64": err_cpu,
+           "remat_split": _sqrt_split(cfg.pattern_groups),
+           "launches_a_step": launches, "launches_expected": expect,
+           "card_losses": card_losses, "cpu_losses": cpu_losses,
+           "fault_losses": fault_losses, "fault_restarts": restarts,
+           "restored_from_step": restored_from, "resumed_losses": resumed,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    print(f"train_parity: flash_attention {launches['fwd']} forward and "
+          f"{launches['bwd']} backward launches a step; the remat "
+          f"{_sqrt_split(cfg.pattern_groups)} gives {expect['fwd']} and "
+          f"{expect['bwd']}", flush=True)
+    ok = (max(err_card.values()) <= 1e-4 and launches == expect
+          and rel(loss_card, loss64) <= 1e-4
+          and all(rel(a, b) <= 1e-4
+                  for a, b in zip(card_losses, cpu_losses))
+          and restarts == 1 and len(fault_losses) == steps
+          and all(rel(a, b) <= 1e-6 for a, b in zip(fault_losses,
+                                                     card_losses))
+          and restored_from == steps - 1
+          and rel(resumed[0], card_losses[-1]) <= 1e-6)
+    if not ok:
+        raise SystemExit("train_parity: the card's training differs")
+    return out
+
+
+def phase_train() -> dict:
+    """gemma2-9b at full width, 20 of its 42 layers, bf16 with f32 AdamW
+    state: the train launcher's `make_trainer` at seq 4096, batch 1, for
+    `TRAIN` steps, with the kernel counts set to 0 just before and read
+    just after; then one more step under `torch.profiler`."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.lm import _sqrt_split, remat_forwards
+    cfg = get_config("gemma2_9b").scaled(num_layers=TRAIN["layers"])
+    args = launcher.build_parser().parse_args(
+        ["--arch", "gemma2_9b", "--seq", str(TRAIN["seq"]), "--batch",
+         str(TRAIN["batch"]), "--steps", str(TRAIN["steps"]),
+         "--device", DEVICE])
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = launcher.make_trainer(cfg, args, ckpt=False)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps = []
+    step_fn = trainer.step_fn
+
+    def timed_step(params, opt_state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        loss = float(out[2]["loss"])
+        seconds = time.perf_counter() - t
+        tokens = batch["tokens"].numel()
+        line = {"step": len(steps), "loss": loss, "step_ms": seconds * 1e3,
+                "tokens_per_s": tokens / seconds,
+                "grad_norm": float(out[2]["grad_norm"]),
+                "lr": out[2]["lr"]}
+        steps.append(line)
+        print(f"train step {line['step']}: {json.dumps(line)}", flush=True)
+        return out
+    trainer.step_fn = timed_step
+    tfa.flash_attention.launches = tfa.flash_attention_bwd.launches = 0
+    res = trainer.run(TRAIN["steps"])
+    launches = {"fwd": tfa.flash_attention.launches,
+                "bwd": tfa.flash_attention_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    expect = {"fwd": remat_forwards(cfg) * TRAIN["steps"],
+              "bwd": cfg.num_layers * TRAIN["steps"]}
+    print(f"done: steps={res.steps_done} restarts={res.restarts} "
+          f"loss={res.losses[0]:.3f}->{res.losses[-1]:.3f}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.run(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    top = _device_top(prof, wall, n=16)
+    by = lambda key: sum(  # noqa: E731
+        getattr(ev, "self_device_time_total", 0) for ev in
+        prof.key_averages() if key in ev.key) / 1e3
+    out = {"phase": "train", "arch": cfg.name, "source": "arXiv:2408.00118",
+           "layers": cfg.num_layers, "reduced": "depth 42 -> 20 layers "
+           "(the card: 12 bytes a parameter)", "params": trainer.model
+           .num_params(), "dtype": "bfloat16", "opt_state": "float32",
+           "seq": TRAIN["seq"], "batch": TRAIN["batch"],
+           "remat_split": _sqrt_split(cfg.pattern_groups), "init_s": init_s,
+           "steps": steps[:-1], "losses": res.losses,
+           "step_ms_median": float(np.median(
+               [x["step_ms"] for x in steps[1:-1]])),
+           "tokens_per_s_median": float(np.median(
+               [x["tokens_per_s"] for x in steps[1:-1]])),
+           "median_over": "steps 1.. (step 0 warms up)",
+           "profiled_step": steps[-1],
+           "launches": launches, "launches_expected": expect,
+           "peak_bytes": peak, "peak_share": peak / card,
+           "card_bytes": card,
+           "profile": {**top, "idle_share": 1 - top["busy_share"],
+                       "flash_fwd_device_ms": by("flash_fwd"),
+                       "flash_bwd_device_ms": by("bwd_"),
+                       "host_cpu": _host_cpu()}}
+    emit(out)
+    if launches != expect:
+        raise SystemExit(f"train: flash_attention launches {launches}, "
+                         f"the remat gives {expect}")
+    if not (all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
+                for x in steps) and len(steps) == TRAIN["steps"] + 1
+            and res.steps_done == TRAIN["steps"] and not res.restarts):
+        raise SystemExit("train: a step failed or a loss is not finite")
+    if not top["top"]:
+        raise SystemExit("the profiler saw no device time")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 def _full_argv() -> list:
     """The launcher's arguments of the full graph."""
     return ["--generator", "powerlaw", "--nodes", str(FULL["nodes"]),
@@ -2995,15 +3435,15 @@ def main() -> int:
         shutil.rmtree(WORKDIR, ignore_errors=True)
         shutil.rmtree(DIST_DIR, ignore_errors=True)
     del inmem
-    maint, folds = phase_maintenance(g)
-    frontier = phase_frontier_kernels(folds)
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
     # the quotient phases and the stream's runs are host-bound: worker
-    # processes run them beside the out-of-core maintenance phases; the
-    # quotient worker runs quotient_parity, then the full graph's, times
-    # its waves once the others have ended, and its lines print below
+    # processes run them beside the maintenance phases, in memory and out
+    # of core; the quotient worker runs quotient_parity, then the full
+    # graph's, times its waves once the others have ended, and its lines
+    # print below
     workers = start_workers()
     try:
+        maint, folds = phase_maintenance(g)
         try:
             phase_ooc_maintenance_parity()
             ooc_maint = phase_ooc_maintenance(g)
@@ -3018,11 +3458,18 @@ def main() -> int:
         for d in (QUOTIENT_WORKDIR, STREAM_WORKDIR, WORKER_DIR):
             shutil.rmtree(d, ignore_errors=True)
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
+    frontier = phase_frontier_kernels(folds)  # alone on the card
     attn = phase_attention()
+    attn_bwd = phase_attention_bwd()
     phase_serve_parity()
     serve, eng, reqs = phase_serve()
     phase_serve_profile(eng, reqs)
     del eng
+    print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
+    phase_train_parity()
+    train = phase_train()
+    print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
+    bwd = attn_bwd["gemma2_9b_train"]["global"]
     glob = attn["gemma2_9b_prefill"]["global"]
     big = frontier["cases"]["largest dedup=True"]
     # ms: the wrapper a call (CUDA events); kernel_ms: the kernel's own
@@ -3071,9 +3518,19 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
         "launches": serve["flash_attention_launches"],
+        "train_launches": train["launches"]["fwd"],
         "max_abs_err": attn["max_abs_err"], **{k: glob[k] for k in times},
         "back_to_back_ms": glob["back_to_back_ms"],
-        "bound_by": glob["bound_by"], "library_ms": glob["library_ms"]}]})
+        "bound_by": glob["bound_by"], "library_ms": glob["library_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "no Pallas kernel: the JAX package differentiates in "
+                    "XLA, src/repro/models/flash_xla.py:100 (_bwd_rule)",
+        "launches": train["launches"]["bwd"],
+        "max_abs_err": attn_bwd["max_abs_err"],
+        **{k: bwd[k] for k in times}, "shape": bwd["case"],
+        "back_to_back_ms": bwd["back_to_back_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

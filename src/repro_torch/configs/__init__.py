@@ -16,7 +16,8 @@ ARCH_IDS = [
     "llava_next_34b",
     "seamless_m4t_large_v2",
 ]
-PORTED = ["gemma2_9b"]  # the architectures whose block kinds are ported
+# the architectures whose block kinds are ported
+PORTED = ["gemma2_9b", "phi4_mini_3p8b"]
 
 
 def _module(arch: str):
@@ -25,7 +26,7 @@ def _module(arch: str):
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if name not in PORTED:
         raise KeyError(f"arch {name!r} is not ported yet (ROADMAP.md, "
-                       f"queue 1 item 13: the other architectures); "
+                       f"queue 1 item 8: the other architectures); "
                        f"ported: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

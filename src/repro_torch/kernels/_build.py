@@ -30,13 +30,20 @@ SIGNATURES = {
         "chunk_sig_fold": [_P] * 5 + [_LL, _I, _I, _I, _I, _I, _I, _P],
         "sig_fold_bitonic": [_P] * 5 + [_LL, _LL, _I, _I, _P],
     },
+    # q, k, v, o, dims, the mask and softcap, (f32: tiles), q_offset, lse
     "flash_attention": {
         "flash_attention_fwd": [_P] * 4 + [ctypes.POINTER(_LL), _I, _I, _LL,
-                                           _I, _F, _F, _I, _I, _P],
+                                           _I, _F, _F, _I, _I, _LL, _P, _P],
     },
     "flash_attention_sm90": {
         "flash_attention_fwd_sm90": [_P] * 4 + [ctypes.POINTER(_LL), _I, _I,
-                                                _LL, _I, _F, _F, _P],
+                                                _LL, _I, _F, _F, _LL, _P, _P],
+    },
+    # q, k, v, o, lse, do, dq, dk, dv, delta scratch, dims, dtype, the mask
+    # and softcap, q_offset
+    "flash_attention_bwd": {
+        "flash_attention_bwd": [_P] * 10 + [ctypes.POINTER(_LL), _I, _I, _I,
+                                             _LL, _I, _F, _F, _LL, _P],
     },
 }
 

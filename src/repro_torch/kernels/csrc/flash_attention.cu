@@ -10,7 +10,11 @@
 // logits take the finite NEG = -0.7 * FLT_MAX and their p is zeroed; the
 // running (m, l, acc) update of each kv tile; and at the end l == 0 -> 1, so
 // a row with no key left writes 0.  GQA: q head h reads kv head h /
-// (Hq / Hkv).
+// (Hq / Hkv).  Query row i sits at position i + q_offset (the serve passes
+// Skv - Sq: right-aligned).  For training it also writes, when its pointer
+// is not null, each row's log-sum-exp m + log(l) (f32 [B, Hq, Sq]; +BIG =
+// -NEG for a row with no key, as repro.models.flash_xla._fwd_impl has it),
+// which the backward (flash_attention_bwd.cu) reads.
 //
 // Structure: one block of 256 threads per (query tile, batch * q head); a
 // loop inside the block over the kv tiles takes the place of the TPU's
@@ -55,6 +59,8 @@ struct Params {
   int64_t window;
   float softcap, scale;
   int bq, bk;  // tile sizes in use, bq <= kTileQ and bk <= kTileK
+  int64_t off;  // position of query row 0
+  float* lse;   // [batch, hq, sq] or null
 };
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
@@ -88,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t b = bh / p.hq, h = bh % p.hq;
   const int64_t hk = h / (p.hq / p.hkv);
   const int64_t q0 = (int64_t)blockIdx.x * p.bq;
-  const int64_t off = p.skv - p.sq;  // right-aligned queries
+  const int64_t off = p.off;
   const float* qb = q + b * p.qs[0] + h * p.qs[1];
   const float* kb = k + b * p.ks[0] + hk * p.ks[1];
   const float* vb = v + b * p.vs[0] + hk * p.vs[1];
@@ -199,6 +205,8 @@ __global__ void __launch_bounds__(kThreads)
     const int r = 2 * ty + i;
     if (r >= rows) continue;
     const float inv = l[i] == 0.f ? 1.f : l[i];
+    if (p.lse != nullptr && tx == 0)
+      p.lse[bh * p.sq + q0 + r] = l[i] > 0.f ? m[i] + logf(l[i]) : -kNeg;
     float* orow = ob + (q0 + r) * p.os[2];
 #pragma unroll
     for (int j = 0; j < kCols; ++j) orow[tx + 8 * j] = acc[i][j] / inv;
@@ -222,13 +230,15 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dims: batch, hq, hkv, sq, skv, head_dim, then the (batch, head, seq)
-// element strides of q, k, v and o, all f32.
+// element strides of q, k, v and o, all f32; lse: f32 [batch, hq, sq],
+// contiguous, or null.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o,
                                    const long long* dims, int causal,
                                    int has_window, long long window,
                                    int has_softcap, float softcap,
                                    float scale, int block_q, int block_k,
+                                   long long q_offset, void* lse,
                                    void* stream) {
   Params p;
   p.batch = dims[0];
@@ -251,6 +261,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.scale = scale;
   p.bq = block_q < kTileQ ? block_q : kTileQ;
   p.bk = block_k < kTileK ? block_k : kTileK;
+  p.off = q_offset;
+  p.lse = (float*)lse;
   if (p.sq <= 0 || p.batch * p.hq <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (head_dim) {

@@ -15,7 +15,11 @@
 // summed from the f32 p).  The logits are kept in log2 units (times log2 e,
 // after the softcap and before the mask) so that p = exp2(s - m); NEG is set
 // in those units, so no masked logit becomes -inf.  GQA: q head h reads kv
-// head h / (Hq / Hkv).
+// head h / (Hq / Hkv).  Query row i sits at position i + q_offset (the serve
+// passes Skv - Sq: right-aligned).  For training the consumers' epilogue
+// also writes, when its pointer is not null, each row's log-sum-exp from
+// their m and l: (m + log2 l) * ln 2, m being in log2 units (f32 [B, Hq,
+// Sq]; +BIG for a row with no key), which flash_attention_bwd.cu reads.
 //
 // What bounds it: operations.  At gemma2's head_dim 256 a (query, key) pair
 // costs 4 * D flops against 8 * D bytes per key row shared by 128 query rows
@@ -75,12 +79,15 @@ constexpr int kConsumers = 2;    // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr float kNeg = -0.7f * FLT_MAX;  // masked logit, in log2 units
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   int batch, hq, hkv, sq, skv, q_tiles;
   int64_t os[3];  // element strides of o: batch, head, seq
   int causal, has_window, has_softcap;
-  int window;        // clamped to [-Skv, Skv]: the same mask
+  int window;        // clamped to the range of qpos - kpos: the same mask
+  int off;           // position of query row 0
+  float* lse;        // [batch, hq, sq] or null
   float scale_log2;  // scale * log2 e (no softcap)
   float cap_in;      // scale / softcap
   float cap_out;     // softcap * log2 e
@@ -360,7 +367,7 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
                                         int n_tiles) {
   using L = Plan<D>;
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-  const int off = p.skv - p.sq;  // right-aligned queries
+  const int off = p.off;
   const int r_lo = q0 + kRowsWG * wg;
   const int r_hi = min(r_lo + kRowsWG, p.sq);  // past this warpgroup's rows
   const int row0 = r_lo + 16 * warp + lane / 4;  // and row0 + 8
@@ -461,6 +468,9 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
     const float inv = 1.f / (sum == 0.f ? 1.f : sum);
     const int row = row0 + 8 * hh;
     if (row >= p.sq) continue;
+    if (p.lse != nullptr && lane % 4 == 0)
+      p.lse[((int64_t)b * p.hq + h) * p.sq + row] =
+          sum > 0.f ? (m[hh] + log2f(sum)) * kLn2 : -kNeg;
     __nv_bfloat16* orow = o + b * p.os[0] + h * p.os[1] + row * p.os[2];
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -486,7 +496,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hk = h / (p.hq / p.hkv);
   const int qt = p.causal ? p.q_tiles - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const int q0 = qt * kTileQ;
-  const int off = p.skv - p.sq;
+  const int off = p.off;
   const int rows = min(kTileQ, p.sq - q0);
   // the kv tiles that any row of the block sees
   int k_begin = 0, k_end = p.skv;
@@ -607,13 +617,15 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 // dims: batch, hq, hkv, sq, skv, head_dim, then the (batch, head, seq)
 // element strides of q, k, v and o.  q, k, v: bf16, 16-byte aligned, strides
-// multiples of 8 elements (TMA's 16 bytes), head_dim contiguous.
+// multiples of 8 elements (TMA's 16 bytes), head_dim contiguous.  lse: f32
+// [batch, hq, sq], contiguous, or null.
 extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
                                         const void* v, void* o,
                                         const long long* dims, int causal,
                                         int has_window, long long window,
                                         int has_softcap, float softcap,
-                                        float scale, void* stream) {
+                                        float scale, long long q_offset,
+                                        void* lse, void* stream) {
   Params p;
   p.batch = (int)dims[0];
   p.hq = (int)dims[1];
@@ -625,12 +637,13 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
   p.q_tiles = (p.sq + kTileQ - 1) / kTileQ;
   p.causal = causal;
   p.has_window = has_window;
-  // qpos - kpos lies in (-Skv, Skv): a window outside [-Skv, Skv] masks as
-  // its bound does
-  const long long w = window < -dims[4] ? -dims[4]
-                      : window > dims[4] ? dims[4]
-                                         : window;
+  // qpos - kpos lies in [q_offset - Skv + 1, q_offset + Sq - 1]: a window
+  // outside [q_offset - Skv, q_offset + Sq] masks as that bound does
+  const long long lo = q_offset - dims[4], hi = q_offset + dims[3];
+  const long long w = window < lo ? lo : window > hi ? hi : window;
   p.window = (int)w;
+  p.off = (int)q_offset;
+  p.lse = (float*)lse;
   p.has_softcap = has_softcap;
   p.scale_log2 = scale * kLog2e;
   p.cap_in = has_softcap ? scale / softcap : 0.f;

@@ -26,6 +26,17 @@ Routing is by dtype (`kernel_route`), with no fallback between routes:
 Each is built at first use by `_build`.  On a CUDA tensor the wrapper
 launches one of them or raises; only a tensor on the CPU takes the plain
 version.
+
+For training, both forward kernels also write the rows' log-sum-exp
+(``return_lse``: f32 [B, Hq, Sq], +BIG for a row with no key, as
+`repro.models.flash_xla._fwd_impl` has it), and `flash_attention_bwd`
+computes dq, dk and dv from (q, k, v, o, lse, dO) with
+``csrc/flash_attention_bwd.cu`` (CUDA cores, f32 accumulation, f32 and
+bf16).  The JAX package differentiates its XLA attention
+(`repro.models.flash_xla._bwd_rule`); its steps are the plain versions
+here: `flash_attention_fwd_plain` (``_fwd_impl``) and
+`flash_attention_bwd_plain` (``_bwd_rule``).  ``q_offset`` places query
+row i at position i + q_offset (default Skv - Sq: right-aligned).
 """
 from __future__ import annotations
 
@@ -44,6 +55,8 @@ ROUTES = {torch.bfloat16: ("flash_attention_sm90", "flash_attention_fwd_sm90"),
           torch.float32: ("flash_attention", "flash_attention_fwd")}
 TMA_ALIGN = 16  # bytes: TMA's alignment of base addresses and strides
 _PLAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+BIG = -_NEG  # the lse of a row with no key: its p is exp(s - BIG) = 0
+BWD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the backward's types
 
 
 def _check(q, k, v, causal, window, softcap, block_q, block_k):
@@ -76,7 +89,7 @@ def _check(q, k, v, causal, window, softcap, block_q, block_k):
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
                           softcap=None, scale=None, block_q: int = 128,
-                          block_k: int = 128):
+                          block_k: int = 128, q_offset=None):
     """The kernel's function in plain PyTorch ops, logits materialized:
     same arguments, same masking and empty-row rule (output 0).  Used by
     the CPU route and as the card's comparison."""
@@ -91,13 +104,119 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     mask = attention_mask(sq, skv, causal=causal, window=window,
-                          device=q.device)
+                          device=q.device, q_offset=q_offset)
     s = torch.where(mask, s, _NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0.0, 1.0, l)
     return (torch.matmul(p, vv) / l).to(q.dtype)
+
+
+def _grouped(t, hkv, acc):
+    """[B, H, S, D] -> [B, Hkv, g, S, D] in the type ``acc``: the JAX
+    package's ``[b, hkv, g, sq, d]`` layout, q head h = kv head * g + j."""
+    b, h, s, d = t.shape
+    return t.reshape(b, hkv, h // hkv, s, d).to(acc)
+
+
+def _chunking(q, k, scale, chunk):
+    """The reference's kv chunk (all of Skv unless ``chunk`` divides it),
+    the scale and the accumulation type."""
+    skv, d = k.shape[2], q.shape[3]
+    chunk = min(chunk, skv)
+    if skv % chunk:
+        chunk = skv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    return chunk, scale, torch.promote_types(q.dtype, torch.float32)
+
+
+def flash_attention_fwd_plain(q, k, v, *, causal: bool = True, window=None,
+                              softcap=None, scale=None, q_offset=None,
+                              chunk: int = 512):
+    """Returns (o, lse): `repro.models.flash_xla._fwd_impl` step for step
+    (online softmax over kv chunks), in the kernel's [B, H, S, D] layout.
+    lse is [B, Hq, Sq] in the accumulation type (f32, or f64 for f64
+    inputs), +BIG for a row with no key.  Used by the CPU route of
+    ``return_lse`` and as the card's comparison of the kernels' lse."""
+    _check(q, k, v, causal, window, softcap, 1, 1)
+    b, hq, sq, _ = q.shape
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    chunk, scale, acc = _chunking(q, k, scale, chunk)
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          device=q.device, q_offset=q_offset)
+    qg = _grouped(q, hkv, acc)
+    g = hq // hkv
+    m = torch.full((b, hkv, g, sq), _NEG, dtype=acc, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=acc, device=q.device)
+    a = torch.zeros((b, hkv, g, sq, dv), dtype=acc, device=q.device)
+    for c0 in range(0, skv, chunk):
+        kb = k[:, :, c0:c0 + chunk].to(acc)
+        vb = v[:, :, c0:c0 + chunk].to(acc)
+        mc = mask[:, c0:c0 + chunk]
+        s = torch.einsum("bkgqd,bksd->bkgqs", qg, kb) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        s = torch.where(mc, s, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mc, p, 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        a = a * alpha[..., None] + torch.einsum("bkgqs,bksd->bkgqd", p, vb)
+        m = m_new
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-37)), BIG)
+    o = a / torch.clamp(l, min=1e-37)[..., None]
+    return (o.reshape(b, hq, sq, dv).to(q.dtype), lse.reshape(b, hq, sq))
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window=None, softcap=None, scale=None,
+                              q_offset=None, chunk: int = 512):
+    """Returns (dq, dk, dv): `repro.models.flash_xla._bwd_rule` step for
+    step, in the kernel's [B, H, S, D] layout: delta = rowsum(dO * O); per
+    kv chunk the logits recomputed, p = exp(s - lse) (0 where masked, and
+    0 in a row whose lse is +BIG), dv = p^T dO, dp = dO v^T, ds = p (dp -
+    delta), times (1 - t^2) under a softcap, times the scale; dq the sum
+    over chunks of ds k, dk = ds^T q; dk and dv summed over the g q heads
+    of a kv head.  The kernel's comparison on the card, and its CPU
+    route."""
+    _check(q, k, v, causal, window, softcap, 1, 1)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    chunk, scale, acc = _chunking(q, k, scale, chunk)
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          device=q.device, q_offset=q_offset)
+    qg = _grouped(q, hkv, acc)
+    dog = _grouped(do, hkv, acc)
+    og = _grouped(o, hkv, acc)
+    delta = torch.sum(dog * og, dim=-1)                # [b,hkv,g,sq]
+    lse_g = lse.reshape(b, hkv, hq // hkv, sq).to(acc)
+    dq = torch.zeros_like(qg)
+    dk = torch.empty(b, hkv, skv, d, dtype=acc, device=q.device)
+    dv = torch.empty(b, hkv, skv, v.shape[3], dtype=acc, device=q.device)
+    for c0 in range(0, skv, chunk):
+        kf = k[:, :, c0:c0 + chunk].to(acc)
+        vf = v[:, :, c0:c0 + chunk].to(acc)
+        mc = mask[:, c0:c0 + chunk]
+        s_raw = torch.einsum("bkgqd,bksd->bkgqs", qg, kf) * scale
+        if softcap is not None:
+            t = torch.tanh(s_raw / softcap)
+            s = torch.where(mc, softcap * t, _NEG)
+        else:
+            s = torch.where(mc, s_raw, _NEG)
+        p = torch.exp(s - lse_g[..., None])
+        p = torch.where(mc, p, 0.0)
+        dv[:, :, c0:c0 + chunk] = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+        dp = torch.einsum("bkgqd,bksd->bkgqs", dog, vf)
+        ds = p * (dp - delta[..., None])
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)
+        ds = ds * scale
+        dq = dq + torch.einsum("bkgqs,bksd->bkgqd", ds, kf)
+        dk[:, :, c0:c0 + chunk] = torch.einsum("bkgqs,bkgqd->bksd", ds, qg)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def kernel_route(dtype) -> str:
@@ -135,13 +254,38 @@ def tma_strides(t) -> list:
     return strides
 
 
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _call(route: str, entry: str, device, *args) -> int:
+    """One C entry point of a built library, on ``device``'s current
+    stream; returns its error code."""
+    from ._build import load
+    fn = getattr(load(route), entry)
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        return fn(*args, stream)
+
+
+def _window_args(causal, window, softcap, scale) -> list:
+    return [int(causal), int(window is not None),
+            int(window) if window is not None else 0,
+            int(softcap is not None),
+            float(softcap) if softcap is not None else 0.0, float(scale)]
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
                     softcap: float = None, scale: float = None,
-                    block_q: int = 128, block_k: int = 128):
+                    block_q: int = 128, block_k: int = 128, q_offset=None,
+                    return_lse: bool = False):
     """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D]; Hq % Hkv == 0, Sq <= Skv.
 
-    Returns [B, Hq, Sq, D] in q's dtype and layout.  ``scale`` defaults to
-    1/sqrt(D).  ``block_q``/``block_k`` are validated on every route; on the
+    Returns [B, Hq, Sq, D] in q's dtype and layout, and with
+    ``return_lse`` also the rows' log-sum-exp (f32 [B, Hq, Sq], +BIG for
+    a row with no key).  ``scale`` defaults to 1/sqrt(D); ``q_offset``
+    (default Skv - Sq) is the position of query row 0.
+    ``block_q``/``block_k`` are validated on every route; on the
     f32 route they bound the kernel's query and kv tiles, which are at most
     `MAX_TILE` (the tile sizes change only the order of the f32 sums); the
     bf16 kernel uses its own tiles, 128 query rows (two wgmma tiles of 64)
@@ -149,9 +293,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
     (the grid's second axis): a launch the card refuses raises.
     """
     if q.device.type == "cpu":
+        if return_lse:
+            _check(q, k, v, causal, window, softcap, block_q, block_k)
+            return flash_attention_fwd_plain(
+                q, k, v, causal=causal, window=window, softcap=softcap,
+                scale=scale, q_offset=q_offset)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale,
-                                     block_q=block_q, block_k=block_k)
+                                     block_q=block_q, block_k=block_k,
+                                     q_offset=q_offset)
     _check(q, k, v, causal, window, softcap, block_q, block_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
@@ -169,19 +319,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
         dims += check(t)
     out = torch.empty_like(q)  # q's layout when q is dense, else row-major
     dims += _strides(out)
+    lse = (torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    args = [int(causal), int(window is not None),
-            int(window) if window is not None else 0,
-            int(softcap is not None),
-            float(softcap) if softcap is not None else 0.0, float(scale)]
+    args = _window_args(causal, window, softcap, scale)
     if route == "flash_attention":
         args += [min(int(block_q), MAX_TILE), min(int(block_k), MAX_TILE)]
-    from ._build import load
-    entry = getattr(load(route), ROUTES[q.dtype][1])
-    with torch.cuda.device(q.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        err = entry(*(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)),
-                    (ctypes.c_longlong * len(dims))(*dims), *args, stream)
+    args += [k.shape[2] - sq if q_offset is None else int(q_offset),
+             _ptr(lse)]
+    err = _call(route, ROUTES[q.dtype][1], q.device,
+                *(_ptr(t) for t in (q, k, v, out)),
+                (ctypes.c_longlong * len(dims))(*dims), *args)
     if err == -2:
         raise ValueError("flash_attention: cuTensorMapEncodeTiled refused "
                          "the TMA tensor map of q, k or v")
@@ -189,7 +337,68 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0  # kernel launches made through the wrapper
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = None, softcap: float = None,
+                        scale: float = None, q_offset=None):
+    """Gradients of `flash_attention`: returns (dq, dk, dv) in the layouts
+    and dtypes of q, k and v, from the forward's inputs, its output ``o``
+    and ``lse`` (f32 [B, Hq, Sq]) and the output's gradient ``do``, all
+    [B, H, S, D] as the forward takes them (any strides with a
+    contiguous head_dim).
+
+    On a CUDA tensor (f32 or bf16, D one of `HEAD_DIMS`) it launches
+    ``csrc/flash_attention_bwd.cu`` (one call: the delta pass, the dk/dv
+    pass and the dq pass) or raises; a CPU tensor takes
+    `flash_attention_bwd_plain`.
+    """
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    _check(q, k, v, causal, window, softcap, 1, 1)
+    b, hq, sq, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must have q's shape")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be a contiguous f32 "
+                         f"[B, Hq, Sq] = {(b, hq, sq)} tensor")
+    if q.dtype not in BWD_DTYPES or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: no kernel for q {q.dtype}, "
+                         f"o {o.dtype}, do {do.dtype}")
+    if any(t.device != q.device for t in (o, lse, do)) \
+            or q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd: every tensor must lie on the "
+                         "card that holds q")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {d} is not one of "
+                         f"{HEAD_DIMS}")
+    if any(t.stride(3) != 1 for t in (q, k, v, o, do)):
+        raise ValueError("flash_attention_bwd: the head_dim axis of every "
+                         "input must be contiguous")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    dims = [b, hq, k.shape[1], sq, k.shape[2], d]
+    for t in (q, k, v, o, do, dq, dk, dv):
+        dims += _strides(t)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    err = _call("flash_attention_bwd", "flash_attention_bwd", q.device,
+                *(_ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv, delta)),
+                (ctypes.c_longlong * len(dims))(*dims), BWD_DTYPES[q.dtype],
+                *_window_args(causal, window, softcap, scale),
+                k.shape[2] - sq if q_offset is None else int(q_offset))
+    if err:
+        raise RuntimeError(f"flash_attention_bwd: kernel launch failed with "
+                           f"CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0  # kernel calls made through the wrapper

@@ -62,11 +62,13 @@ def chunk_fold_ref(elabel, pid_tgt, src, n: int, keep0: bool, *,
     return seg_hi & sig.MASK32, seg_lo & sig.MASK32
 
 
-def attention_mask(sq: int, skv: int, *, causal: bool, window, device):
-    """[sq, skv] bool, True where query row i may see key j: queries
-    right-aligned (qpos = i + skv - sq), causal qpos >= kpos, window
-    qpos - kpos < window."""
-    qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+def attention_mask(sq: int, skv: int, *, causal: bool, window, device,
+                   q_offset=None):
+    """[sq, skv] bool, True where query row i may see key j: qpos = i +
+    q_offset (default skv - sq: right-aligned queries), causal qpos >=
+    kpos, window qpos - kpos < window."""
+    off = skv - sq if q_offset is None else q_offset
+    qpos = torch.arange(sq, device=device)[:, None] + off
     kpos = torch.arange(skv, device=device)[None, :]
     mask = torch.ones(sq, skv, dtype=torch.bool, device=device)
     if causal:

@@ -13,7 +13,7 @@ def _check_kind(cfg, kind):
     if kind not in ATTN_KINDS or cfg.attention != "gqa":
         raise NotImplementedError(
             f"block kind {kind!r} with {cfg.attention} attention is not "
-            f"ported yet (ROADMAP.md, queue 1 item 13: the other "
+            f"ported yet (ROADMAP.md, queue 1 item 8: the other "
             f"architectures); ported: {ATTN_KINDS} with gqa")
 
 

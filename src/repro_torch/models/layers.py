@@ -7,6 +7,8 @@ Attention paths:
     its XLA analogue `flash_xla.attend_flash`.  Activations stay
     [B, S, H, D] at the model's side; the kernel reads them through their
     strides as [B, H, S, D] views, so nothing is transposed in memory;
+  * train: `flash_xla.attend_flash`, as in the JAX package: the same
+    forward kernel with its lse, and the hand-written backward kernel;
   * decode: single-token attention over the cache, in plain PyTorch (the
     JAX package has no kernel there either).
 
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
+from .flash_xla import attend_flash
 from .params import ParamSpec
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)
@@ -116,7 +119,8 @@ def gqa_specs(cfg):
 
 def apply_gqa(p, x, cfg, *, kind, layer_kind, positions, cache=None,
               index=None):
-    """kind: prefill|decode. Returns (out, new_cache).
+    """kind: train|prefill|decode. Returns (out, new_cache); train returns
+    no cache.
 
     Decode writes this token's k and v into ``cache`` in place at
     ``index`` (a Python int) and returns the same tensors."""
@@ -140,6 +144,11 @@ def apply_gqa(p, x, cfg, *, kind, layer_kind, positions, cache=None,
                             v.transpose(1, 2), causal=True, window=window,
                             softcap=cfg.attn_softcap).transpose(1, 2)
         new_cache = {"k": k, "v": v}
+    elif kind == "train":
+        o = attend_flash(q, k, v, causal=True, window=window,
+                         softcap=cfg.attn_softcap)
+        new_cache = None
     else:
-        raise ValueError(f"kind must be prefill or decode, got {kind!r}")
+        raise ValueError(f"kind must be train, prefill or decode, got "
+                         f"{kind!r}")
     return linear(p["wo"], o.reshape(b, s, h * hd)), new_cache

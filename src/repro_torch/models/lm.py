@@ -1,10 +1,13 @@
-"""Decoder-only LM of the port (the port of `repro.models.lm`, prefill and
-decode).  The JAX package's `lax.scan` over pattern groups becomes a
-Python loop over the [G, ...] slices of the stacked parameters; training
-(remat, chunked cross-entropy) waits for its slice."""
+"""Decoder-only LM of the port (the port of `repro.models.lm`: train,
+prefill and decode).  The JAX package's `lax.scan` over pattern groups
+becomes a Python loop over the [G, ...] slices of the stacked parameters;
+its `jax.checkpoint` remat becomes `torch.utils.checkpoint` over the same
+segments, and its chunked cross-entropy recomputes each chunk's logits in
+the backward the same way."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from . import blocks, layers
@@ -29,6 +32,29 @@ def lm_specs(cfg):
     return specs
 
 
+def _sqrt_split(g: int):
+    """Factor g = go * gi minimizing go + gi (sqrt activation remat)."""
+    best = (g, 1)
+    for d in range(2, int(g ** 0.5) + 1):
+        if g % d == 0 and (g // d + d) < sum(best):
+            best = (g // d, d)
+    return best
+
+
+def remat_forwards(cfg) -> int:
+    """The attention forwards of one train step, summed over layers (the
+    backward runs once a layer).  A layer's forward runs once, once more
+    when its group is recomputed in the backward, and once more when its
+    outer segment is (two-level remat, gi > 1) — except in the last group
+    of a segment, whose output no saved tensor needs: non-reentrant
+    checkpoint's early stop ends the segment's recompute before it."""
+    go, gi = _sqrt_split(cfg.pattern_groups)
+    per_group = len(cfg.layer_pattern)
+    if gi == 1:
+        return 2 * cfg.pattern_groups * per_group
+    return go * per_group * (3 * (gi - 1) + 2)
+
+
 def _logits(params, cfg, x):
     if cfg.tie_embeddings:
         logits = x @ params["embed"].to(x.dtype).T
@@ -45,7 +71,10 @@ def _embed(params, cfg, tokens):
 
 def _run_groups(params, cfg, x, *, kind, positions, cache=None, index=None):
     """Every layer in order.  Prefill returns the new cache stacked
-    [G, ...]; decode updates ``cache`` in place and returns it."""
+    [G, ...]; decode updates ``cache`` in place and returns it; train
+    returns no cache and recomputes in the backward (`_run_train`)."""
+    if kind == "train":
+        return _run_train(params, cfg, x, positions), None
     new = []
     for g in range(cfg.pattern_groups):
         gp = tree_map(lambda a: a[g], params["groups"])
@@ -61,14 +90,51 @@ def _run_groups(params, cfg, x, *, kind, positions, cache=None, index=None):
     return x, tree_map(lambda *leaves: torch.stack(leaves), *new)
 
 
-def lm_forward(params, cfg, tokens):
-    """Full-sequence prefill forward. Returns (logits, cache)."""
+def _run_train(params, cfg, x, positions):
+    """The train kind's two-level sqrt remat: each group runs under its
+    own checkpoint (only its input is kept), and each outer segment of gi
+    groups under another, so the forward keeps go + gi residual slices,
+    not G.  The stacked [G, ...] parameters are unbound once, so each
+    leaf gets one stacked gradient rather than a full-size one a group."""
+    g = cfg.pattern_groups
+    per_leaf = tree_map(lambda a: a.unbind(0), params["groups"])
+    groups = [tree_map(lambda t, i=i: t[i], per_leaf) for i in range(g)]
+
+    def body(xc, gp):
+        for i, k in enumerate(cfg.layer_pattern):
+            xc, _ = blocks.apply_block(gp[str(i)], xc, cfg, k, kind="train",
+                                       positions=positions)
+        return xc
+
+    def inner(xc, gp):
+        return checkpoint(body, xc, gp, use_reentrant=False)
+
+    def outer(xc, segment):
+        for gp in segment:
+            xc = inner(xc, gp)
+        return xc
+
+    go, gi = _sqrt_split(g)
+    if gi == 1:
+        return outer(x, groups)
+    for o in range(go):
+        x = checkpoint(outer, x, groups[o * gi:(o + 1) * gi],
+                       use_reentrant=False)
+    return x
+
+
+def lm_forward(params, cfg, tokens, *, kind="prefill",
+               return_hidden: bool = False):
+    """Full-sequence forward (train or prefill). Returns (logits, cache),
+    or (final-normed hidden, cache) with ``return_hidden`` (the chunked
+    cross-entropy's input)."""
     x = _embed(params, cfg, tokens)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    x, cache = _run_groups(params, cfg, x, kind="prefill",
-                           positions=positions)
+    x, cache = _run_groups(params, cfg, x, kind=kind, positions=positions)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return x, cache
     return _logits(params, cfg, x), cache
 
 
@@ -92,3 +158,44 @@ def init_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16,
                              blocks.cache_struct(cfg, k, batch, seq, dtype,
                                                  device))
             for i, k in enumerate(cfg.layer_pattern)}
+
+
+def _nll_sum(logits, labels, vocab_size: int):
+    """(sum of logz - gold over labels >= 0, their count), padded-vocab
+    columns masked out, in f32 (f64 for f64 logits)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    v = logits.shape[-1]
+    if v > vocab_size:
+        pad = torch.arange(v, device=logits.device) >= vocab_size
+        logits = logits + torch.where(pad, -1e9, 0.0).to(logits.dtype)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = (labels >= 0).to(logits.dtype)
+    return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
+def chunked_ce(head_fn, x, labels, vocab_size: int, *, chunk: int = 512):
+    """Fused cross-entropy over sequence chunks.
+
+    Never materializes [B, S, V] logits: each chunk's logits are computed,
+    reduced and (under a checkpoint) recomputed in the backward. x is the
+    final-normed hidden state [B, S, D]; head_fn maps [B, c, D] -> logits.
+    """
+    s = x.shape[1]
+    if s % chunk:
+        chunk = s
+    tot = cnt = 0.0
+    def nll(xc, lc):
+        return _nll_sum(head_fn(xc), lc, vocab_size)
+    for c0 in range(0, s, chunk):
+        t, c = checkpoint(nll, x[:, c0:c0 + chunk],
+                          labels[:, c0:c0 + chunk], use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(logits, labels, vocab_size: int):
+    """Mean CE over labels >= 0 (padded-vocab columns masked out)."""
+    tot, cnt = _nll_sum(logits, labels, vocab_size)
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,5 +1,6 @@
-"""Top-level model of the port: config -> specs, parameters, prefill and
-decode (the port of `repro.models.model.Model`'s serving half)."""
+"""Top-level model of the port: config -> specs, parameters, the train
+loss, prefill and decode (the port of `repro.models.model.Model` for the
+dense decoder LMs)."""
 from __future__ import annotations
 
 import torch
@@ -10,27 +11,29 @@ from . import lm, params as P
 from .config import ModelConfig
 
 
-def _register(module: nn.Module, tree: dict) -> dict:
-    """Register ``tree``'s tensors as frozen parameters of nested
-    submodules of ``module``; returns the same tree of parameters."""
+def _register(module: nn.Module, tree: dict, trainable: bool) -> dict:
+    """Register ``tree``'s tensors as parameters of nested submodules of
+    ``module`` (frozen unless ``trainable``); returns the same tree of
+    parameters."""
     out = {}
     for key, val in tree.items():
         if isinstance(val, dict):
             sub = nn.Module()
             module.add_module(key, sub)
-            out[key] = _register(sub, val)
+            out[key] = _register(sub, val, trainable)
         else:
-            out[key] = nn.Parameter(val, requires_grad=False)
+            out[key] = nn.Parameter(val, requires_grad=trainable)
             module.register_parameter(key, out[key])
     return out
 
 
 class Model(nn.Module):
     """A decoder LM holding its parameter tree (``self.params``: nested
-    dicts with the JAX package's keys, registered as frozen parameters).
+    dicts with the JAX package's keys, registered as parameters).
 
-    ``init`` or ``load`` gives it parameters; `prefill` and `decode_step`
-    then run on the parameters' device.
+    ``init`` or ``load`` gives it parameters, frozen for serving or
+    trainable (``trainable=True``) for `loss_fn`'s gradients; `prefill`,
+    `decode_step` and `loss_fn` run on the parameters' device.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -44,25 +47,37 @@ class Model(nn.Module):
     def num_params(self) -> int:
         return P.count_params(self.param_specs())
 
-    def init(self, seed: int = 0, dtype=torch.float32, device=None):
+    def init(self, seed: int = 0, dtype=torch.float32, device=None,
+             trainable: bool = False):
         """Random parameters from ``seed`` on ``device`` (the card unless
         ``cpu`` is asked)."""
         gen = torch.Generator(device=resolve_device(device))
         gen.manual_seed(seed)
-        return self.load(P.init_params(self.param_specs(), gen, dtype))
+        return self.load(P.init_params(self.param_specs(), gen, dtype),
+                         trainable)
 
-    def load(self, params):
+    def load(self, params, trainable: bool = False):
         """Take a parameter tree (for example `params_from_jax`'s), after
         checking it against the specs."""
         want = P.tree_map(lambda s: tuple(s.shape), self.param_specs())
         if P.tree_map(lambda t: tuple(t.shape), params) != want:
             raise ValueError(f"parameter tree does not fit {self.cfg.name}")
-        self.params = _register(self, params)
+        self.params = _register(self, params, trainable)
         return self
 
     @property
     def device(self) -> torch.device:
         return self.params["embed"].device
+
+    def loss_fn(self, params, batch):
+        """Train loss of a dense LM through the chunked cross-entropy
+        ([B, S, V] logits never materialize; each chunk's logits are
+        recomputed in the backward).  batch: {"tokens", "labels"}, [B, S]
+        integer tensors on the parameters' device."""
+        hidden, _ = lm.lm_forward(params, self.cfg, batch["tokens"],
+                                  kind="train", return_hidden=True)
+        return lm.chunked_ce(lambda xc: lm._logits(params, self.cfg, xc),
+                             hidden, batch["labels"], self.cfg.vocab_size)
 
     def prefill(self, tokens):
         """tokens: [B, S] integer. Returns (logits [B, S, V], cache)."""

@@ -34,6 +34,31 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not banned, f"{path.name} imports {sorted(banned)}"
 
 
+TRAINING_MODULES = ["train/trainer.py", "optim/adamw.py",
+                    "optim/compression.py", "checkpoint/manager.py",
+                    "data/pipeline.py", "models/flash_xla.py",
+                    "launch/train.py"]
+
+
+def test_training_slice_is_guarded():
+    """The training slice's modules are among the scanned files, and
+    importing them pulls in neither JAX nor the JAX package, however
+    indirectly (a fresh interpreter in which both are unimportable)."""
+    port = ROOT / "src" / "repro_torch"
+    for rel in TRAINING_MODULES:
+        assert port / rel in PORT_FILES, rel
+    names = ["repro_torch." + rel[:-3].replace("/", ".")
+             for rel in TRAINING_MODULES]
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            + "".join(f"import {n}\n" for n in names))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_resolve_device_never_falls_back(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -411,6 +411,106 @@ def test_flash_attention_refused_launch_raises(cuda):
         tfa.flash_attention(*_qkv(cuda, 0, 1, 2, 2, 8, 8, 64, torch.float64))
 
 
+# the backward's cases: the reference's gradient test (`tests/test_models.py::
+# test_flash_xla_grads_match_reference`), causal on and off, window,
+# softcap, GQA groups 1, 2 and 4, right-aligned and shifted queries, rows
+# with no key (q_offset < 0; window 0), every head_dim, gemma2's heads
+BWD_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset
+    (2, 4, 2, 64, 64, 16, True, 16, 25.0, 0),
+    (1, 2, 2, 48, 48, 32, False, None, None, 0),
+    (1, 4, 2, 48, 48, 32, True, None, None, 0),
+    (1, 4, 4, 40, 64, 64, True, 8, None, 24),
+    (2, 4, 2, 40, 40, 64, True, None, 30.0, 7),
+    (1, 4, 1, 33, 33, 128, True, 4, 50.0, -5),
+    (1, 2, 1, 16, 16, 16, True, 0, None, 0),
+    (1, 4, 2, 100, 100, 256, False, None, 50.0, 0),
+    (1, 16, 8, 200, 200, 256, True, 64, 50.0, 0),
+]
+
+
+def _bwd_inputs(cuda, case, dtype):
+    """q, k, v, the plain forward's o and lse, and dO, on the card."""
+    from repro_torch.kernels import flash_attention as tfa
+    b, hq, hkv, sq, skv, d, causal, window, softcap, off = case
+    q, k, v = _qkv(cuda, sq + d, b, hq, hkv, sq, skv, d, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
+    return (q, k, v, o, lse.float(), do), kw
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (BF16, 2e-2)])
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_flash_attention_bwd_matches_plain(cuda, case, dtype, tol):
+    """dq, dk, dv of the backward kernel against `_bwd_rule`'s port on
+    the card, each within ``tol`` of its largest |x|: f32 1e-4, bf16
+    2e-2 (bf16 outputs)."""
+    from repro_torch.kernels import flash_attention as tfa
+    args, kw = _bwd_inputs(cuda, case, dtype)
+    before = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == before + 1
+    want = tfa.flash_attention_bwd_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        scale = max(float(w.float().abs().max()), 1e-30)
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (BF16, 1e-3)])
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_flash_attention_lse_matches_plain(cuda, case, dtype, tol):
+    """Both forward kernels' lse against `_fwd_impl`'s port (+BIG rows
+    equal), and their output with the lse equal to the output without."""
+    from repro_torch.kernels import flash_attention as tfa
+    (q, k, v, _, want, _), kw = _bwd_inputs(cuda, case, dtype)
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert torch.equal(o, tfa.flash_attention(q, k, v, **kw))
+    big = want == tfa.BIG
+    assert torch.equal(lse == tfa.BIG, big)
+    err = (lse - want).abs().masked_fill(big, 0.0)
+    scale = float(want.masked_fill(big, 0.0).abs().max())
+    assert float(err.max()) <= tol * max(1.0, scale)
+
+
+def test_flash_attention_bwd_refuses(cuda):
+    """A type, head_dim or lse the kernel does not take raises; nothing
+    falls back to the plain version."""
+    from repro_torch.kernels import flash_attention as tfa
+    args, kw = _bwd_inputs(cuda, BWD_CASES[0], torch.float32)
+    before = tfa.flash_attention_bwd.launches
+    q, k, v, o, lse, do = args
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.flash_attention_bwd(*(t.double() for t in (q, k, v, o)), lse,
+                                do.double(), **kw)
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_attention_bwd(*args[:4], args[4][..., :-1], args[5], **kw)
+    assert tfa.flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (BF16, 3e-2)])
+def test_attend_flash_card_grads_equal_cpu(cuda, dtype, tol):
+    """`attend_flash`'s gradients on the card (both kernels) against the
+    CPU's plain route, in the layers' [B, S, H, D] convention."""
+    from repro_torch.models.flash_xla import attend_flash
+    g = torch.Generator().manual_seed(0)
+    shapes = ((1, 96, 16, 256), (1, 96, 8, 256), (1, 96, 8, 256))
+    cpu = [torch.randn(sh, generator=g).to(dtype).requires_grad_()
+           for sh in shapes]
+    card = [t.detach().to(cuda).requires_grad_() for t in cpu]
+    w = torch.randn(shapes[0], generator=g)
+    kw = dict(causal=True, window=32, softcap=50.0)
+    for ts, ww in ((cpu, w), (card, w.to(cuda))):
+        (attend_flash(*ts, **kw).float() * ww).sum().backward()
+    for c, d in zip(cpu, card):
+        scale = float(c.grad.float().abs().max())
+        assert float((d.grad.cpu().float() - c.grad.float()).abs().max()) \
+            <= tol * scale
+
+
 def test_card_serve_equals_cpu_serve(cuda):
     """The smoke configuration served on the card (every prefill attention
     through the kernel) gives the CPU's tokens."""
