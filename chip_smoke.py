@@ -71,9 +71,10 @@ Phases, each printing one JSON line:
 7d. frontier_kernels — ``frontier_sig_fold`` against its plain version
              and timed at the largest and the median batch the
              maintenance phase folded, both dedup settings (run once the
-             workers of 7h-7i have ended, alone on the card);
-7e. ooc_maintenance_parity — `exmem.OocBackend` maintenance of the
-             parity graph at k=10 (``sorted``, ``multiset``; 2^16-edge
+             workers of 7e, 7g-7i have ended, alone on the card);
+7e. ooc_maintenance_parity — run by the parity worker, a process of
+             this script beside 7c, 7f and 7h-7i, before 7g:
+             `exmem.OocBackend` maintenance of the parity graph at k=10 (``sorted``, ``multiset``; 2^16-edge
              chunks, stores that spill at 2^14 entries) on the card with
              device propagation, on the card with host propagation and on
              the CPU, fed the same ops (1 and 1,000 random inserts, 100
@@ -97,8 +98,8 @@ Phases, each printing one JSON line:
              memory); every level the in-memory partition after each op
              and a fresh card build's at the end; it fails unless some op
              went through ``frontier_sig_fold`` without a rebuild;
-7g. quotient_parity — run by the quotient worker (7h) before its own
-             phase: the quotient engine (`repro_torch.quotient`) on the
+7g. quotient_parity — run by the parity worker after 7e: the quotient
+             engine (`repro_torch.quotient`) on the
              parity graph at k=10 in every mode: `QuotientService`
              materializes the card maintainer's partition, and the card
              engine, a CPU engine over the same index, `eval_ref` and
@@ -109,8 +110,7 @@ Phases, each printing one JSON line:
              index answers as a freshly materialized one;
 7h. quotient — the full graph's quotient at k=4 (``sorted``, an
              in-memory card maintainer, 2^20-row sort budgets), run by a
-             worker process of this script beside 7c and 7e-7f, after
-             7g: blocks
+             worker process of this script beside 7c and 7e-7g: blocks
              and edges a level, the materialize wall and `IOStats`, the
              engine's device bytes; every answer of 64 path queries and
              64 point lookups against `eval_ref` and 16 against
@@ -149,14 +149,20 @@ Phases, each printing one JSON line:
              kernel's SASS and the route each dtype takes;
 8a. attention_bwd — ``flash_attention_bwd`` against its plain version
              (`_bwd_rule`'s port) on the card on the cases of
-             `tests/test_torch_kernels_gpu.py` (f32 within 1e-4 of each
-             output's max |x|, bf16 within 2e-2), both forward kernels'
-             ``lse`` against `_fwd_impl`'s, then gemma2's train shape (bf16,
-             16/8 heads, head_dim 256, 4096 tokens, causal, softcap 50,
-             with and without the 4096 window) timed as phase 8 times the
-             forward, beside its bound (the rule's five products) and
-             SDPA's backward (fwd + bwd minus fwd, no softcap); prints its
-             ``-Xptxas -v`` lines and SASS counts;
+             `tests/test_torch_kernels_gpu.py`, each dtype through its
+             route, recorded (bf16 the wgmma kernel within 2e-2 of each
+             output's max |x|, f32 the CUDA-core kernel within 1e-4), both
+             forward kernels' ``lse`` against `_fwd_impl`'s, then
+             gemma2's train shape (bf16, 16/8 heads, head_dim 256, 4096
+             tokens, causal, softcap 50, with and without the 4096
+             window) timed as phase 8 times the forward, beside its bound
+             (the rule's five products) and SDPA's backward (fwd + bwd
+             minus fwd, no softcap); the f32 routes (forward and
+             backward) timed the same way at the train-parity shape and
+             at gemma2's train shape, bounds on the f32 peak; prints the
+             route each dtype takes and both backward libraries'
+             ``-Xptxas -v`` lines and SASS counts (by kernel and
+             head_dim);
 9. serve_parity — a 4-layer, d_model-512 gemma2 in f32 served by
              ``ServeEngine`` on the card and on the CPU from one seeded
              init: equal tokens, the card's prefill logits within 1e-4 of
@@ -1198,6 +1204,7 @@ OOC_MAINT = dict(k=4, mode="sorted", chunk_edges=1 << 20, io_threads=1,
 OOC_MAINT_OPS = (("add-edges", 1000), ("add-edges", 100_000),
                  ("delete-node", 1), ("snapshot", 0), ("add-edges", 1000))
 OOC_WORKDIR = ROOT / "build" / "ooc-maint-smoke"  # removed at exit
+OOC_PARITY_WORKDIR = ROOT / "build" / "ooc-parity-smoke"  # the same
 
 
 def _draw_ooc_op(op: str, count: int, g, num_nodes: int, rng, launcher):
@@ -1282,7 +1289,7 @@ def phase_ooc_maintenance_parity() -> dict:
                spill_threshold=OOC_PARITY["spill_threshold"])
 
     def maintainer(name, mode, device, prop, **kw):
-        be = OocBackend(g, workdir=str(OOC_WORKDIR / f"parity-{name}"),
+        be = OocBackend(g, workdir=str(OOC_PARITY_WORKDIR / name),
                         device=device, **bkw, **kw)
         return BisimMaintainer(be, k, mode=mode, device_propagation=prop,
                                wal=kw.get("wal", False))
@@ -1362,7 +1369,7 @@ def phase_ooc_maintenance_parity() -> dict:
         except faults.InjectedCrash:
             crashed = True
     m.backend.aio.close()  # the dead process: no close(), no snapshot
-    be, state = OocBackend.restore(str(OOC_WORKDIR / "parity-wal-killed"),
+    be, state = OocBackend.restore(str(OOC_PARITY_WORKDIR / "wal-killed"),
                                    io_threads=0, device=DEVICE)
     m = BisimMaintainer.restore(be, state)
     done = 0
@@ -1392,7 +1399,7 @@ def phase_ooc_maintenance_parity() -> dict:
                    "recovered_equal_clean": bool(recovered_equal)},
            "seconds": time.perf_counter() - t0}
     emit(out)
-    shutil.rmtree(OOC_WORKDIR, ignore_errors=True)
+    shutil.rmtree(OOC_PARITY_WORKDIR, ignore_errors=True)
     if not (ok and observer_equal and recovered_equal):
         raise SystemExit("ooc_maintenance_parity: card and CPU differ, or "
                          "the recovered run is not the clean run")
@@ -2097,9 +2104,11 @@ def stream_worker(device: str, workdir: str, kill_at: int,
 
 
 def run_worker(argv: list) -> int:
-    """A worker process: ``quotient`` runs `phase_quotient` on the full
-    graph (its JSON lines go to its log; it times its waves once a line
-    arrives on its standard input); ``stream DEVICE WORKDIR KILL_AT OUT``
+    """A worker process: ``parity`` runs `phase_ooc_maintenance_parity`
+    and then `phase_quotient_parity`; ``quotient`` runs `phase_quotient`
+    on the full graph (the JSON lines of both go to their logs; it times
+    its waves once a line arrives on its standard input); ``stream DEVICE
+    WORKDIR KILL_AT OUT``
     one `stream_worker` run; ``dist_parity OUT_DIR`` one rank of
     `dist_parity_worker`; ``dist_launch OUT_DIR ARGV...`` one rank of
     `dist_launch_worker`."""
@@ -2110,9 +2119,12 @@ def run_worker(argv: list) -> int:
         return dist_parity_worker(argv[1])
     if argv[0] == "dist_launch":
         return dist_launch_worker(argv[1], argv[2:])
+    if argv[0] == "parity":
+        phase_ooc_maintenance_parity()
+        phase_quotient_parity()
+        return 0
     if argv[0] == "quotient":
         from repro_torch.launch import bisim as launcher
-        phase_quotient_parity()
         g = launcher.make_graph(launcher.build_parser().parse_args(
             _full_argv()))
         phase_quotient(g, quiet=sys.stdin.readline)
@@ -2123,13 +2135,14 @@ def run_worker(argv: list) -> int:
 
 def start_workers() -> dict:
     """Start the host-bound runs as worker processes of this script, each
-    with its log under `WORKER_DIR`: the quotient parity phase and then
-    the full graph's quotient phase, the stream phase's card crash drill (``--kill-at-op``; its uninterrupted
-    run is the stream straight through) and its CPU run."""
+    with its log under `WORKER_DIR`: the out-of-core maintenance and
+    quotient parity phases, the full graph's quotient phase, the stream
+    phase's card crash drill (``--kill-at-op``; its uninterrupted run is
+    the stream straight through) and its CPU run."""
     for d in (WORKER_DIR, STREAM_WORKDIR):
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-    runs = {"quotient": ["quotient"]}
+    runs = {"parity": ["parity"], "quotient": ["quotient"]}
     for name, device, kill_at in (("drill", DEVICE, STREAM["kill_at"]),
                                   ("cpu", "cpu", 0)):
         runs[name] = ["stream", device, str(STREAM_WORKDIR / name),
@@ -2166,10 +2179,21 @@ def _wait_worker(procs: dict, name: str) -> str:
     return text
 
 
-def collect_quotient(procs: dict) -> tuple:
+def collect_parity(procs: dict) -> dict:
+    """Wait for the parity worker and print its JSON lines here; returns
+    the summary of ``quotient_parity``."""
+    lines = [json.loads(ln) for ln in _wait_worker(
+        procs, "parity").splitlines() if ln.startswith('{"phase"')]
+    for line in lines:
+        emit(line)
+    return [ln for ln in lines if ln["phase"] == "quotient_parity"
+            and "all_equal" in ln][-1]
+
+
+def collect_quotient(procs: dict) -> dict:
     """Let the quotient worker time its waves (no other process uses the
-    card by now), then print its JSON lines here; returns the summaries
-    of its two phases (``quotient_parity``, ``quotient``)."""
+    card by now), then print its JSON lines here; returns the summary of
+    ``quotient``."""
     proc = procs["quotient"][0]
     try:
         proc.stdin.write(b"time\n")
@@ -2180,9 +2204,7 @@ def collect_quotient(procs: dict) -> tuple:
         procs, "quotient").splitlines() if ln.startswith('{"phase"')]
     for line in lines:
         emit(line)
-    qparity = [ln for ln in lines if ln["phase"] == "quotient_parity"
-               and "all_equal" in ln]
-    return qparity[-1], lines[-1]
+    return lines[-1]
 
 
 def phase_stream(procs: dict) -> dict:
@@ -2664,29 +2686,65 @@ PARITY_LM = dict(num_layers=4, d_model=512, num_heads=8, num_kv_heads=4,
                  head_dim=64, d_ff=2048, vocab_size=32768, local_window=32)
 
 
-def _sass_summary(name: str) -> dict:
-    """Per kernel of a built library, from its SASS (``cuobjdump``): the
-    registers it touches, spill stores and loads, wgmma and the waits on
-    them.  Under ``setmaxnreg`` this is what ``-Xptxas -v`` cannot show:
-    it prints only the registers at entry."""
+def _kernel_name(mangled: str) -> str:
+    """The unqualified name of a kernel from its mangled symbol: the last
+    identifier of its nested name, template arguments skipped."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    names, i = [], 3
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled[i].isdigit():
+            j = i
+            while mangled[j].isdigit():
+                j += 1
+            n = int(mangled[i:j])
+            names.append(mangled[j:j + n])
+            i = j + n
+        elif mangled[i] == "I":  # template arguments: I ... E, L ... E
+            depth = 0
+            while True:
+                depth += {"I": 1, "L": 1, "E": -1}.get(mangled[i], 0)
+                i += 1
+                if depth == 0:
+                    break
+        else:
+            i += 1
+    return names[-1] if names else mangled
+
+
+def _sass_summary(name: str, path=None) -> dict:
+    """Per kernel of a built library (``path``, default the library
+    ``name`` builds to), keyed by its name and head_dim, from its SASS
+    (``cuobjdump``): the registers it touches, spill stores and loads,
+    wgmma and the waits on them, the instruction count and a digest of the
+    instructions (offsets and encodings left out), which tells two builds
+    of one kernel apart.  Under ``setmaxnreg`` this is what ``-Xptxas -v``
+    cannot show: it prints only the registers at entry."""
+    import hashlib
     import re
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {"cuobjdump": "not found beside nvcc: not measured"}
     sass = subprocess.run([str(tool), "-sass",
-                           str(_build.library_path(name))],
+                           str(path or _build.library_path(name))],
                           capture_output=True, text=True).stdout
     out = {}
     for block in sass.split("Function : ")[1:]:
         fn = block.split()[0]
-        dim = re.search(r"ILi(\d+)E", fn)
+        dim = re.search(r"Li(\d+)E", fn)
         regs = [int(r) for r in re.findall(r"\bR(\d+)\b", block)]
-        out[f"D={dim.group(1)}" if dim else fn] = {
+        code = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln.split(";")[0]).strip()
+                for ln in block.splitlines() if ";" in ln and "/*" in ln]
+        key = _kernel_name(fn) + (f" D={dim.group(1)}" if dim else "")
+        out[key] = {
             "registers_touched": max(regs, default=-1) + 1,
             "STL": block.count("STL"), "LDL": block.count("LDL"),
             "HGMMA": block.count("HGMMA"),
-            "wgmma_waits": block.count("WARPGROUP.DEPBAR")}
+            "wgmma_waits": block.count("WARPGROUP.DEPBAR"),
+            "instructions": len(code),
+            "digest": hashlib.sha256(
+                "\n".join(code).encode()).hexdigest()[:16]}
     return out
 
 
@@ -2756,11 +2814,15 @@ def phase_attention() -> dict:
             fn = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
             names = device_ms_by_name(fn)
             # the card is the slower side here, so events around calls in
-            # a row cross-check the profiler
-            row.update(kernel_ms=sum(
-                v["ms"] for name, v in names.items() if "flash_fwd" in name),
-                device_ms_by_name=names, back_to_back_ms=back_to_back_ms(fn),
-                host_us=host_us(fn))
+            # a row cross-check the profiler, and stand in for it when it
+            # saw no launch of the kernel
+            b2b = back_to_back_ms(fn)
+            fwd = [v["ms"] for name, v in names.items() if "flash_fwd" in name]
+            row.update(kernel_ms=sum(fwd) if fwd else b2b,
+                       kernel_ms_source="torch.profiler" if fwd
+                       else "cuda events, 20 calls in a row",
+                       device_ms_by_name=names, back_to_back_ms=b2b,
+                       host_us=host_us(fn))
         del q, k, v, got, want, keep, sdpa
         torch.cuda.empty_cache()
         return row
@@ -2990,7 +3052,9 @@ def phase_serve_profile(eng, reqs) -> dict:
 
 # the backward's cases, those of `tests/test_torch_kernels_gpu.py`: the
 # reference's gradient test, causal on and off, window, softcap, GQA groups
-# 1, 2 and 4, right-aligned and shifted queries, rows with no key
+# 1, 2, 4 and 8, right-aligned and shifted queries, rows with no key, and
+# gemma2's heads at 1,000 tokens with a window of 512 (the bf16 kernel's
+# rings turn many times over full and edge tiles)
 BWD_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset
     (2, 4, 2, 64, 64, 16, True, 16, 25.0, 0),
     (1, 2, 2, 48, 48, 32, False, None, None, 0),
@@ -3001,6 +3065,14 @@ BWD_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset
     (1, 2, 1, 16, 16, 16, True, 0, None, 0),
     (1, 4, 2, 100, 100, 256, False, None, 50.0, 0),
     (1, 16, 8, 200, 200, 256, True, 64, 50.0, 0),
+    (1, 8, 1, 70, 70, 64, True, None, None, 0),
+    (1, 16, 8, 1000, 1000, 256, True, 512, 50.0, 0),
+    # softcaps that the logits reach (s ~ N(0, 1)): at 25 or 50, |s / cap|
+    # stays under 0.2 and the capped rule is within 1e-3 of the uncapped
+    (2, 4, 2, 64, 64, 16, True, 16, 2.0, 0),
+    (2, 4, 2, 100, 100, 128, False, None, 1.0, 0),
+    (1, 8, 1, 70, 70, 64, True, None, 3.0, 0),
+    (1, 16, 8, 200, 200, 256, True, 64, 2.0, 0),
 ]
 # gemma2-9b's train attention: one sequence of train_4k's 4096 tokens, bf16
 GEMMA_TRAIN_ATTN = dict(b=1, hq=16, hkv=8, s=4096, d=256, softcap=50.0,
@@ -3013,14 +3085,23 @@ TRAIN = dict(layers=20, seq=4096, batch=1, steps=5)
 
 def phase_attention_bwd() -> dict:
     """flash_attention_bwd on the card against `_bwd_rule`'s port on the
-    card, both forward kernels' lse against `_fwd_impl`'s, then gemma2's
-    train shape timed beside its bound and the SDPA yardstick."""
+    card (each dtype through its route: bf16 the wgmma kernel, f32 the
+    CUDA-core kernel), both forward kernels' lse against `_fwd_impl`'s,
+    then gemma2's train shape timed beside its bound and the SDPA
+    yardstick, and the f32 routes timed at the train-parity shape (where
+    they launch) and at gemma2's train shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels.ref import attention_mask
     dev = torch.device(DEVICE)
+    called, call = [], tfa._call
+
+    def record(route, *args):  # the library each wrapper call reaches
+        called.append(route)
+        return call(route, *args)
+    tfa._call = record
 
     def inputs(b, hq, hkv, sq, skv, d, dtype, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3035,8 +3116,10 @@ def phase_attention_bwd() -> dict:
                   q_offset=off)
         o, lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
         launches = tfa.flash_attention_bwd.launches
+        called.clear()
         got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         launched = tfa.flash_attention_bwd.launches - launches
+        routes = list(called)
         want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
         o_k, lse_k = tfa.flash_attention(q, k, v, return_lse=True, **kw)
         torch.cuda.synchronize()
@@ -3049,7 +3132,7 @@ def phase_attention_bwd() -> dict:
         lse_err = float((lse_k - lse).abs().masked_fill(big, 0.0).max())
         lse_scale = max(1.0, float(lse.masked_fill(big, 0.0).abs().max()))
         lse_tol = 1e-3 if dtype == "bfloat16" else 1e-4
-        ok = (launched == 1
+        ok = (launched == 1 and routes == [tfa.bwd_kernel_route(dt)]
               and all(errs[n] <= tol * max(scales[n], 1e-30) for n in errs)
               and torch.equal(lse_k == tfa.BIG, big)
               and lse_err <= lse_tol * lse_scale
@@ -3057,7 +3140,8 @@ def phase_attention_bwd() -> dict:
         return {"case": dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
                              causal=causal, window=window, softcap=softcap,
                              q_offset=off, dtype=dtype),
-                "fwd_route": tfa.kernel_route(dt), "max_abs_err": errs,
+                "route": routes, "fwd_route": tfa.kernel_route(dt),
+                "max_abs_err": errs,
                 "max_abs": scales, "tol_of_max": tol,
                 "lse_max_abs_err": lse_err, "lse_tol": lse_tol * lse_scale,
                 "empty_rows": int(big.sum()), "ok": ok}
@@ -3065,15 +3149,17 @@ def phase_attention_bwd() -> dict:
     cases = [check(c, dt) for dt in ("float32", "bfloat16")
              for c in BWD_CASES]
 
-    def timed(window, softcap):
-        g = GEMMA_TRAIN_ATTN
-        b, hq, hkv, s, d = g["b"], g["hq"], g["hkv"], g["s"], g["d"]
-        q, k, v, do = inputs(b, hq, hkv, s, s, d, torch.bfloat16, 7)
+    def timed(dtype, shape, window, softcap):
+        b, hq, hkv, s, d = shape
+        q, k, v, do = inputs(b, hq, hkv, s, s, d, getattr(torch, dtype), 7)
         kw = dict(causal=True, window=window, softcap=softcap)
         o, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+
         def fn():
             return tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        called.clear()
         got = fn()
+        route = list(called)
         want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
         errs = {n: float((a.float() - w.float()).abs().max())
                 / max(float(w.float().abs().max()), 1e-30)
@@ -3082,12 +3168,17 @@ def phase_attention_bwd() -> dict:
         keep = attention_mask(s, s, causal=True, window=window, device=dev)
         pairs = int(keep.sum())
         # the rule's five products (s, dv, dp, dq, dk), 2 D flops a
-        # visible pair each, on the bf16 tensor cores' peak; bytes: q, k,
-        # v, o, dO and the outputs once, lse once
-        flop_ms = 10 * d * pairs * b * hq / FLOP_PER_S["bfloat16"] * 1e3
-        byte_ms = (q.element_size() * (4 * q.numel() + 2 * k.numel()
-                                       + 2 * v.numel())
+        # visible pair each, on the peak of the dtype (bf16 the tensor
+        # cores', f32 the CUDA cores'); bytes: q, k, v, o, dO and the
+        # outputs once, lse once.  The forward: two products, q, k, v read
+        # and o, lse written once
+        peak, size = FLOP_PER_S[dtype], q.element_size()
+        flop_ms = 10 * d * pairs * b * hq / peak * 1e3
+        byte_ms = (size * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
                    + 4 * lse.numel()) / HBM_BYTES_PER_S * 1e3
+        fwd_flop_ms = 4 * d * pairs * b * hq / peak * 1e3
+        fwd_byte_ms = (size * (2 * q.numel() + k.numel() + v.numel())
+                       + 4 * lse.numel()) / HBM_BYTES_PER_S * 1e3
         # a call's device time: the mean event of each of its passes (the
         # profiler may see only some of the 20 calls' events)
         names = device_ms_by_name(fn)
@@ -3106,10 +3197,12 @@ def phase_attention_bwd() -> dict:
             qs, ks, vs, is_causal=True, enable_gqa=True)
         sdpa_fwd_ms = cuda_ms(sdpa, 10)
         sdpa_fb_ms = cuda_ms(lambda: sdpa().backward(do), 10)
+        tol = 2e-2 if dtype == "bfloat16" else 1e-4
         row = {"case": dict(b=b, hq=hq, hkv=hkv, s=s, d=d, causal=True,
-                            window=window, softcap=softcap,
-                            dtype="bfloat16"),
-               "err_of_max": errs, "ok": max(errs.values()) <= 2e-2,
+                            window=window, softcap=softcap, dtype=dtype),
+               "route": route, "err_of_max": errs, "tol_of_max": tol,
+               "ok": (route == [tfa.bwd_kernel_route(q.dtype)]
+                      and max(errs.values()) <= tol),
                "pairs_per_head": pairs, "kernel_ms": kernel_ms,
                "kernel_ms_source": source, "device_ms_by_name": names,
                "ms": cuda_ms(fn, 10), "back_to_back_ms": b2b,
@@ -3118,6 +3211,11 @@ def phase_attention_bwd() -> dict:
                    q, k, v, o, lse, do, **kw), 3),
                "fwd_ms": cuda_ms(lambda: tfa.flash_attention(
                    q, k, v, return_lse=True, **kw), 10),
+               "fwd_plain_ms": cuda_ms(lambda: tfa.flash_attention_fwd_plain(
+                   q, k, v, **kw), 3),
+               "fwd_bound_ms": max(fwd_flop_ms, fwd_byte_ms),
+               "fwd_bound_by": ("operations" if fwd_flop_ms >= fwd_byte_ms
+                                else "bytes"),
                "library_fwd_bwd_ms": sdpa_fb_ms,
                "library_fwd_ms": sdpa_fwd_ms,
                "library_ms": sdpa_fb_ms - sdpa_fwd_ms,
@@ -3129,24 +3227,47 @@ def phase_attention_bwd() -> dict:
         return row
 
     g = GEMMA_TRAIN_ATTN
-    timing = {"global": timed(None, g["softcap"]),
-              "local": timed(g["window"], g["softcap"])}
-    ptxas = [ln.strip() for ln in _build.ptxas_report(
-        "flash_attention_bwd").splitlines()
-        if "Used" in ln or "spill" in ln or "Compiling" in ln]
-    for ln in ptxas:
-        print(f"ptxas flash_attention_bwd: {ln}", flush=True)
-    sass = _sass_summary("flash_attention_bwd")
-    bad = [c for c in cases + list(timing.values()) if not c["ok"]]
+    train = (g["b"], g["hq"], g["hkv"], g["s"], g["d"])
+    parity = (2, PARITY_LM["num_heads"], PARITY_LM["num_kv_heads"], 128,
+              PARITY_LM["head_dim"])  # train_parity's batch of 2 x 128
+    timing = {"global": timed("bfloat16", train, None, g["softcap"]),
+              "local": timed("bfloat16", train, g["window"], g["softcap"])}
+    # the f32 routes (both forward and backward): where they launch on the
+    # main path, train_parity's global layers, and at gemma2's train shape
+    f32 = {"train_parity": timed("float32", parity, None, g["softcap"]),
+           "gemma2_9b_train": timed("float32", train, None, g["softcap"])}
+    tfa._call = call
+    routes = {"bfloat16": tfa.bwd_kernel_route(torch.bfloat16)
+              + " (wgmma, TMA)",
+              "float32": tfa.bwd_kernel_route(torch.float32)
+              + " (CUDA cores)"}
+    print(f"flash_attention_bwd route: bf16 -> {routes['bfloat16']}, "
+          f"f32 -> {routes['float32']}", flush=True)
+    libs = ("flash_attention_bwd_sm90", "flash_attention_bwd")
+    ptxas = {lib: [ln.strip() for ln in _build.ptxas_report(lib).splitlines()
+                   if "Used" in ln or "spill" in ln or "Compiling" in ln
+                   or "C75" in ln]
+             for lib in libs}
+    for lib, lines in ptxas.items():
+        for ln in lines:
+            print(f"ptxas {lib}: {ln}", flush=True)
+    sass = {lib: _sass_summary(lib) for lib in libs}
+    for lib, kernels in sass.items():
+        for kernel, counts in kernels.items():
+            print(f"sass {lib} {kernel}: {json.dumps(counts)}", flush=True)
+    bad = [c for c in cases + list(timing.values()) + list(f32.values())
+           if not c["ok"]]
     out = {"phase": "attention_bwd", "kernel": "flash_attention_bwd",
            "replaces": "none: the JAX package differentiates in XLA "
                        "(src/repro/models/flash_xla.py:100, _bwd_rule)",
+           "routes": routes,
            "library": "scaled_dot_product_attention fwd+bwd minus fwd "
                       "(is_causal, enable_gqa), without softcap",
            "cases": cases, "mismatches": bad,
            "max_abs_err": max(max(c["max_abs_err"].values())
                               for c in cases),
-           "gemma2_9b_train": timing, "ptxas": ptxas, "sass": sass}
+           "gemma2_9b_train": timing, "f32_routes": f32, "ptxas": ptxas,
+           "sass": sass}
     emit(out)
     if bad:
         raise SystemExit("flash_attention_bwd or an lse disagrees with its "
@@ -3436,26 +3557,27 @@ def main() -> int:
         shutil.rmtree(DIST_DIR, ignore_errors=True)
     del inmem
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
-    # the quotient phases and the stream's runs are host-bound: worker
-    # processes run them beside the maintenance phases, in memory and out
-    # of core; the quotient worker runs quotient_parity, then the full
-    # graph's, times its waves once the others have ended, and its lines
-    # print below
+    # the parity phases of out-of-core maintenance and of the quotient,
+    # the full graph's quotient and the stream's runs are host-bound:
+    # worker processes run them beside the maintenance phases, in memory
+    # and out of core; the quotient worker times its waves once the others
+    # have ended, and the workers' lines print below
     workers = start_workers()
     try:
         maint, folds = phase_maintenance(g)
         try:
-            phase_ooc_maintenance_parity()
             ooc_maint = phase_ooc_maintenance(g)
         finally:
             shutil.rmtree(OOC_WORKDIR, ignore_errors=True)
         del g
         stream = phase_stream(workers)
         print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
-        qparity, quotient = collect_quotient(workers)
+        qparity = collect_parity(workers)
+        quotient = collect_quotient(workers)
     finally:
         stop_workers(workers)
-        for d in (QUOTIENT_WORKDIR, STREAM_WORKDIR, WORKER_DIR):
+        for d in (QUOTIENT_WORKDIR, STREAM_WORKDIR, WORKER_DIR,
+                  OOC_PARITY_WORKDIR):
             shutil.rmtree(d, ignore_errors=True)
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
     frontier = phase_frontier_kernels(folds)  # alone on the card
@@ -3473,7 +3595,9 @@ def main() -> int:
     glob = attn["gemma2_9b_prefill"]["global"]
     big = frontier["cases"]["largest dedup=True"]
     # ms: the wrapper a call (CUDA events); kernel_ms: the kernel's own
-    # device time (torch.profiler); host_us: the host's time a call
+    # device time (torch.profiler; the attention rows say in
+    # kernel_ms_source when events stood in); host_us: the host's time a
+    # call
     times = ("ms", "kernel_ms", "host_us", "plain_ms", "bound_ms")
     # fold_flat launches a rank of the full graph's distributed runs
     dist_launches = {name: line["fold_flat_launches"]
@@ -3520,17 +3644,24 @@ def main() -> int:
         "launches": serve["flash_attention_launches"],
         "train_launches": train["launches"]["fwd"],
         "max_abs_err": attn["max_abs_err"], **{k: glob[k] for k in times},
+        "kernel_ms_source": glob["kernel_ms_source"],
         "back_to_back_ms": glob["back_to_back_ms"],
         "bound_by": glob["bound_by"], "library_ms": glob["library_ms"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+        "f32_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "no Pallas kernel: the JAX package differentiates in "
                     "XLA, src/repro/models/flash_xla.py:100 (_bwd_rule)",
         "launches": train["launches"]["bwd"],
         "max_abs_err": attn_bwd["max_abs_err"],
         **{k: bwd[k] for k in times}, "shape": bwd["case"],
+        "kernel_ms_source": bwd["kernel_ms_source"],
         "back_to_back_ms": bwd["back_to_back_ms"],
-        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]}]})
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
+        "f32_route": {name: {k: row[k] for k in (
+            *times, "bound_by", "library_ms", "fwd_ms", "fwd_bound_ms",
+            "library_fwd_ms")} for name, row in
+            attn_bwd["f32_routes"].items()}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain-C interface and compiles, at first use,
 into ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout
-(the digest covers the source and the flags, so an edited source builds
-anew).  ``nvcc``'s ``-Xptxas -v`` report is kept beside the library.  No
+(the digest covers the source, the ``csrc/*.cuh`` headers it includes and
+the flags, so an edited source or header builds anew).  ``nvcc``'s
+``-Xptxas -v`` report is kept beside the library.  No
 PyTorch header is included, so a build takes seconds.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -39,13 +41,22 @@ SIGNATURES = {
         "flash_attention_fwd_sm90": [_P] * 4 + [ctypes.POINTER(_LL), _I, _I,
                                                 _LL, _I, _F, _F, _LL, _P, _P],
     },
-    # q, k, v, o, lse, do, dq, dk, dv, delta scratch, dims, dtype, the mask
-    # and softcap, q_offset
+    # q, k, v, o, lse, do, dq, dk, dv, delta scratch, dims, the mask and
+    # softcap, q_offset (f32)
     "flash_attention_bwd": {
-        "flash_attention_bwd": [_P] * 10 + [ctypes.POINTER(_LL), _I, _I, _I,
-                                             _LL, _I, _F, _F, _LL, _P],
+        "flash_attention_bwd": [_P] * 10 + [ctypes.POINTER(_LL), _I, _I, _LL,
+                                             _I, _F, _F, _LL, _P],
+    },
+    # q, k, v, o, lse, do, dq, dk, dv, scratch, the plan's block table,
+    # dims, the plan's scalars, the mask and softcap flags, softcap, scale
+    # (bf16)
+    "flash_attention_bwd_sm90": {
+        "flash_attention_bwd_sm90": [_P] * 11 + [ctypes.POINTER(_LL),
+                                                  ctypes.POINTER(_LL), _I, _I,
+                                                  _I, _F, _F, _P],
     },
 }
+_INCLUDE = re.compile(r'^#include "([^"]+\.cuh)"', re.M)
 
 
 def nvcc() -> str:
@@ -56,9 +67,19 @@ def nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly
+    or through another header, in the order first met."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for header in _INCLUDE.findall(path.read_text()):
+            if CSRC / header not in found:
+                found.append(CSRC / header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources(name))
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,5 +1,7 @@
-// Flash attention backward for Hopper (sm_90a): dq, dk and dv from
-// (q, k, v, o, lse, dO), in f32 or bf16 with f32 accumulation.
+// Flash attention backward for Hopper (sm_90a) in f32: dq, dk and dv from
+// (q, k, v, o, lse, dO) on the CUDA cores.  bf16 inputs take
+// flash_attention_bwd_sm90.cu (wgmma, TMA); this kernel is the f32 route
+// (the f32 tolerance of 1e-4 rules out a bf16 P and dS).
 //
 // No Pallas kernel stands behind it: the JAX package differentiates its
 // XLA attention (src/repro/models/flash_xla.py, `_bwd_rule`, the custom VJP
@@ -28,19 +30,18 @@
 // What bounds it: operations.  A visible pair costs 14 * D flops here (10 *
 // D in the five products of the rule) against bytes read once a tile; this
 // simple version keeps them on the CUDA cores in f32 (tiles in shared
-// memory, each thread 4 outputs of a 32 x 32 product at a time), far below
-// the tensor cores' rate.  wgmma and TMA are a later redesign's.
+// memory, each thread 4 outputs of a 32 x 32 product at a time): the f32
+// peak, not the tensor cores', bounds it.
 //
-// Shared memory, in f32 whatever the input type: K and V transposed
+// Shared memory, in f32: K and V transposed
 // ([D][33]: consecutive keys in consecutive banks), Q and dO by rows with a
 // stride of D + 1, P and dS [32][33]: 142,080 bytes at D = 256, so the
 // launch opts in to dynamic shared memory.
 //
 // Plain-C entry point, loaded with ctypes; it returns the first
-// cudaGetLastError() that is not 0, or -1 for a head_dim or type it was not
-// built for.
+// cudaGetLastError() that is not 0, or -1 for a head_dim it was not built
+// for.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -61,14 +62,6 @@ struct Params {
   float softcap, scale;
 };
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
@@ -99,19 +92,19 @@ __device__ __forceinline__ bool visible(const Params& p, int64_t qpos,
 }
 
 // delta[b, h, i] = sum_d dO[b, h, i, d] * o[b, h, i, d], a warp a row.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+    bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
               float* __restrict__ delta, Params p) {
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= p.batch * p.hq * p.sq) return;
   const int64_t i = row % p.sq, bh = row / p.sq;
   const int64_t b = bh / p.hq, h = bh % p.hq;
-  const T* orow = o + b * p.os[0] + h * p.os[1] + i * p.os[2];
-  const T* drow = dout + b * p.dos[0] + h * p.dos[1] + i * p.dos[2];
+  const float* orow = o + b * p.os[0] + h * p.os[1] + i * p.os[2];
+  const float* drow = dout + b * p.dos[0] + h * p.dos[1] + i * p.dos[2];
   float sum = 0.f;
-  for (int d = lane; d < D; d += 32) sum += ld(drow + d) * ld(orow + d);
+  for (int d = lane; d < D; d += 32) sum += drow[d] * orow[d];
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, w);
@@ -120,19 +113,19 @@ __global__ void __launch_bounds__(kThreads)
 
 // One query tile's rows into shared memory (Q and dO by rows, stride D + 1;
 // rows past Sq are zero, their lse +BIG and delta 0).
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_rows(
-    const T* __restrict__ q, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const Params& p, int64_t b, int64_t h, int64_t i0, float* qs_, float* dos_,
     float* lse_, float* delta_) {
-  const T* qb = q + b * p.qs[0] + h * p.qs[1];
-  const T* db = dout + b * p.dos[0] + h * p.dos[1];
+  const float* qb = q + b * p.qs[0] + h * p.qs[1];
+  const float* db = dout + b * p.dos[0] + h * p.dos[1];
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, d = e % D;
     const bool in = i0 + r < p.sq;
-    qs_[r * (D + 1) + d] = in ? ld(qb + (i0 + r) * p.qs[2] + d) : 0.f;
-    dos_[r * (D + 1) + d] = in ? ld(db + (i0 + r) * p.dos[2] + d) : 0.f;
+    qs_[r * (D + 1) + d] = in ? qb[(i0 + r) * p.qs[2] + d] : 0.f;
+    dos_[r * (D + 1) + d] = in ? db[(i0 + r) * p.dos[2] + d] : 0.f;
   }
   if (threadIdx.x < kTile) {
     const int r = threadIdx.x;
@@ -145,19 +138,19 @@ __device__ __forceinline__ void load_rows(
 
 // One kv tile's keys into shared memory, transposed ([D][kPadT]; keys past
 // Skv are zero).
-template <typename T, int D>
-__device__ __forceinline__ void load_keys(const T* __restrict__ k,
-                                          const T* __restrict__ v,
+template <int D>
+__device__ __forceinline__ void load_keys(const float* __restrict__ k,
+                                          const float* __restrict__ v,
                                           const Params& p, int64_t b,
                                           int64_t hk, int64_t k0, float* kt,
                                           float* vt) {
-  const T* kb = k + b * p.ks[0] + hk * p.ks[1];
-  const T* vb = v + b * p.vs[0] + hk * p.vs[1];
+  const float* kb = k + b * p.ks[0] + hk * p.ks[1];
+  const float* vb = v + b * p.vs[0] + hk * p.vs[1];
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int c = e / D, d = e % D;
     const bool in = k0 + c < p.skv;
-    kt[d * kPadT + c] = in ? ld(kb + (k0 + c) * p.ks[2] + d) : 0.f;
-    vt[d * kPadT + c] = in ? ld(vb + (k0 + c) * p.vs[2] + d) : 0.f;
+    kt[d * kPadT + c] = in ? kb[(k0 + c) * p.ks[2] + d] : 0.f;
+    vt[d * kPadT + c] = in ? vb[(k0 + c) * p.vs[2] + d] : 0.f;
   }
 }
 
@@ -202,12 +195,12 @@ __device__ __forceinline__ void tile_p_ds(const Params& p, int64_t i0,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dk, T* __restrict__ dv, Params p) {
+             float* __restrict__ dk, float* __restrict__ dv, Params p) {
   constexpr int kCols = D / 8;  // dk and dv columns a thread
   extern __shared__ float smem[];
   float* kt = smem;                      // [D][kPadT]
@@ -224,7 +217,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t g = p.hq / p.hkv;
   const int64_t k0 = (int64_t)blockIdx.x * kTile;
   const int64_t keys = min64(kTile, p.skv - k0);
-  load_keys<T, D>(k, v, p, b, hk, k0, kt, vt);
+  load_keys<D>(k, v, p, b, hk, k0, kt, vt);
 
   // the query rows that any of these keys can see
   int64_t i_begin = 0, i_end = p.sq;
@@ -240,8 +233,8 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t h = hk * g + gi;
     for (int64_t i0 = i_begin; i0 < i_end; i0 += kTile) {
       __syncthreads();  // the previous tile's readers are done
-      load_rows<T, D>(q, dout, lse, delta, p, b, h, i0, qs_, dos_, lse_,
-                      delta_);
+      load_rows<D>(q, dout, lse, delta, p, b, h, i0, qs_, dos_, lse_,
+                   delta_);
       __syncthreads();
       tile_p_ds<D>(p, i0, k0, qs_, dos_, kt, vt, lse_, delta_, pp, dss);
       __syncthreads();
@@ -257,22 +250,22 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (jr < keys) {
-    T* dkr = dk + b * p.dks[0] + hk * p.dks[1] + (k0 + jr) * p.dks[2];
-    T* dvr = dv + b * p.dvs[0] + hk * p.dvs[1] + (k0 + jr) * p.dvs[2];
+    float* dkr = dk + b * p.dks[0] + hk * p.dks[1] + (k0 + jr) * p.dks[2];
+    float* dvr = dv + b * p.dvs[0] + hk * p.dvs[1] + (k0 + jr) * p.dvs[2];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      st(dkr + tx + 8 * c, dk_acc[c]);
-      st(dvr + tx + 8 * c, dv_acc[c]);
+      dkr[tx + 8 * c] = dk_acc[c];
+      dvr[tx + 8 * c] = dv_acc[c];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           T* __restrict__ dq, Params p) {
+           float* __restrict__ dq, Params p) {
   constexpr int kCols = D / 8;
   extern __shared__ float smem[];
   float* kt = smem;
@@ -288,7 +281,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t hk = h / (p.hq / p.hkv);
   const int64_t i0 = (int64_t)blockIdx.x * kTile;
   const int64_t rows = min64(kTile, p.sq - i0);
-  load_rows<T, D>(q, dout, lse, delta, p, b, h, i0, qs_, dos_, lse_, delta_);
+  load_rows<D>(q, dout, lse, delta, p, b, h, i0, qs_, dos_, lse_, delta_);
 
   // the keys that any of these rows can see
   int64_t k_begin = 0, k_end = p.skv;
@@ -302,7 +295,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int64_t k0 = k_begin; k0 < k_end; k0 += kTile) {
     __syncthreads();
-    load_keys<T, D>(k, v, p, b, hk, k0, kt, vt);
+    load_keys<D>(k, v, p, b, hk, k0, kt, vt);
     __syncthreads();
     tile_p_ds<D>(p, i0, k0, qs_, dos_, kt, vt, lse_, delta_, nullptr, dss);
     __syncthreads();
@@ -314,64 +307,60 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (ir < rows) {
-    T* dqr = dq + b * p.dqs[0] + h * p.dqs[1] + (i0 + ir) * p.dqs[2];
+    float* dqr = dq + b * p.dqs[0] + h * p.dqs[1] + (i0 + ir) * p.dqs[2];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) st(dqr + tx + 8 * c, dq_acc[c]);
+    for (int c = 0; c < kCols; ++c) dqr[tx + 8 * c] = dq_acc[c];
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const float* lse, const void* dout, void* dq, void* dk, void* dv,
-           float* delta, const Params& p, cudaStream_t stream) {
+template <int D>
+int launch(const float* q, const float* k, const float* v, const float* o,
+           const float* lse, const float* dout, float* dq, float* dk,
+           float* dv, float* delta, const Params& p, cudaStream_t stream) {
   // a pass with nothing to do is not launched (a grid of 0 is refused)
   const int64_t rows = p.batch * p.hq * p.sq;
   if (rows > 0) {
-    bwd_delta<T, D><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)),
-                      kThreads, 0, stream>>>((const T*)o, (const T*)dout,
-                                             delta, p);
+    bwd_delta<D><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)),
+                   kThreads, 0, stream>>>(o, dout, delta, p);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
   if (p.skv > 0) {
     constexpr size_t bytes = dkdv_smem<D>();
-    cudaFuncSetAttribute(bwd_dkdv<T, D>,
+    cudaFuncSetAttribute(bwd_dkdv<D>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
     const dim3 grid((unsigned)((p.skv + kTile - 1) / kTile),
                     (unsigned)(p.batch * p.hkv));
-    bwd_dkdv<T, D><<<grid, kThreads, bytes, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        (T*)dk, (T*)dv, p);
+    bwd_dkdv<D><<<grid, kThreads, bytes, stream>>>(q, k, v, dout, lse, delta,
+                                                   dk, dv, p);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
   if (rows > 0) {
     constexpr size_t bytes = dq_smem<D>();
-    cudaFuncSetAttribute(bwd_dq<T, D>,
+    cudaFuncSetAttribute(bwd_dq<D>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
     const dim3 grid((unsigned)((p.sq + kTile - 1) / kTile),
                     (unsigned)(p.batch * p.hq));
-    bwd_dq<T, D><<<grid, kThreads, bytes, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        (T*)dq, p);
+    bwd_dq<D><<<grid, kThreads, bytes, stream>>>(q, k, v, dout, lse, delta, dq,
+                                                 p);
     return (int)cudaGetLastError();
   }
   return 0;
 }
 
-template <typename T>
-int dispatch(int head_dim, const void* q, const void* k, const void* v,
-             const void* o, const float* lse, const void* dout, void* dq,
-             void* dk, void* dv, float* delta, const Params& p,
+int dispatch(int head_dim, const float* q, const float* k, const float* v,
+             const float* o, const float* lse, const float* dout, float* dq,
+             float* dk, float* dv, float* delta, const Params& p,
              cudaStream_t s) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
-    case 32: return launch<T, 32>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
-    case 256: return launch<T, 256>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
+    case 16: return launch<16>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
+    case 32: return launch<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
+    case 64: return launch<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
+    case 128: return launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
+    case 256: return launch<256>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
     default: return -1;
   }
 }
@@ -379,14 +368,13 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dims: batch, hq, hkv, sq, skv, head_dim, then the (batch, head, seq)
-// element strides of q, k, v, o, do, dq, dk and dv.  dtype: 0 f32, 1 bf16
-// (every tensor but lse and delta, which are f32 [batch, hq, sq],
-// contiguous; delta is scratch).
-extern "C" int flash_attention_bwd(const void* q, const void* k,
-                                   const void* v, const void* o,
-                                   const void* lse, const void* dout,
-                                   void* dq, void* dk, void* dv, void* delta,
-                                   const long long* dims, int dtype,
+// element strides of q, k, v, o, do, dq, dk and dv; every tensor f32
+// (lse and delta [batch, hq, sq], contiguous; delta is scratch).
+extern "C" int flash_attention_bwd(const float* q, const float* k,
+                                   const float* v, const float* o,
+                                   const float* lse, const float* dout,
+                                   float* dq, float* dk, float* dv,
+                                   float* delta, const long long* dims,
                                    int causal, int has_window,
                                    long long window, int has_softcap,
                                    float softcap, float scale,
@@ -409,13 +397,6 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   p.softcap = softcap;
   p.scale = scale;
   if (p.batch * p.hq <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* l = (const float*)lse;
-  float* dl = (float*)delta;
-  if (dtype == 0)
-    return dispatch<float>(head_dim, q, k, v, o, l, dout, dq, dk, dv, dl, p, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(head_dim, q, k, v, o, l, dout, dq, dk, dv,
-                                   dl, p, s);
-  return -1;
+  return dispatch(head_dim, q, k, v, o, lse, dout, dq, dk, dv, delta, p,
+                  (cudaStream_t)stream);
 }

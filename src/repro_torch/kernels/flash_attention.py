@@ -30,9 +30,15 @@ version.
 For training, both forward kernels also write the rows' log-sum-exp
 (``return_lse``: f32 [B, Hq, Sq], +BIG for a row with no key, as
 `repro.models.flash_xla._fwd_impl` has it), and `flash_attention_bwd`
-computes dq, dk and dv from (q, k, v, o, lse, dO) with
-``csrc/flash_attention_bwd.cu`` (CUDA cores, f32 accumulation, f32 and
-bf16).  The JAX package differentiates its XLA attention
+computes dq, dk and dv from (q, k, v, o, lse, dO), routed by dtype
+(`bwd_kernel_route`) as the forward is:
+
+- bf16 -> ``csrc/flash_attention_bwd_sm90.cu``: the tensor cores through
+  wgmma, tiles through TMA, laid out by the pure-Python
+  `bwd_launch_plan`; q, k, v and dO pass `tma_strides`.
+- f32 -> ``csrc/flash_attention_bwd.cu``: the CUDA cores in full f32.
+
+The JAX package differentiates its XLA attention
 (`repro.models.flash_xla._bwd_rule`); its steps are the plain versions
 here: `flash_attention_fwd_plain` (``_fwd_impl``) and
 `flash_attention_bwd_plain` (``_bwd_rule``).  ``q_offset`` places query
@@ -41,8 +47,11 @@ row i at position i + q_offset (default Skv - Sq: right-aligned).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .ref import attention_mask
@@ -56,7 +65,15 @@ ROUTES = {torch.bfloat16: ("flash_attention_sm90", "flash_attention_fwd_sm90"),
 TMA_ALIGN = 16  # bytes: TMA's alignment of base addresses and strides
 _PLAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 BIG = -_NEG  # the lse of a row with no key: its p is exp(s - BIG) = 0
-BWD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the backward's types
+# the CUDA library (and its entry point) that each dtype's backward launches
+BWD_ROUTES = {torch.bfloat16: ("flash_attention_bwd_sm90",
+                               "flash_attention_bwd_sm90"),
+              torch.float32: ("flash_attention_bwd", "flash_attention_bwd")}
+# the bf16 backward's tiles: a dk/dv block takes 64 keys and visits query
+# tiles of 64 rows; a dq block takes 128 query rows and visits kv tiles of
+# 32 keys; the scratch's rows are padded to 128
+BWD_KEYS, BWD_QUERIES, BWD_ROWS, BWD_DQ_KEYS = 64, 64, 128, 32
+_UNBOUNDED = 1 << 30  # a range bound that the mask does not set
 
 
 def _check(q, k, v, causal, window, softcap, block_q, block_k):
@@ -254,6 +271,15 @@ def tma_strides(t) -> list:
     return strides
 
 
+def tma_loadable(t) -> bool:
+    """Whether `tma_strides` takes ``t``."""
+    try:
+        tma_strides(t)
+    except ValueError:
+        return False
+    return True
+
+
 def _ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
@@ -343,6 +369,116 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
 flash_attention.launches = 0  # kernel launches made through the wrapper
 
 
+def bwd_kernel_route(dtype) -> str:
+    """The CUDA library that a backward call in ``dtype`` launches: bf16
+    the wgmma kernel (``flash_attention_bwd_sm90``), f32 the CUDA-core
+    kernel (``flash_attention_bwd``).  Any other dtype raises."""
+    if dtype not in BWD_ROUTES:
+        raise ValueError(f"flash_attention_bwd: no kernel for {dtype}")
+    return BWD_ROUTES[dtype][0]
+
+
+def _tiles(lo, hi, tile: int):
+    """(first start, count) of the tiles of ``tile`` that cut [lo, hi),
+    the first at a multiple of ``tile``; (0, 0) where the range is empty.
+    Element-wise on int64 arrays."""
+    first = lo // tile * tile
+    count = np.where(hi > lo, -(-(hi - first) // tile), 0)
+    return np.where(count > 0, first, 0), count
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How the bf16 backward's two kernels cover the visible (query, key)
+    pairs.  The kernels read `blocks`: one row (head, start, first, tiles)
+    a block.  A dk/dv block takes the keys [start, start + 64) of kv head
+    ``head`` (b * Hkv + h) and visits, for each q head of the group,
+    ``tiles`` query tiles of 64 rows from row ``first``; a dq block takes
+    the rows [start, start + 128) of q head ``head`` (b * Hq + h) and
+    visits ``tiles`` kv tiles of 32 keys from key ``first``.  A dk/dv
+    block of keys [k0, k1) sees the rows [max(0, k0 + q_lo), min(Sq, k1 +
+    q_hi)); a dq block of rows [i0, i1) the keys [max(0, i0 + k_lo),
+    min(Skv, i1 + k_hi)).  ``window`` is the call's, clamped to where it
+    still masks."""
+    sq: int
+    skv: int
+    heads_kv: int
+    heads_q: int
+    kv_tiles: int
+    q_tiles: int
+    dq_reverse: bool
+    q_lo: int
+    q_hi: int
+    k_lo: int
+    k_hi: int
+    sq_pad: int
+    window: int
+    q_offset: int
+
+    def args(self) -> list:
+        """The scalars of the plan as the kernel's entry point takes them."""
+        return [self.dkdv_blocks, self.dq_blocks, self.sq_pad, self.window,
+                self.q_offset]
+
+    @property
+    def dkdv_blocks(self) -> int:
+        return self.kv_tiles * self.heads_kv
+
+    @property
+    def dq_blocks(self) -> int:
+        return self.q_tiles * self.heads_q
+
+    def blocks(self) -> np.ndarray:
+        """int32 [dkdv_blocks + dq_blocks, 4]: the dk/dv kernel's blocks,
+        then the dq kernel's, each in launch order, heaviest first: the
+        head fastest, the lowest keys first, and under causal the last
+        query tile first."""
+        x = np.arange(self.dkdv_blocks, dtype=np.int64)
+        k0 = x // self.heads_kv * BWD_KEYS
+        k1 = np.minimum(k0 + BWD_KEYS, self.skv)
+        dkdv = (x % self.heads_kv, k0) + _tiles(
+            np.maximum(0, k0 + self.q_lo), np.minimum(self.sq, k1 + self.q_hi),
+            BWD_QUERIES)
+        x = np.arange(self.dq_blocks, dtype=np.int64)
+        rank = x // self.heads_q
+        i0 = (self.q_tiles - 1 - rank if self.dq_reverse else rank) * BWD_ROWS
+        i1 = np.minimum(i0 + BWD_ROWS, self.sq)
+        dq = (x % self.heads_q, i0) + _tiles(
+            np.maximum(0, i0 + self.k_lo), np.minimum(self.skv, i1 + self.k_hi),
+            BWD_DQ_KEYS)
+        return np.concatenate([np.stack(dkdv, 1), np.stack(dq, 1)]).astype(
+            np.int32).reshape(-1, 4)
+
+
+def bwd_launch_plan(b: int, hq: int, hkv: int, sq: int, skv: int, *,
+                    causal: bool, window=None, q_offset=None) -> BwdPlan:
+    """The bf16 backward's grids, block order and tile ranges (see
+    `BwdPlan`).  Pair (i, j) is visible when causal j <= i + off and
+    window i + off - j < window (off = q_offset, default Skv - Sq), so a
+    key range [k0, k1) sees rows i >= k0 - off and i < k1 + window - 1 -
+    off, and a row range [i0, i1) keys j < i1 + off and j >= i0 + off -
+    window + 1."""
+    off = skv - sq if q_offset is None else int(q_offset)
+    # qpos - kpos lies in [off - skv + 1, off + sq - 1]: a window outside
+    # [off - skv, off + sq] masks as that bound does
+    w = 0 if window is None else min(max(int(window), off - skv), off + sq)
+    return BwdPlan(
+        sq=sq, skv=skv, heads_kv=b * hkv, heads_q=b * hq,
+        kv_tiles=-(-skv // BWD_KEYS), q_tiles=-(-sq // BWD_ROWS),
+        dq_reverse=bool(causal),
+        q_lo=-off if causal else -_UNBOUNDED,
+        q_hi=w - 1 - off if window is not None else _UNBOUNDED,
+        k_lo=off - w + 1 if window is not None else -_UNBOUNDED,
+        k_hi=off if causal else _UNBOUNDED,
+        sq_pad=-(-sq // BWD_ROWS) * BWD_ROWS, window=w, q_offset=off)
+
+
+@functools.lru_cache(maxsize=64)
+def _blocks_on(plan: BwdPlan, device) -> torch.Tensor:
+    """`BwdPlan.blocks` on ``device``, copied there once a plan."""
+    return torch.from_numpy(plan.blocks()).to(device)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = None, softcap: float = None,
                         scale: float = None, q_offset=None):
@@ -352,9 +488,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     [B, H, S, D] as the forward takes them (any strides with a
     contiguous head_dim).
 
-    On a CUDA tensor (f32 or bf16, D one of `HEAD_DIMS`) it launches
-    ``csrc/flash_attention_bwd.cu`` (one call: the delta pass, the dk/dv
-    pass and the dq pass) or raises; a CPU tensor takes
+    On a CUDA tensor (D one of `HEAD_DIMS`) it launches, by dtype
+    (`bwd_kernel_route`), ``csrc/flash_attention_bwd_sm90.cu`` for bf16
+    or ``csrc/flash_attention_bwd.cu`` for f32 (one call: the delta pass,
+    the dk/dv pass and the dq pass), or raises; a bf16 q, k, v or do that
+    TMA cannot load raises ValueError.  A CPU tensor takes
     `flash_attention_bwd_plain`.
     """
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
@@ -363,6 +501,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     _check(q, k, v, causal, window, softcap, 1, 1)
     b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
                          f"{tuple(do.shape)} must have q's shape")
@@ -370,7 +509,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be a contiguous f32 "
                          f"[B, Hq, Sq] = {(b, hq, sq)} tensor")
-    if q.dtype not in BWD_DTYPES or o.dtype != q.dtype or do.dtype != q.dtype:
+    if q.dtype not in BWD_ROUTES or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: no kernel for q {q.dtype}, "
                          f"o {o.dtype}, do {do.dtype}")
     if any(t.device != q.device for t in (o, lse, do)) \
@@ -383,17 +522,43 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if any(t.stride(3) != 1 for t in (q, k, v, o, do)):
         raise ValueError("flash_attention_bwd: the head_dim axis of every "
                          "input must be contiguous")
+    route, entry = BWD_ROUTES[q.dtype]
+    sm90 = route == "flash_attention_bwd_sm90"
+    check = tma_strides if sm90 else _strides
+    dims = [b, hq, hkv, sq, skv, d]
+    for t in (q, k, v):
+        dims += check(t)
+    dims += _strides(o) + check(do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
-    dims = [b, hq, k.shape[1], sq, k.shape[2], d]
-    for t in (q, k, v, o, do, dq, dk, dv):
+    for t in (dq, dk, dv):
         dims += _strides(t)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    err = _call("flash_attention_bwd", "flash_attention_bwd", q.device,
-                *(_ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv, delta)),
-                (ctypes.c_longlong * len(dims))(*dims), BWD_DTYPES[q.dtype],
-                *_window_args(causal, window, softcap, scale),
-                k.shape[2] - sq if q_offset is None else int(q_offset))
+    if sm90:  # the plan carries the clamped window and the offset
+        plan = bwd_launch_plan(b, hq, hkv, sq, skv, causal=causal,
+                               window=window, q_offset=q_offset)
+        scratch = torch.empty(2, b * hq, plan.sq_pad, dtype=torch.float32,
+                              device=q.device)  # lse2, delta
+        blocks = _blocks_on(plan, q.device)
+        # the cached table outlives this call: not freed under a stream
+        # that may still read it
+        blocks.record_stream(torch.cuda.current_stream(q.device))
+        plan_args = plan.args()
+        args = [_ptr(blocks), (ctypes.c_longlong * len(dims))(*dims),
+                (ctypes.c_longlong * len(plan_args))(*plan_args), int(causal),
+                int(window is not None), int(softcap is not None),
+                float(softcap) if softcap is not None else 0.0, float(scale)]
+    else:  # delta
+        scratch = torch.empty(b, hq, sq, dtype=torch.float32,
+                              device=q.device)
+        args = [(ctypes.c_longlong * len(dims))(*dims)] + _window_args(
+            causal, window, softcap, scale) + [
+            skv - sq if q_offset is None else int(q_offset)]
+    err = _call(route, entry, q.device,
+                *(_ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv,
+                                    scratch)), *args)
+    if err == -2:
+        raise ValueError("flash_attention_bwd: cuTensorMapEncodeTiled "
+                         "refused the TMA tensor map of q, k, v or do")
     if err:
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed with "
                            f"CUDA error {err}")

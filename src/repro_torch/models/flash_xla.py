@@ -24,7 +24,8 @@ import torch
 
 from ..kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                        flash_attention_bwd_plain,
-                                       flash_attention_fwd_plain)
+                                       flash_attention_fwd_plain,
+                                       tma_loadable)
 
 
 def _heads_first(*ts):
@@ -50,8 +51,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        # autograd, not the caller, picks dO's layout: a head_dim that is
+        # not contiguous, or a bf16 view that TMA cannot load (a narrow
+        # slice from torch.cat's backward), is copied to a dense one
+        if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+                                  and not tma_loadable(do.transpose(1, 2))):
+            do = do.clone(memory_format=torch.contiguous_format)
         args = _heads_first(q, k, v) + [o, lse, do.transpose(1, 2)]
         if q.device.type == "cpu":
             grads = flash_attention_bwd_plain(*args, chunk=ctx.chunk,

@@ -174,3 +174,172 @@ def test_tma_strides_refuses(make, match):
     through to another route."""
     with pytest.raises(ValueError, match=match):
         tfa.tma_strides(make())
+
+
+@pytest.mark.parametrize("dtype,route", [
+    (torch.bfloat16, "flash_attention_bwd_sm90"),
+    (torch.float32, "flash_attention_bwd"),
+])
+def test_bwd_kernel_route_by_dtype(dtype, route):
+    """The backward routes as the forward does: bf16 to the wgmma kernel,
+    f32 to the CUDA-core kernel; both are libraries the build knows."""
+    from repro_torch.kernels import _build
+    assert tfa.bwd_kernel_route(dtype) == route
+    assert tfa.BWD_ROUTES[dtype][1] in _build.SIGNATURES[route]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_bwd_kernel_route_refuses_other_dtypes(dtype):
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.bwd_kernel_route(dtype)
+
+
+@pytest.mark.parametrize("loss", ["weighted", "sum"])
+def test_tma_strides_accept_backward_inputs(monkeypatch, loss):
+    """q, k, v and dO as `FlashAttention.backward` hands them to the
+    kernel ([B, S, H, D] viewed as [B, H, S, D]; a dO that autograd
+    expands with stride 0, from a plain sum, is made contiguous first)
+    pass TMA's checks with the strides of that view."""
+    from repro_torch.models import flash_xla
+    seen = []
+
+    def capture(*args, **kw):
+        seen.extend(args[:3] + args[5:6])
+        return tfa.flash_attention_bwd_plain(*args, **kw)
+    monkeypatch.setattr(flash_xla, "flash_attention_bwd_plain", capture)
+    b, s, d = 2, 37, 16
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(b, s, h, d, generator=g).to(torch.bfloat16)
+               .requires_grad_() for h in (4, 2, 2))
+    out = flash_xla.attend_flash(q, k, v, causal=True, window=None,
+                                 softcap=50.0)
+    if loss == "sum":
+        out.sum().backward()
+    else:
+        (out * torch.randn(out.shape, generator=g)).sum().backward()
+    assert len(seen) == 4
+    for t in seen:
+        h = t.shape[1]
+        assert tfa.tma_strides(t) == [s * h * d, d, h * d]
+
+
+@pytest.mark.parametrize("pad_first", [True, False])
+def test_backward_copies_a_do_that_tma_cannot_load(monkeypatch, pad_first):
+    """A bf16 dO that arrives as a view TMA refuses (a slice of
+    torch.cat's gradient along head_dim: at an odd offset, or with strides
+    that are not multiples of 16 bytes) reaches the kernel as a dense copy
+    with the same values."""
+    from repro_torch.models import flash_xla
+    seen = []
+
+    def capture(*args, **kw):
+        seen.append(args[5])
+        return tfa.flash_attention_bwd_plain(*args, **kw)
+    monkeypatch.setattr(flash_xla, "flash_attention_bwd_plain", capture)
+    b, s, h, d = 2, 37, 4, 16
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(b, s, h, d, generator=g).to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    out = flash_xla.attend_flash(q, k, v, causal=True, window=None,
+                                 softcap=50.0)
+    pad = torch.zeros(b, s, h, 3, dtype=out.dtype)
+    y = torch.cat([pad, out] if pad_first else [out, pad], dim=3)
+    w = torch.randn(y.shape, generator=g).to(torch.bfloat16)
+    grads = []
+    out.register_hook(grads.append)
+    (y * w).sum().backward()
+    view = grads[0].transpose(1, 2)
+    assert not tfa.tma_loadable(view)
+    assert len(seen) == 1
+    assert tfa.tma_strides(seen[0]) == [s * h * d, d, h * d]
+    assert torch.equal(seen[0], view)
+
+
+def _bwd_cases():
+    from test_torch_kernels_gpu import BWD_CASES
+    return BWD_CASES + [(1, 16, 8, 4096, 4096, 256, True, w, 50.0, None)
+                        for w in (None, 4096, 512)]
+
+
+def _cover(blocks, nrows, ncols, dkdv: bool):
+    """How many times each (row, key) of one head lies in a tile that the
+    head's ``blocks`` (start, first, tiles) visit, and their tile counts in
+    block order."""
+    count = np.zeros((nrows, ncols), np.int32)
+    step = tfa.BWD_QUERIES if dkdv else tfa.BWD_DQ_KEYS
+    for start, first, tiles in blocks:
+        for s0 in range(first, first + tiles * step, step):
+            if dkdv:  # query tiles of the keys at start
+                count[s0:s0 + tfa.BWD_QUERIES, start:start + tfa.BWD_KEYS] += 1
+            else:     # kv tiles of the rows at start
+                count[start:start + tfa.BWD_ROWS, s0:s0 + tfa.BWD_DQ_KEYS] += 1
+    return count, [tiles for _, _, tiles in blocks]
+
+
+@pytest.mark.parametrize("case", _bwd_cases(), ids=str)
+def test_bwd_launch_plan_covers_each_visible_pair_once(case):
+    """The block table that the kernels read: every visible (query, key)
+    pair lies in exactly one (dk/dv block, query tile) and exactly one (dq
+    block, kv tile) that it visits; every (tile, head) has one block, the
+    head fastest; blocks run heaviest first."""
+    b, hq, hkv, sq, skv, _, causal, window, _, off = case
+    plan = tfa.bwd_launch_plan(b, hq, hkv, sq, skv, causal=causal,
+                               window=window, q_offset=off)
+    mask = tref.attention_mask(sq, skv, causal=causal, window=window,
+                               device="cpu", q_offset=off).numpy()
+    assert len(plan.args()) == 5 and plan.sq_pad % tfa.BWD_ROWS == 0
+    assert plan.sq_pad >= sq
+    table = plan.blocks()
+    assert table.dtype == np.int32
+    assert table.shape == (plan.dkdv_blocks + plan.dq_blocks, 4)
+    for rows, heads, dkdv in ((table[:plan.dkdv_blocks], b * hkv, True),
+                              (table[plan.dkdv_blocks:], b * hq, False)):
+        assert (rows[:, 0] == np.arange(len(rows)) % heads).all()
+        by_head = {}
+        for head, start, first, tiles in rows.tolist():
+            by_head.setdefault(head, []).append((start, first, tiles))
+        assert sorted(by_head) == list(range(heads))
+        # a head's blocks take each tile once, the same tiles as head 0
+        assert all(v == by_head[0] for v in by_head.values())
+        count, order = _cover(by_head[0], sq, skv, dkdv)
+        assert (count[mask] == 1).all()
+        assert count.max(initial=0) <= 1
+        if causal:
+            assert order == sorted(order, reverse=True)
+        starts = sorted(start for start, _, _ in by_head[0])
+        step = tfa.BWD_KEYS if dkdv else tfa.BWD_ROWS
+        assert starts == list(range(0, skv if dkdv else sq, step))
+
+
+def test_bwd_launch_plan_clamps_the_window():
+    """A window past the range of qpos - kpos masks as that bound: the plan
+    passes the same clamped window as the forward kernel computes."""
+    far = tfa.bwd_launch_plan(1, 2, 1, 40, 64, causal=True, window=10 ** 12,
+                              q_offset=24)
+    assert far.window == 24 + 40
+    none = tfa.bwd_launch_plan(1, 2, 1, 40, 64, causal=True, window=-10 ** 12,
+                               q_offset=24)
+    assert none.window == 24 - 64
+    assert (none.blocks()[:, 2:] == 0).all()
+
+
+def test_library_digest_covers_included_headers(monkeypatch, tmp_path):
+    """An edited csrc header gives the libraries that include it a new
+    path, so they build anew; a library without it keeps its path."""
+    import shutil
+    from repro_torch.kernels import _build
+    for p in _build.CSRC.iterdir():
+        shutil.copy(p, tmp_path / p.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources("flash_attention_bwd_sm90")] == [
+        "flash_attention_bwd_sm90.cu", "sm90_common.cuh"]
+    names = ("flash_attention_sm90", "flash_attention_bwd_sm90",
+             "flash_attention_bwd")
+    before = {n: _build.library_path(n) for n in names}
+    with open(tmp_path / "sm90_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert after["flash_attention_sm90"] != before["flash_attention_sm90"]
+    assert after["flash_attention_bwd_sm90"] != \
+        before["flash_attention_bwd_sm90"]
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"]

@@ -414,7 +414,9 @@ def test_flash_attention_refused_launch_raises(cuda):
 # the backward's cases: the reference's gradient test (`tests/test_models.py::
 # test_flash_xla_grads_match_reference`), causal on and off, window,
 # softcap, GQA groups 1, 2 and 4, right-aligned and shifted queries, rows
-# with no key (q_offset < 0; window 0), every head_dim, gemma2's heads
+# with no key (q_offset < 0; window 0), every head_dim, gemma2's heads; a
+# GQA group of 8; and gemma2's heads at 1,000 tokens with a window of 512,
+# which turns the bf16 kernel's rings many times over full and edge tiles
 BWD_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset
     (2, 4, 2, 64, 64, 16, True, 16, 25.0, 0),
     (1, 2, 2, 48, 48, 32, False, None, None, 0),
@@ -425,6 +427,14 @@ BWD_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset
     (1, 2, 1, 16, 16, 16, True, 0, None, 0),
     (1, 4, 2, 100, 100, 256, False, None, 50.0, 0),
     (1, 16, 8, 200, 200, 256, True, 64, 50.0, 0),
+    (1, 8, 1, 70, 70, 64, True, None, None, 0),
+    (1, 16, 8, 1000, 1000, 256, True, 512, 50.0, 0),
+    # softcaps that the logits reach (s ~ N(0, 1)): at 25 or 50, |s / cap|
+    # stays under 0.2 and the capped rule is within 1e-3 of the uncapped
+    (2, 4, 2, 64, 64, 16, True, 16, 2.0, 0),
+    (2, 4, 2, 100, 100, 128, False, None, 1.0, 0),
+    (1, 8, 1, 70, 70, 64, True, None, 3.0, 0),
+    (1, 16, 8, 200, 200, 256, True, 64, 2.0, 0),
 ]
 
 
@@ -440,23 +450,99 @@ def _bwd_inputs(cuda, case, dtype):
     return (q, k, v, o, lse.float(), do), kw
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (BF16, 2e-2)])
-@pytest.mark.parametrize("case", BWD_CASES, ids=str)
-def test_flash_attention_bwd_matches_plain(cuda, case, dtype, tol):
-    """dq, dk, dv of the backward kernel against `_bwd_rule`'s port on
-    the card, each within ``tol`` of its largest |x|: f32 1e-4, bf16
-    2e-2 (bf16 outputs)."""
+def _routes_called(monkeypatch):
+    """The libraries that the attention wrappers call from now on."""
     from repro_torch.kernels import flash_attention as tfa
-    args, kw = _bwd_inputs(cuda, case, dtype)
-    before = tfa.flash_attention_bwd.launches
-    got = tfa.flash_attention_bwd(*args, **kw)
-    torch.cuda.synchronize()
-    assert tfa.flash_attention_bwd.launches == before + 1
-    want = tfa.flash_attention_bwd_plain(*args, **kw)
+    called, call = [], tfa._call
+
+    def record(route, *args):
+        called.append(route)
+        return call(route, *args)
+    monkeypatch.setattr(tfa, "_call", record)
+    return called
+
+
+def _bwd_close(got, want, dtype, tol):
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         scale = max(float(w.float().abs().max()), 1e-30)
         assert float((g.float() - w.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype,tol,route", [
+    (torch.float32, 1e-4, "flash_attention_bwd"),
+    (BF16, 2e-2, "flash_attention_bwd_sm90")])
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_flash_attention_bwd_matches_plain(cuda, monkeypatch, case, dtype,
+                                           tol, route):
+    """dq, dk, dv of the backward kernel against `_bwd_rule`'s port on
+    the card, each within ``tol`` of its largest |x|: f32 1e-4 (the
+    CUDA-core kernel), bf16 2e-2 (the wgmma kernel; bf16 p, ds and
+    outputs)."""
+    from repro_torch.kernels import flash_attention as tfa
+    args, kw = _bwd_inputs(cuda, case, dtype)
+    called = _routes_called(monkeypatch)
+    before = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == before + 1
+    assert called == [route] == [tfa.bwd_kernel_route(dtype)]
+    _bwd_close(got, tfa.flash_attention_bwd_plain(*args, **kw), dtype, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (BF16, 2e-2)])
+def test_flash_attention_bwd_strided_views(cuda, dtype, tol):
+    """[B, S, H, D] activations and dO viewed as [B, H, S, D], as
+    `FlashAttention.backward` hands them over; each gradient takes its
+    input's layout."""
+    from repro_torch.kernels import flash_attention as tfa
+    args, kw = _bwd_inputs(cuda, (2, 8, 4, 100, 100, 128, True, 48, 50.0,
+                                  0), dtype)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             if t.dim() == 4 else t for t in args]
+    assert not views[0].is_contiguous()
+    before = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(*views, **kw)
+    assert tfa.flash_attention_bwd.launches == before + 1
+    for g, t in zip(got, views):
+        assert g.stride() == t.stride()
+    _bwd_close(got, tfa.flash_attention_bwd_plain(*args, **kw), dtype, tol)
+
+
+@pytest.mark.parametrize("width,cut,match", [
+    (80, slice(1, 65), "aligned"),       # data_ptr 2 bytes off 16
+    (68, slice(0, 64), "multiples"),     # seq stride 136 bytes
+])
+@pytest.mark.parametrize("which", range(4))  # q, k, v, do
+def test_flash_attention_bwd_bf16_misaligned_raises(cuda, width, cut, match,
+                                                    which):
+    """A bf16 q, k, v or dO that TMA cannot load raises ValueError and
+    launches nothing: no fallback to the f32 kernel or the plain
+    version."""
+    from repro_torch.kernels import flash_attention as tfa
+    args, kw = _bwd_inputs(cuda, (1, 2, 2, 8, 8, 64, True, None, None, 0),
+                           BF16)
+    at = (0, 1, 2, 5)[which]
+    wide = torch.zeros(*args[at].shape[:3], width, dtype=BF16, device=cuda)
+    wide[..., cut] = args[at]
+    args = list(args)
+    args[at] = wide[..., cut]
+    before = tfa.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match=match):
+        tfa.flash_attention_bwd(*args, **kw)
+    assert tfa.flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_flash_attention_bwd_is_deterministic(cuda, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    from repro_torch.kernels import flash_attention as tfa
+    args, kw = _bwd_inputs(cuda, (1, 16, 8, 300, 300, 256, True, 128, 50.0,
+                                  0), dtype)
+    first = tfa.flash_attention_bwd(*args, **kw)
+    second = tfa.flash_attention_bwd(*args, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (BF16, 1e-3)])
