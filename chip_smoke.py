@@ -112,7 +112,7 @@ Phases, each printing one JSON line:
              in-memory card maintainer, 2^20-row sort budgets), run by a
              worker process of this script beside 7c and 7e-7g: blocks
              and edges a level, the materialize wall and `IOStats`, the
-             engine's device bytes; every answer of 64 path queries and
+             engine's device bytes; every answer of 32 path queries and
              64 point lookups against `eval_ref` and 16 against
              `eval_brute`; then 1,000 and 100,000 inserts absorbed by
              the service (patch ms, levels touched, ``sig_fold`` and
@@ -125,13 +125,35 @@ Phases, each printing one JSON line:
 7i. stream — ``serve-updates`` with the launcher's defaults on the
              parity graph (200 ops, batches of 32, k=10, ``--oocore
              --wal``) in two worker processes of this script, started
-             with 7h's before 7c: the card's ``--kill-at-op 120`` crash
+             after phase 2 (beside 3-7b and then 7c-7h): the card's
+             ``--kill-at-op 120`` crash
              drill, whose uninterrupted run is the stream straight
              through (updates/s, batches, snapshots, staleness against
              its bound, epoch, ``chunk_sig_fold`` and
              ``frontier_sig_fold`` launches) and whose recovered history
              is bit-identical, and the CPU; both card histories equal
              the CPU's;
+7j. sharded_train_parity — eight gloo ranks sharing the card
+             (``--worker sharded`` processes with torchrun's variables,
+             started with 7h's workers): gemma2's smoke config in f32
+             (weight matrices at std 1/sqrt(d_in)) takes one step of
+             `train.make_train_step` over a 4x2 ``(data, model)``
+             `DeviceMesh`; the gradients AdamW gets, each leaf's within
+             1e-4 of its max |g| of the one-rank step's on the card, the
+             grad norm within 1e-4 (relative), the loss and every leaf
+             within 1e-4; each rank's launches of both f32 attention
+             kernels (on its local heads, the one-rank counts), the
+             shards the kernels got, and every gradient in its weight's
+             placements; then the same step over a 2x4 mesh (2 kv heads
+             over a 4-way model axis: one kv head a rank, dk/dv a Partial
+             sum), its gradients, grad norm and loss held the same way;
+7k. dryrun — `launch.dryrun` in a worker process (host work, fake
+             tensors over a fake group of 256 ranks): gemma2-9b x
+             ``train_4k`` and x ``decode_32k`` and the paper's bisim
+             iteration (``sorted``, both rankings) on the single-pod
+             mesh; per cell ``DRY-RUN PASS``, per-rank peak bytes, the
+             H100 roofline's three terms, the dominant one and the trace
+             seconds;
 8. attention — ``flash_attention`` against its plain PyTorch version on
              the card (2e-5 in f32, 2e-2 in bf16) on the JAX package's
              attention test cases, odd lengths, and the bf16 (wgmma)
@@ -190,9 +212,15 @@ Phases, each printing one JSON line:
              must equal the remat's count): loss, step ms, tokens/s and
              grad_norm a step, peak memory and its share of the card; then
              one more step under `torch.profiler` (device time by kernel,
-             the device's idle share).
+             the device's idle share), and one counted by
+             `launch.hlo_stats` (FLOPs, bytes, peak live bytes) beside
+             `model_flops`' 6·N·T, their ratio and the share of the
+             H100's bf16 peak that the measured median step reaches.
 
-Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+Then the wrappers' host time a call through their custom ops, the
+ops' own share of it (``op_dispatch``: host µs a call through the op
+against the same kernel call made directly, on small inputs), one
+``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Any failure raises and exits non-zero.  It needs one card and imports
 nothing of JAX or of the JAX package.
 """
@@ -1590,7 +1618,7 @@ QPARITY = dict(k=10, levels=(1, 5, 10), seed=0, batch=64, points=8,
                ops=(("add-edges", 1000), ("delete-node", 1), ("compact", 0),
                     ("change-k", 6)))
 QUOTIENT = dict(k=4, mode="sorted", batch=64, budget_rows=1 << 20,
-                path_queries=64, point_lookups=64, brute_sample=16,
+                path_queries=32, point_lookups=64, brute_sample=16,
                 seed=0, ops=(("add-edges", 1000), ("add-edges", 100_000)))
 QUOTIENT_WORKDIR = ROOT / "build" / "quotient-smoke"  # removed at exit
 # the streaming service: the launcher's serve-updates defaults on the
@@ -1906,7 +1934,7 @@ def phase_quotient(g, quiet=None) -> dict:
     """The quotient engine at full size: an in-memory maintainer on the
     card at k=4 (``sorted``), `QuotientService` materializing with
     2^20-row sort budgets (blocks and edges a level, the wall, its
-    `IOStats`, the engine's device bytes), 64 path queries (16 a hop
+    `IOStats`, the engine's device bytes), 32 path queries (8 a hop
     count, so one wave each of 64 fixed slots) and 64 point lookups,
     every answer equal to `eval_ref`'s and a seeded 16 of them to
     `eval_brute`'s on the original graph; then 1,000 and 100,000 inserts
@@ -2111,7 +2139,8 @@ def run_worker(argv: list) -> int:
     WORKDIR KILL_AT OUT``
     one `stream_worker` run; ``dist_parity OUT_DIR`` one rank of
     `dist_parity_worker`; ``dist_launch OUT_DIR ARGV...`` one rank of
-    `dist_launch_worker`."""
+    `dist_launch_worker`; ``sharded OUT_DIR`` one rank of
+    `sharded_train_worker`; ``dryrun OUT_DIR`` `dryrun_worker`."""
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     torch.set_num_threads(2)  # the workers share the host's cores
@@ -2119,6 +2148,10 @@ def run_worker(argv: list) -> int:
         return dist_parity_worker(argv[1])
     if argv[0] == "dist_launch":
         return dist_launch_worker(argv[1], argv[2:])
+    if argv[0] == "sharded":
+        return sharded_train_worker(argv[1])
+    if argv[0] == "dryrun":
+        return dryrun_worker(argv[1])
     if argv[0] == "parity":
         phase_ooc_maintenance_parity()
         phase_quotient_parity()
@@ -2133,29 +2166,37 @@ def run_worker(argv: list) -> int:
     return stream_worker(device, workdir, int(kill_at), out_path)
 
 
-def start_workers() -> dict:
-    """Start the host-bound runs as worker processes of this script, each
-    with its log under `WORKER_DIR`: the out-of-core maintenance and
-    quotient parity phases, the full graph's quotient phase, the stream
-    phase's card crash drill (``--kill-at-op``; its uninterrupted run is
-    the stream straight through) and its CPU run."""
+def start_workers(names) -> dict:
+    """Start the host-bound runs ``names`` as worker processes of this
+    script, each with its log under `WORKER_DIR`: ``parity`` (the
+    out-of-core maintenance and quotient parity phases), ``quotient``
+    (the full graph's quotient phase), ``drill`` and ``cpu`` (the stream
+    phase's card crash drill, ``--kill-at-op``, whose uninterrupted run is
+    the stream straight through, and its CPU run) and ``dryrun`` (the
+    dry-run's cells, host work only, at a lower priority: it has slack)."""
     for d in (WORKER_DIR, STREAM_WORKDIR):
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-    runs = {"parity": ["parity"], "quotient": ["quotient"]}
+        d.mkdir(parents=True, exist_ok=True)
+    runs = {"parity": ["parity"], "quotient": ["quotient"],
+            "dryrun": ["dryrun", str(DRYRUN_DIR)]}
     for name, device, kill_at in (("drill", DEVICE, STREAM["kill_at"]),
                                   ("cpu", "cpu", 0)):
         runs[name] = ["stream", device, str(STREAM_WORKDIR / name),
                       str(kill_at), str(WORKER_DIR / f"{name}.npz")]
     procs = {}
-    for name, argv in runs.items():
+    for name in names:
         log = open(WORKER_DIR / f"{name}.log", "w")
         procs[name] = (subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
-             *argv], stdin=subprocess.PIPE, stdout=log,
-            stderr=subprocess.STDOUT, cwd=str(ROOT)),
+             *runs[name]], stdin=subprocess.PIPE, stdout=log,
+            stderr=subprocess.STDOUT, cwd=str(ROOT),
+            preexec_fn=_lower_priority if name == "dryrun" else None),
             log, time.perf_counter())
     return procs
+
+
+def _lower_priority() -> None:
+    import os
+    os.nice(10)
 
 
 def stop_workers(procs: dict) -> None:
@@ -3480,6 +3521,8 @@ def phase_train() -> dict:
     by = lambda key: sum(  # noqa: E731
         getattr(ev, "self_device_time_total", 0) for ev in
         prof.key_averages() if key in ev.key) / 1e3
+    counted = _counted_step(trainer, step_fn, cfg, float(np.median(
+        [x["step_ms"] for x in steps[1:-1]])) / 1e3)
     out = {"phase": "train", "arch": cfg.name, "source": "arXiv:2408.00118",
            "layers": cfg.num_layers, "reduced": "depth 42 -> 20 layers "
            "(the card: 12 bytes a parameter)", "params": trainer.model
@@ -3499,8 +3542,16 @@ def phase_train() -> dict:
            "profile": {**top, "idle_share": 1 - top["busy_share"],
                        "flash_fwd_device_ms": by("flash_fwd"),
                        "flash_bwd_device_ms": by("bwd_"),
-                       "host_cpu": _host_cpu()}}
+                       "host_cpu": _host_cpu()},
+           "counted_step": counted}
     emit(out)
+    print(f"train: one step counted by launch.hlo_stats: "
+          f"{counted['counted_flops']:.4e} FLOPs, model FLOPs 6*N*T "
+          f"{counted['model_flops']:.4e}, useful_flops_ratio "
+          f"{counted['useful_flops_ratio']:.4f}; the median step "
+          f"{counted['median_step_s'] * 1e3:.1f} ms reaches "
+          f"{counted['roofline_fraction']:.4f} of the H100's bf16 peak",
+          flush=True)
     if launches != expect:
         raise SystemExit(f"train: flash_attention launches {launches}, "
                          f"the remat gives {expect}")
@@ -3513,6 +3564,507 @@ def phase_train() -> dict:
     del trainer
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------ the mesh
+# the sharded step: gemma2's smoke config in f32 over a 4x2 (data, model)
+# mesh of 8 gloo ranks sharing the card, against the one-rank step
+SHARDED = dict(ranks=8, mesh=(4, 2), batch=8, seq=32, seed=0, tol=1e-4)
+SHARDED_DIR = ROOT / "build" / "sharded-smoke"  # rank logs; removed at exit
+# the dry-run's cells on the single-pod mesh (host work: a worker process
+# beside the card phases), their JSON under DRYRUN_DIR (removed at exit)
+DRYRUN_CELLS = (("--arch", "gemma2_9b", "--shape", "train_4k"),
+                ("--arch", "gemma2_9b", "--shape", "decode_32k"),
+                ("--arch", "bisim", "--bisim-mode", "sorted",
+                 "--bisim-ranking", "allgather"),
+                ("--arch", "bisim", "--bisim-mode", "sorted",
+                 "--bisim-ranking", "bucketed"))
+DRYRUN_DIR = ROOT / "build" / "dryrun-smoke"
+# the wrappers' host time a call before they became ops (an H100 80GB
+# HBM3 at 700 W; PERF.md's kernel table)
+HOST_US_BEFORE_OPS = {"sig_fold": 37, "frontier_sig_fold": 25,
+                "flash_attention": 86, "flash_attention_bwd": 190}
+
+
+def dispatch_us() -> dict:
+    """The op's share of each wrapper's host time: host µs a call (200
+    calls, the best of five rounds, the three forms alternated) through
+    the ``repro_torch`` op (``op_us``), through a
+    `torch.library.custom_op` of the same schema around the same function
+    (``custom_op_us``: the form the ops had before, defined here for the
+    comparison), and with the kernel call made directly (``direct_us``:
+    the function the op's CUDA kernel runs), on small inputs so that the
+    host sets the pace.  Launch counts are put back afterwards."""
+    import torch
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import sig_fold as tsf
+    counts = (tsf.sig_fold.launches, tfa.flash_attention.launches,
+              tfa.flash_attention_bwd.launches)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    n, nb = 4096, 256
+    lanes = [torch.randint(0, 50, (n,), generator=g, device=DEVICE,
+                           dtype=torch.int32) for _ in range(2)]
+    lanes += [torch.sort(torch.randint(0, nb, (n,), generator=g,
+                                       device=DEVICE,
+                                       dtype=torch.int32)).values,
+              torch.ones(n, dtype=torch.bool, device=DEVICE)]
+    q = torch.randn(1, 4, 128, 64, generator=g, device=DEVICE,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(1, 2, 128, 64, generator=g, device=DEVICE,
+                        dtype=torch.bfloat16) for _ in range(2))
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True)
+    do = torch.randn_like(o)
+    fwd_kw = dict(causal=True, window=None, softcap=None, scale=None,
+                  block_q=128, block_k=128, q_offset=None, return_lse=True)
+    bwd_kw = dict(causal=True, window=None, softcap=None, scale=None,
+                  q_offset=None)
+    pairs = {
+        "sig_fold": (
+            lambda: torch.ops.repro_torch.sig_fold(*lanes, nb, n, True,
+                                                   True),
+            lambda: tsf._fold_on_card(*lanes, nb, n, True, True)),
+        "flash_attention": (
+            lambda: torch.ops.repro_torch.flash_attention(
+                q, k, v, *fwd_kw.values()),
+            lambda: tfa._fwd_on_card(q, k, v, **fwd_kw)),
+        "flash_attention_bwd": (
+            lambda: torch.ops.repro_torch.flash_attention_bwd(
+                q, k, v, o, lse, do, *bwd_kw.values()),
+            lambda: tfa._bwd_on_card(q, k, v, o, lse, do, **bwd_kw))}
+    direct_fns = {"sig_fold": tsf._fold_on_card,
+                  "flash_attention": tfa._fwd_on_card,
+                  "flash_attention_bwd": tfa._bwd_on_card}
+    out = {}
+    for name, (op, direct) in pairs.items():
+        schema = str(getattr(torch.ops.repro_torch, name).default._schema)
+        custom = torch.library.custom_op(
+            f"chip_smoke::{name}", direct_fns[name], mutates_args=(),
+            schema=schema[schema.index("("):])
+        args = {"sig_fold": (*lanes, nb, n, True, True),
+                "flash_attention": (q, k, v, *fwd_kw.values()),
+                "flash_attention_bwd": (q, k, v, o, lse, do,
+                                        *bwd_kw.values())}[name]
+        forms = {"op_us": op, "custom_op_us": lambda: custom(*args),
+                 "direct_us": direct}
+        rounds = [{key: host_us(fn, 200) for key, fn in forms.items()}
+                  for _ in range(5)]
+        out[name] = {key: min(r[key] for r in rounds) for key in forms}
+    (tsf.sig_fold.launches, tfa.flash_attention.launches,
+     tfa.flash_attention_bwd.launches) = counts
+    return out
+
+
+def _flat_tree(tree, prefix="") -> dict:
+    out = {}
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            out.update(_flat_tree(tree[key], f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = tree[key]
+    return out
+
+
+def _placement_names(placements) -> list:
+    from torch.distributed.tensor import Replicate, Shard
+    return [f"S{p.dim}" if isinstance(p, Shard) else
+            "R" if isinstance(p, Replicate) else "P" for p in placements]
+
+
+_REDUCE_OPS = {"sum": "SUM", "avg": "AVG", "max": "MAX", "min": "MIN",
+               "product": "PRODUCT"}
+
+
+def staged_collectives(mesh, devices=("cuda",)):
+    """A context in which DTensor's functional collectives
+    (``_c10d_functional``) on ``mesh``'s gloo groups run as the c10d
+    collectives, which complete before they return; a null context when
+    the default group is not gloo or the mesh lives off ``devices``.
+
+    Why: gloo takes CUDA tensors in the c10d collectives (it stages them
+    through host memory itself), but torch 2.11's gloo crashes (SIGSEGV)
+    in ``wait_tensor`` on the functional ops' CUDA work, and NCCL refuses
+    two ranks on one card.  So the harness's 8 ranks sharing one card
+    enter this around the step; a deployment (NCCL, a card a rank) does
+    not.  The tensors stay where they are; nothing else changes."""
+    import contextlib
+    import torch
+    import torch.distributed as dist
+    if (mesh is None or mesh.device_type not in devices
+            or not dist.is_initialized() or dist.get_backend() != "gloo"):
+        return contextlib.nullcontext()
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def reduce_op(name):
+        return getattr(dist.ReduceOp, _REDUCE_OPS[name])
+
+    class StagedCollectives(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func.namespace != "_c10d_functional" or not (
+                    isinstance(args[0], torch.Tensor)
+                    and args[0].device.type in devices):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented  # its local ops come back here
+                return func(*args, **kwargs)
+            name = func._opname
+            if name == "wait_tensor":
+                return args[0]  # the collective has completed
+            names = [a.name for a in func._schema.arguments]
+            if "group_name" not in names:  # not a collective
+                return func(*args, **kwargs)
+            args = list(args) + [kwargs[n] for n in names[len(args):]
+                                 if n in kwargs]
+            pg = _resolve_process_group(args[names.index("group_name")])
+            if dist.get_backend(pg) != "gloo":
+                return func(*args, **kwargs)
+            x = args[0].contiguous()
+            if name == "all_gather_into_tensor":
+                out = x.new_empty((args[1] * x.shape[0], *x.shape[1:]))
+                dist.all_gather_into_tensor(out, x, group=pg)
+            elif name == "reduce_scatter_tensor":
+                out = x.new_empty((x.shape[0] // args[2], *x.shape[1:]))
+                dist.reduce_scatter_tensor(out, x, op=reduce_op(args[1]),
+                                           group=pg)
+            elif name == "all_reduce":
+                out = x.clone()
+                dist.all_reduce(out, op=reduce_op(args[1]), group=pg)
+            elif name == "all_to_all_single":
+                out_sizes, in_sizes = list(args[1]), list(args[2])
+                out = x.new_empty((sum(out_sizes) if out_sizes
+                                   else x.shape[0], *x.shape[1:]))
+                dist.all_to_all_single(out, x, out_sizes or None,
+                                       in_sizes or None, group=pg)
+            elif name == "broadcast":
+                out = x.clone()
+                dist.broadcast(out, dist.get_global_rank(pg, args[1]),
+                               group=pg)
+            else:
+                raise NotImplementedError(
+                    f"{func}: no staged form on a gloo group")
+            return out
+
+    return StagedCollectives()
+
+
+def sharded_train_worker(out_dir: str) -> int:
+    """One rank of ``sharded_train_parity`` (torchrun's variables in its
+    environment; gloo, the card shared): rank 0 first takes the one-rank
+    step on the card; then every rank takes the sharded step over the 4x2
+    mesh with the attention kernels' counts set to 0 just before and read
+    just after, recording the heads the kernels get, the gradients AdamW
+    gets and their placements beside their weights'; then the same step
+    over a 2x4 mesh (2 kv heads over a 4-way model axis: one kv head a
+    rank, dk/dv a Partial sum).  Rank 0 compares every gradient (to its
+    leaf's max |g|), the grad norm, the loss and every leaf with the
+    one-rank step's.  Both sharded steps run inside `staged_collectives`.
+    Writes ``rank{r}.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.cluster import init_cluster
+    from repro_torch.models import Model, flash_xla
+    from repro_torch.models.lm import remat_forwards
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.train import trainer as trainer_mod
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    rank, world = init_cluster(device=DEVICE, backend="gloo")
+    cfg = get_smoke_config("gemma2_9b")
+    init = Model(cfg).init(SHARDED["seed"], torch.float32, DEVICE).params
+    _trained_scale(init)
+    rng = np.random.default_rng(SHARDED["seed"])
+    shape = (SHARDED["batch"], SHARDED["seq"])
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+             .to(DEVICE) for k in ("tokens", "labels")}
+    opt = OptConfig()
+    rules = meshlib.DEFAULT_RULES
+    info = {"rank": rank, "world": world}
+    apply, pin = flash_xla.FlashAttention.apply, trainer_mod.pin
+
+    def step_once(mesh, heads: set):
+        """One step from ``init`` (over ``mesh`` if given): (new leaves,
+        metrics, the gradients AdamW got, their placements beside the
+        weights'), leaves and gradients gathered whole on every rank."""
+        model = Model(cfg)
+        params = tree_map(lambda t: t.detach().clone(), init)
+        grads, placed = [], []
+
+        def seen_apply(q, k, v, *rest):
+            heads.add((q.shape[2], k.shape[2], type(q).__name__,
+                       q.device.type, str(q.dtype)))
+            return apply(q, k, v, *rest)
+
+        def seen_pin(grad, weight):
+            out = pin(grad, weight)
+            grads.append(out)
+            if mesh is not None:
+                placed.append((_placement_names(out.placements),
+                               _placement_names(weight.placements)))
+            return out
+        if mesh is None:
+            model.load(params, trainable=True)
+            batch_in = batch
+        else:
+            with torch.no_grad():
+                model.load(meshlib.distribute_tree(
+                    params, model.param_axes(), mesh, rules),
+                    trainable=True)
+            batch_in = {k: meshlib.distribute(v, mesh, meshlib.sharding_for(
+                ("act_batch", "act_seq"), v.shape, mesh, rules))
+                for k, v in batch.items()}
+        flash_xla.FlashAttention.apply = seen_apply
+        trainer_mod.pin = seen_pin
+        try:
+            with staged_collectives(mesh):
+                new, _, met = trainer_mod.make_train_step(
+                    model, opt, mesh, rules)(
+                    model.params, init_opt_state(model.params), batch_in)
+                torch.cuda.synchronize()
+                flash_xla.FlashAttention.apply = apply
+                trainer_mod.pin = pin
+                whole = (lambda t: t.detach().full_tensor()) if mesh \
+                    else (lambda t: t.detach())
+                leaves = {path: whole(t)
+                          for path, t in _flat_tree(new).items()}
+                grads = dict(zip(leaves, (whole(g) for g in grads)))
+        finally:
+            flash_xla.FlashAttention.apply, trainer_mod.pin = apply, pin
+        return new, met, leaves, grads, placed
+
+    if rank == 0:
+        _, m1, p1, g1, _ = step_once(None, set())
+        info["one_rank_loss"] = float(m1["loss"])
+        info["one_rank_grad_norm"] = float(m1["grad_norm"])
+    mesh = meshlib.make_mesh(SHARDED["mesh"], ("data", "model"),
+                             device_type=DEVICE)
+    heads = set()
+    torch.cuda.synchronize()
+    tfa.flash_attention.launches = tfa.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    params, met, leaves, grads, placed = step_once(mesh, heads)
+    info.update(
+        seconds=time.perf_counter() - t0, loss=float(met["loss"]),
+        grad_norm=float(met["grad_norm"]),
+        launches={"fwd": tfa.flash_attention.launches,
+                  "bwd": tfa.flash_attention_bwd.launches},
+        launches_expected={"fwd": remat_forwards(cfg),
+                           "bwd": cfg.num_layers},
+        kernel_inputs=sorted(heads),
+        grads_in_weight_placements=all(g == w for g, w in placed),
+        leaves=len(placed),
+        placements={path: _placement_names(t.placements) for path, t in
+                    _flat_tree(params).items() if path in (
+                        "embed", "groups/0/attn/wq/w", "groups/0/mlp/down/w",
+                        "final_norm")})
+    # the GQA case of the production mesh: a model axis wider than the kv
+    # heads (launches of this step are not the phase's count)
+    gqa_mesh = meshlib.make_mesh(SHARDED["mesh"][::-1], ("data", "model"),
+                                 device_type=DEVICE)
+    gqa_heads = set()
+    _, met24, leaves24, grads24, placed24 = step_once(gqa_mesh, gqa_heads)
+    info.update(gqa_loss=float(met24["loss"]),
+                gqa_grad_norm=float(met24["grad_norm"]),
+                gqa_kernel_inputs=sorted(gqa_heads),
+                gqa_grads_in_weight_placements=all(
+                    g == w for g, w in placed24))
+    if rank == 0:
+        def worst(got, want, rel):
+            errs = {path: float((got[path] - want[path]).abs().max()
+                                / (want[path].abs().max() if rel else 1))
+                    for path in want}
+            path = max(errs, key=errs.get)
+            return errs[path], path
+        info["max_abs_err"], info["worst_leaf"] = worst(leaves, p1, False)
+        info["grad_err_of_max"], info["worst_grad"] = worst(grads, g1, True)
+        info["gqa_grad_err_of_max"], info["gqa_worst_grad"] = worst(
+            grads24, g1, True)
+    dist.destroy_process_group()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(info))
+    return 0
+
+
+def start_sharded() -> tuple:
+    """Start the 8 ranks of ``sharded_train_parity`` (``--worker sharded
+    DIR`` processes with torchrun's variables), each logging under
+    `SHARDED_DIR`."""
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    SHARDED_DIR.mkdir(parents=True)
+    port, world = _free_port(), SHARDED["ranks"]
+    logs = [SHARDED_DIR / f"rank{r}.log" for r in range(world)]
+    procs = []
+    for r, path in enumerate(logs):
+        with open(path, "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+                 "sharded", str(SHARDED_DIR)], stdout=log,
+                stderr=subprocess.STDOUT, cwd=str(ROOT),
+                env={**_rank_env(r, world, port),
+                     "PYTHONFAULTHANDLER": "1"},
+                preexec_fn=_lower_priority))  # it has slack
+    return procs, logs
+
+
+def phase_sharded_train_parity(procs: list, logs: list) -> dict:
+    """Wait for the 8 ranks; one line: the sharded step's gradients (each
+    leaf's within 1e-4 of its max |g|), grad norm, loss and every leaf
+    within 1e-4 of the one-rank step on the card, and the 2x4 step's
+    gradients, grad norm and loss; each rank's launches of both f32
+    attention kernels in the 4x2 step (the one-rank step's counts: each
+    rank launches once a layer on its local heads), the shards the
+    kernels got, and the gradients' placements against the weights'."""
+    _run_ranks("sharded_train_parity", procs, logs, timeout=900)
+    ranks = [json.loads((SHARDED_DIR / f"rank{r}.json").read_text())
+             for r in range(SHARDED["ranks"])]
+    head = ranks[0]
+    out = {"phase": "sharded_train_parity", "config": "gemma2_9b smoke, "
+           "f32, weight matrices at std 1/sqrt(d_in)",
+           "mesh": {"data": SHARDED["mesh"][0], "model": SHARDED["mesh"][1]},
+           "backend": "gloo", "batch": SHARDED["batch"],
+           "seq": SHARDED["seq"], "loss": head["loss"],
+           "one_rank_loss": head["one_rank_loss"],
+           "max_abs_err": head["max_abs_err"],
+           "worst_leaf": head["worst_leaf"],
+           "grad_norm": head["grad_norm"],
+           "one_rank_grad_norm": head["one_rank_grad_norm"],
+           "grad_err_of_max": head["grad_err_of_max"],
+           "worst_grad": head["worst_grad"],
+           "gqa_mesh": {"data": SHARDED["mesh"][1],
+                        "model": SHARDED["mesh"][0]},
+           "gqa_loss": head["gqa_loss"],
+           "gqa_grad_norm": head["gqa_grad_norm"],
+           "gqa_grad_err_of_max": head["gqa_grad_err_of_max"],
+           "gqa_worst_grad": head["gqa_worst_grad"],
+           "gqa_kernel_inputs": head["gqa_kernel_inputs"],
+           "launches_by_rank": [r["launches"] for r in ranks],
+           "launches_expected": head["launches_expected"],
+           "kernel_inputs": head["kernel_inputs"],
+           "grads_in_weight_placements": [r["grads_in_weight_placements"]
+                                          for r in ranks],
+           "placements": head["placements"],
+           "step_s_by_rank": [r["seconds"] for r in ranks]}
+    emit(out)
+    for r in ranks:
+        print(f"sharded_train_parity: rank {r['rank']} launched "
+              f"flash_attention {r['launches']['fwd']} and "
+              f"flash_attention_bwd {r['launches']['bwd']} times on its "
+              f"local heads {r['kernel_inputs']}; gradients in their "
+              f"weights' placements: {r['grads_in_weight_placements']}",
+              flush=True)
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    ok = (abs(head["loss"] - head["one_rank_loss"]) <= SHARDED["tol"]
+          and head["max_abs_err"] <= SHARDED["tol"]
+          and head["grad_err_of_max"] <= SHARDED["tol"]
+          and rel(head["grad_norm"], head["one_rank_grad_norm"])
+          <= SHARDED["tol"]
+          and abs(head["gqa_loss"] - head["one_rank_loss"]) <= SHARDED["tol"]
+          and head["gqa_grad_err_of_max"] <= SHARDED["tol"]
+          and rel(head["gqa_grad_norm"], head["one_rank_grad_norm"])
+          <= SHARDED["tol"]
+          and all(r["gqa_grads_in_weight_placements"] for r in ranks)
+          and all(k[:4] == [1, 1, "Tensor", "cuda"]
+                  for r in ranks for k in r["gqa_kernel_inputs"])
+          and all(r["launches"] == r["launches_expected"] for r in ranks)
+          and all(r["grads_in_weight_placements"] for r in ranks)
+          and all(k[2] == "Tensor" and k[3] == "cuda"
+                  for r in ranks for k in r["kernel_inputs"]))
+    if not ok:
+        raise SystemExit("sharded_train_parity: the sharded step differs")
+    return out
+
+
+def dryrun_worker(out_dir: str) -> int:
+    """The dry-run CLI (`repro_torch.launch.dryrun.main`) on each of
+    `DRYRUN_CELLS`, single-pod mesh, into ``out_dir``."""
+    from repro_torch.launch import dryrun
+    for cell in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        dryrun.main([*cell, "--mesh", "single", "--out", out_dir,
+                     "--force"])
+        print(f"cell seconds: {time.perf_counter() - t0:.2f}", flush=True)
+    return 0
+
+
+def collect_dryrun(procs: dict) -> dict:
+    """Wait for the dry-run worker; one line with each cell's JSON: per
+    rank peak bytes, the three roofline terms, the dominant one and the
+    trace seconds, each cell having printed ``DRY-RUN PASS``."""
+    text = _wait_worker(procs, "dryrun")
+    passes = text.count("DRY-RUN PASS")
+    cells = {}
+    for path in sorted(DRYRUN_DIR.glob("*.json")):
+        res = json.loads(path.read_text())
+        rf = res["roofline"]
+        cells[path.stem] = {
+            "chips": res["chips"], "kind": res["kind"],
+            "peak_bytes_per_rank": res["memory"]["peak_estimate_bytes"],
+            "compute_s": rf["compute_s"], "memory_s": rf["memory_s"],
+            "collective_s": rf["collective_s"], "dominant": rf["dominant"],
+            "trace_s": res["lower_s"],
+            "flops_per_device": rf["flops_per_device"],
+            "bytes_per_device": rf["bytes_per_device"],
+            "collective_bytes_per_device":
+                rf["collective_bytes_per_device"],
+            "model_flops_global": res["model_flops_global"],
+            "useful_flops_ratio": res["useful_flops_ratio"],
+            "roofline_fraction": res["roofline_fraction"],
+            **({"static_bounds": res["static_bounds"]}
+               if "static_bounds" in res else {})}
+    out = {"phase": "dryrun", "mesh": "single-pod 16x16, fake group",
+           "passes": passes, "cells": cells,
+           "constants": "H100 SXM5: 989.4e12 FLOP/s bf16, 3.35e12 B/s, "
+                        "450e9 B/s NVLink one way"}
+    emit(out)
+    for name, cell in cells.items():
+        print(f"dryrun {name}: DRY-RUN PASS, peak "
+              f"{cell['peak_bytes_per_rank']} B a rank, compute "
+              f"{cell['compute_s']:.6f} s, memory {cell['memory_s']:.6f} s, "
+              f"collective {cell['collective_s']:.6f} s, dominant "
+              f"{cell['dominant']}, traced in {cell['trace_s']} s",
+              flush=True)
+    if passes != len(DRYRUN_CELLS) or len(cells) != len(DRYRUN_CELLS) or \
+            not all(c["peak_bytes_per_rank"] > 0 for c in cells.values()):
+        raise SystemExit("dryrun: a cell failed")
+    return out
+
+
+def _counted_step(trainer, step_fn, cfg, median_s: float) -> dict:
+    """One more train step under `launch.hlo_stats.StepCounter` (its
+    FLOPs, bytes and peak live bytes as the port counts them), beside
+    `model_flops`' 6·N·T and the H100 roofline: its terms for the counted
+    step, and the share of the bf16 peak that the measured median step's
+    model FLOPs reach."""
+    import torch
+    from repro_torch.launch import hlo_stats, roofline
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import model_flops
+    batch = trainer._batch(trainer.step)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, counter = hlo_stats.count(step_fn, trainer.params,
+                                 trainer.opt_state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    tokens = batch["tokens"].shape
+    mf = model_flops(cfg, ShapeConfig("train", tokens[1], tokens[0],
+                                      "train"))
+    st = counter.stats
+    rf = roofline.analyze(st, 1)
+    return {"counted_flops": st.flops, "counted_bytes": st.bytes,
+            "counted_peak_live_bytes": counter.peak,
+            "model_flops": mf, "useful_flops_ratio": mf / st.flops,
+            "roofline_terms_s": {"compute": rf.compute_s,
+                                 "memory": rf.memory_s},
+            "roofline_dominant": rf.dominant,
+            "median_step_s": median_s,
+            "roofline_fraction": roofline.measured_fraction(mf, 1,
+                                                            median_s),
+            "counted_step_wall_s": wall,
+            "peak_flops": roofline.PEAK_FLOPS}
 
 
 def _full_argv() -> list:
@@ -3536,15 +4088,22 @@ def main() -> int:
     from repro_torch.launch import bisim as launcher
 
     phase_build()
+    for d in (WORKER_DIR, STREAM_WORKDIR, DRYRUN_DIR):
+        shutil.rmtree(d, ignore_errors=True)
     args = launcher.build_parser().parse_args(_full_argv())
     t0 = time.perf_counter()
     g = launcher.make_graph(args)
     gen_seconds = time.perf_counter() - t0
     print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges "
           f"({gen_seconds:.1f} s to generate)", flush=True)
+    streams = {}
     try:
         kern = phase_kernels({m: _build_lanes(g, m) for m in MODES})
         chunk = phase_chunk_kernels()
+        # the stream's crash drill is the longest worker (~500 s, on the
+        # parity graph): its two runs start here, once the kernels are
+        # timed, beside the parity, build and distributed phases
+        streams = start_workers(("drill", "cpu"))
         phase_parity()
         phase_oocore_parity()
         full, inmem = phase_full(args, g, gen_seconds)
@@ -3552,17 +4111,24 @@ def main() -> int:
         ooc = phase_oocore(args, g, inmem)
         phase_distributed_parity()
         dist_runs = phase_distributed(save_full_graph(g), inmem)
+    except BaseException:
+        stop_workers(streams)
+        raise
     finally:
         shutil.rmtree(WORKDIR, ignore_errors=True)
         shutil.rmtree(DIST_DIR, ignore_errors=True)
     del inmem
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
-    # the parity phases of out-of-core maintenance and of the quotient,
-    # the full graph's quotient and the stream's runs are host-bound:
-    # worker processes run them beside the maintenance phases, in memory
-    # and out of core; the quotient worker times its waves once the others
-    # have ended, and the workers' lines print below
-    workers = start_workers()
+    # the parity phases of out-of-core maintenance and of the quotient and
+    # the full graph's quotient are host-bound: worker processes run them
+    # (the stream's two runs started above) beside the maintenance phases,
+    # in memory and out of core; the quotient worker times its waves once
+    # the others have ended, and the workers' lines print below; so do
+    # the sharded step's 8 gloo ranks (the card shared, mostly host work)
+    # and the dry-run (host work only)
+    workers = {**streams,
+               **start_workers(("parity", "quotient", "dryrun"))}
+    sharded = start_sharded()
     try:
         maint, folds = phase_maintenance(g)
         try:
@@ -3572,12 +4138,18 @@ def main() -> int:
         del g
         stream = phase_stream(workers)
         print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
+        sharded_out = phase_sharded_train_parity(*sharded)
+        collect_dryrun(workers)
         qparity = collect_parity(workers)
         quotient = collect_quotient(workers)
     finally:
         stop_workers(workers)
+        for proc in sharded[0]:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
         for d in (QUOTIENT_WORKDIR, STREAM_WORKDIR, WORKER_DIR,
-                  OOC_PARITY_WORKDIR):
+                  OOC_PARITY_WORKDIR, SHARDED_DIR, DRYRUN_DIR):
             shutil.rmtree(d, ignore_errors=True)
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
     frontier = phase_frontier_kernels(folds)  # alone on the card
@@ -3602,6 +4174,22 @@ def main() -> int:
     # fold_flat launches a rank of the full graph's distributed runs
     dist_launches = {name: line["fold_flat_launches"]
                      for name, line in dist_runs.items()}
+    # the wrappers' host time a call, now through their custom ops
+    host_us = {"sig_fold": kern["host_us"],
+               "frontier_sig_fold": big["host_us"],
+               "flash_attention": glob["host_us"],
+               "flash_attention_bwd": bwd["host_us"]}
+    print("custom-op host us a call (before the ops): " + ", ".join(
+        f"{name} {us:.1f} ({HOST_US_BEFORE_OPS[name]})"
+        for name, us in host_us.items()), flush=True)
+    dispatch = dispatch_us()
+    emit({"phase": "op_dispatch", "host_us_a_call": dispatch,
+          "inputs": "sig_fold 4,096 lanes / 256 rows; attention bf16 "
+          "1 x 4/2 heads x 128 tokens x 64"})
+    sharded_launches = {"fwd": [r["fwd"] for r in
+                                sharded_out["launches_by_rank"]],
+                        "bwd": [r["bwd"] for r in
+                                sharded_out["launches_by_rank"]]}
     emit({"kernels": [{
         "name": "sig_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sig_fold.cu",
@@ -3612,6 +4200,7 @@ def main() -> int:
         "distributed_launches": dist_launches,
         "max_abs_err": kern["max_abs_err"],
         **{k: kern[k] for k in times}, "shape": kern["shape"],
+        "custom_op": "repro_torch::sig_fold",
         "bound_by": "bytes", "library_ms": None}, {
         "name": "frontier_sig_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sig_fold.cu",
@@ -3626,6 +4215,7 @@ def main() -> int:
         **{k: big[k] for k in times}, "shape": big["shape"],
         "median_batch": {k: frontier["cases"]["median dedup=True"][k]
                          for k in (*times, "shape")},
+        "custom_op": "repro_torch::sig_fold",
         "bound_by": "bytes", "library_ms": None}, {
         "name": "chunk_sig_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sig_fold.cu",
@@ -3643,6 +4233,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:26",
         "launches": serve["flash_attention_launches"],
         "train_launches": train["launches"]["fwd"],
+        "sharded_f32_launches_by_rank": sharded_launches["fwd"],
+        "custom_op": "repro_torch::flash_attention",
         "max_abs_err": attn["max_abs_err"], **{k: glob[k] for k in times},
         "kernel_ms_source": glob["kernel_ms_source"],
         "back_to_back_ms": glob["back_to_back_ms"],
@@ -3653,6 +4245,8 @@ def main() -> int:
         "replaces": "no Pallas kernel: the JAX package differentiates in "
                     "XLA, src/repro/models/flash_xla.py:100 (_bwd_rule)",
         "launches": train["launches"]["bwd"],
+        "sharded_f32_launches_by_rank": sharded_launches["bwd"],
+        "custom_op": "repro_torch::flash_attention_bwd",
         "max_abs_err": attn_bwd["max_abs_err"],
         **{k: bwd[k] for k in times}, "shape": bwd["case"],
         "kernel_ms_source": bwd["kernel_ms_source"],

@@ -17,6 +17,12 @@ The reference hands its save thread immutable arrays.  The port's
 parameters and optimizer state are updated in place by the next step, so
 `save` copies every tensor to host numpy before it returns, and only then
 starts the thread: an async save is never torn.
+
+Elastic by construction, as the reference: a DTensor leaf (a sharded
+run's) is gathered whole before it is written, so the file holds logical
+arrays in the reference's format (every rank of the mesh must call
+`save`; rank 0 of the process group writes), and `restore(...,
+mesh=, placements=)` distributes them onto any other mesh.
 """
 from __future__ import annotations
 
@@ -40,9 +46,23 @@ def _paths(tree, prefix=""):
         yield prefix[:-1], tree
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of the process group, or a
+    process without one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()  # a collective: every rank calls
         if leaf.dtype == torch.bfloat16:  # npz can't serialize bf16
             leaf = leaf.float()
         return leaf.cpu().numpy().copy()
@@ -50,6 +70,11 @@ def _to_numpy(leaf) -> np.ndarray:
     if arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)
     return arr
+
+
+def _distribute(t, mesh, placements):
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, list(placements), src_data_rank=None)
 
 
 def _flatten_with_paths(tree) -> dict:
@@ -76,6 +101,9 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None,
              block: bool = False) -> None:
         arrays = _flatten_with_paths(tree)  # host copies, before returning
+        sharded = any(_is_dtensor(leaf) for _, leaf in _paths(tree))
+        if sharded and not _writer():
+            return  # rank 0 writes the gathered arrays
         if self.async_save and not block:
             self.wait()
             self._thread = threading.Thread(
@@ -121,10 +149,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None):
+                device=None, mesh=None, placements=None):
         """Restore into ``template``'s structure and dtypes: a tensor leaf
         becomes a tensor on ``device`` (default: the template leaf's
-        device), any other leaf a numpy array.  Returns (tree, meta)."""
+        device), any other leaf a numpy array.  With ``mesh`` and
+        ``placements`` (a tree of the paths to place, for example
+        `launch.mesh.tree_shardings`' of the parameters under "params"),
+        each of those leaves becomes a DTensor on that mesh, each rank
+        keeping its shard; without them a DTensor leaf of the template
+        keeps the template's mesh and placements.
+        Returns (tree, meta)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -132,11 +166,23 @@ class CheckpointManager:
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         leaves = []
+        where = (dict(_paths(placements)) if placements is not None
+                 else {})
         with np.load(os.path.join(path, "arrays.npz")) as z:
             for key, leaf in _paths(template):
                 arr = z[key]
                 if isinstance(leaf, torch.Tensor):
                     t = torch.from_numpy(arr).to(leaf.dtype)
+                    on = None
+                    if mesh is not None and key in where:
+                        on, pl = mesh, where[key]
+                    elif mesh is None and _is_dtensor(leaf):
+                        on, pl = leaf.device_mesh, leaf.placements
+                    if on is not None:
+                        leaves.append(_distribute(
+                            t.to(device if device is not None
+                                 else on.device_type), on, pl))
+                        continue
                     leaves.append(t.to(device if device is not None
                                        else leaf.device))
                 else:

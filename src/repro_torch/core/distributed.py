@@ -204,7 +204,10 @@ def _rank_bucketed(key, hi, group, rank: int, n_loc: int, d: int,
     bucket = hi % d
     sb, order = torch.sort(bucket, stable=True)  # jnp.argsort is stable
     # position of each element within its bucket
-    sizes = torch.bincount(sb, minlength=d)
+    # bucket sizes (torch.bincount's counts, at a static size of d: a
+    # traced iteration then has no data-dependent shape)
+    sizes = torch.zeros(d, dtype=torch.int64, device=dev).index_add_(
+        0, sb, torch.ones_like(sb))
     start = torch.cumsum(sizes, 0) - sizes
     pos = torch.arange(n_loc, device=dev) - start[sb]
     overflow = (pos >= capacity).sum()
@@ -238,6 +241,24 @@ def _rank_bucketed(key, hi, group, rank: int, n_loc: int, d: int,
     pid_loc[order] = back[sb, torch.clamp(pos, max=capacity - 1)]
     stats = _all_reduce(torch.stack([uniques, overflow]), group)
     return pid_loc, stats
+
+
+def iteration(pid_loc, shard: _Shard, group, *, rank: int, d: int,
+              n_loc: int, n_pad: int, mode: str, ranking: str,
+              capacity: int):
+    """One iteration of Algorithm 1 on one rank, with no host read: the
+    gathered pid column, the rank's new pids and [count, overflow] (int64
+    [2], the same on every rank).  The dry-run traces this on fake
+    tensors."""
+    pid_full = _all_gather(pid_loc, group)
+    hi, lo = _local_signatures(pid_full, shard, n_loc, n_pad, mode)
+    key = sig.fuse_u32_pair(hi, lo)
+    if ranking == "allgather":
+        pid_loc, step = _rank_allgather(key, group, rank, n_loc)
+    else:
+        pid_loc, step = _rank_bucketed(key, hi, group, rank, n_loc, d,
+                                       capacity)
+    return pid_full, pid_loc, step
 
 
 def _capacity(n_loc: int, d: int, capacity_factor: float) -> int:
@@ -301,17 +322,12 @@ def build_bisim_distributed(
     converged_at = None
     for j in range(1, k + 1):
         t0 = time.perf_counter()
-        pid_full = _all_gather(pid_loc, group)
+        pid_full, pid_loc, step = iteration(
+            pid_loc, shard, group, rank=rank, d=d, n_loc=n_loc,
+            n_pad=sg.n_pad, mode=mode, ranking=ranking, capacity=capacity)
         if j > 1:
             levels.append(pid_full)
-        hi, lo = _local_signatures(pid_full, shard, n_loc, sg.n_pad, mode)
-        key = sig.fuse_u32_pair(hi, lo)
-        if ranking == "allgather":
-            pid_loc, step = _rank_allgather(key, group, rank, n_loc)
-        else:
-            pid_loc, step = _rank_bucketed(key, hi, group, rank, n_loc, d,
-                                           capacity)
-        count, overflow = step.tolist()
+        count, overflow = step.tolist()  # the iteration's one host read
         if overflow > 0:
             raise RuntimeError(
                 f"bucketed ranking overflow ({overflow} elements); "

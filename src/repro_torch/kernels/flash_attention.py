@@ -54,6 +54,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from torch.utils.flop_counter import register_flop_formula
+
 from .ref import attention_mask
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)
@@ -301,6 +303,18 @@ def _window_args(causal, window, softcap, scale) -> list:
             float(softcap) if softcap is not None else 0.0, float(scale)]
 
 
+def visible_pairs(sq: int, skv: int, *, causal: bool, window=None,
+                  q_offset=None) -> int:
+    """The (query, key) pairs `attention_mask` lets through, counted in
+    closed form a row: the work of one (batch, head) of the kernels."""
+    off = skv - sq if q_offset is None else int(q_offset)
+    qpos = np.arange(sq, dtype=np.int64) + off
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = (np.maximum(qpos - int(window) + 1, 0) if window is not None
+          else np.zeros(sq, np.int64))
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
                     softcap: float = None, scale: float = None,
                     block_q: int = 128, block_k: int = 128, q_offset=None,
@@ -317,20 +331,50 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
     bf16 kernel uses its own tiles, 128 query rows (two wgmma tiles of 64)
     by 64 keys.  D must be one of `HEAD_DIMS`, and B * Hq at most 65535
     (the grid's second axis): a launch the card refuses raises.
+
+    The call goes through the custom op ``repro_torch::flash_attention``
+    (`torch.library.Library`; CPU: the plain version, CUDA: the
+    kernel), whose fake implementation and FLOP formula (4 D a visible
+    pair and head) let the dry-run trace it.
     """
-    if q.device.type == "cpu":
-        if return_lse:
-            _check(q, k, v, causal, window, softcap, block_q, block_k)
-            return flash_attention_fwd_plain(
-                q, k, v, causal=causal, window=window, softcap=softcap,
-                scale=scale, q_offset=q_offset)
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, scale=scale,
-                                     block_q=block_q, block_k=block_k,
-                                     q_offset=q_offset)
     _check(q, k, v, causal, window, softcap, block_q, block_k)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    o, lse = torch.ops.repro_torch.flash_attention(
+        q, k, v, bool(causal), None if window is None else int(window),
+        None if softcap is None else float(softcap),
+        None if scale is None else float(scale), int(block_q), int(block_k),
+        None if q_offset is None else int(q_offset), bool(return_lse))
+    return (o, lse) if return_lse else o
+
+
+def _fwd_cpu(q, k, v, causal, window, softcap, scale, block_q, block_k,
+             q_offset, return_lse):
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_offset=q_offset)
+    if return_lse:
+        return flash_attention_fwd_plain(q, k, v, **kw)
+    return (flash_attention_plain(q, k, v, block_q=block_q, block_k=block_k,
+                                  **kw),
+            q.new_empty((0,), dtype=torch.float32))
+
+
+def _fwd_fake(q, k, v, causal, window, softcap, scale, block_q, block_k,
+              q_offset, return_lse):
+    b, hq, sq, _ = q.shape
+    if q.device.type == "cpu":  # the plain version's dense results
+        o = q.new_empty((b, hq, sq, v.shape[3]))
+        lse_dtype = torch.promote_types(q.dtype, torch.float32)
+    else:
+        o, lse_dtype = torch.empty_like(q), torch.float32
+    return o, q.new_empty((b, hq, sq) if return_lse else (0,),
+                          dtype=lse_dtype)
+
+
+def _fwd_on_card(q, k, v, causal, window, softcap, scale, block_q,
+                 block_k, q_offset, return_lse):
+    """One launch of the forward kernel that ``q``'s dtype routes to;
+    returns (out, lse), lse empty without ``return_lse``."""
     b, hq, sq, d = q.shape
     route = kernel_route(q.dtype)
     if d not in HEAD_DIMS:
@@ -363,7 +407,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {err}")
     flash_attention.launches += 1
-    return (out, lse) if return_lse else out
+    return out, (lse if return_lse else q.new_empty((0,),
+                                                    dtype=torch.float32))
 
 
 flash_attention.launches = 0  # kernel launches made through the wrapper
@@ -494,12 +539,42 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     the dk/dv pass and the dq pass), or raises; a bf16 q, k, v or do that
     TMA cannot load raises ValueError.  A CPU tensor takes
     `flash_attention_bwd_plain`.
+
+    The call goes through the custom op ``repro_torch::flash_attention_bwd``
+    (CPU: the plain version, CUDA: the kernel), whose fake implementation
+    and FLOP formula (10 D a visible pair and head) let the dry-run trace
+    it.
     """
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
-              q_offset=q_offset)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     _check(q, k, v, causal, window, softcap, 1, 1)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention_bwd: no kernel for device "
+                         f"{q.device}")
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, o, lse, do, bool(causal),
+        None if window is None else int(window),
+        None if softcap is None else float(softcap),
+        None if scale is None else float(scale),
+        None if q_offset is None else int(q_offset))
+    return dq, dk, dv
+
+
+def _bwd_cpu(q, k, v, o, lse, do, causal, window, softcap, scale,
+             q_offset):
+    return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                     window=window, softcap=softcap,
+                                     scale=scale, q_offset=q_offset)
+
+
+def _bwd_fake(q, k, v, o, lse, do, causal, window, softcap, scale,
+              q_offset):
+    if q.device.type == "cpu":  # the plain version's dense results
+        return tuple(t.new_empty(t.shape) for t in (q, k, v))
+    return tuple(torch.empty_like(t) for t in (q, k, v))
+
+
+def _bwd_on_card(q, k, v, o, lse, do, causal, window, softcap, scale,
+                 q_offset):
+    """One call of the backward kernel that ``q``'s dtype routes to."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if o.shape != q.shape or do.shape != q.shape:
@@ -567,3 +642,43 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 flash_attention_bwd.launches = 0  # kernel calls made through the wrapper
+
+
+# the ops: a schema and one kernel a dispatch key, with no autograd
+# wrapper (`models.flash_xla.FlashAttention` owns the gradient), so a call
+# costs the dispatcher's few microseconds on the host and no more
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int? window, float? softcap, float? scale, int block_q, "
+            "int block_k, int? q_offset, bool return_lse) -> "
+            "(Tensor, Tensor)")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+            "Tensor lse, Tensor do, bool causal, int? window, "
+            "float? softcap, float? scale, int? q_offset) -> "
+            "(Tensor, Tensor, Tensor)")
+for _name, _cpu, _cuda, _fake in (
+        ("flash_attention", _fwd_cpu, _fwd_on_card, _fwd_fake),
+        ("flash_attention_bwd", _bwd_cpu, _bwd_on_card, _bwd_fake)):
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"repro_torch::{_name}", _fake, lib=_LIB)
+
+
+# the custom ops' FLOPs for `torch.utils.flop_counter` (and the dry-run's
+# counter): the products over the visible pairs that row 4's and row 5's
+# bounds count, 2 D flops a pair each (forward: QK^T and PV; backward:
+# S, dP, dV, dQ and dK)
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _fwd_flops(q, k, v, causal, window, softcap, scale, block_q, block_k,
+               q_offset, return_lse, *, out_shape=None, **kwargs):
+    b, hq, sq, d = q
+    return 4 * d * b * hq * visible_pairs(
+        sq, k[2], causal=causal, window=window, q_offset=q_offset)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q, k, v, o, lse, do, causal, window, softcap, scale,
+               q_offset, *, out_shape=None, **kwargs):
+    b, hq, sq, d = q
+    return 10 * d * b * hq * visible_pairs(
+        sq, k[2], causal=causal, window=window, q_offset=q_offset)

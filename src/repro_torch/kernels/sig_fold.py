@@ -22,6 +22,12 @@ segmented pre-reduction before the atomics.  On a CUDA tensor each wrapper
 launches its kernel or raises; only a tensor on the CPU takes the plain
 version.  Each returns an int64 [2, rows] tensor of u32 lanes, which
 unpacks as (seg_hi, seg_lo).
+
+`sig_fold` calls its kernel as the op ``repro_torch::sig_fold``
+(`torch.library.Library`, CPU: the plain version, CUDA: the kernel),
+whose fake implementation gives the output's shape: a fake tensor (the
+dry-run's trace of a distributed iteration) goes through the real call
+site and never reaches ctypes.
 """
 from __future__ import annotations
 
@@ -189,6 +195,33 @@ def _fold_on_card(elabel, pid_tgt, local_src, valid, nb: int, eb: int,
     return out
 
 
+def _sig_fold_cpu(elabel, pid_tgt, local_src, valid, nodes_per_block,
+                  edges_per_block, dedup, presorted):
+    return sig_fold_plain(elabel, pid_tgt, local_src, valid,
+                          nodes_per_block=nodes_per_block,
+                          edges_per_block=edges_per_block, dedup=dedup,
+                          presorted=presorted)
+
+
+def _sig_fold_fake(elabel, pid_tgt, local_src, valid, nodes_per_block,
+                   edges_per_block, dedup, presorted):
+    rows = elabel.numel() // edges_per_block * nodes_per_block
+    return elabel.new_empty((2, rows), dtype=torch.int64)
+
+
+# the op: a schema and one kernel a dispatch key, with no autograd wrapper
+# (the fold has no gradient), so a call costs the dispatcher's few
+# microseconds on the host and no more
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("sig_fold(Tensor elabel, Tensor pid_tgt, Tensor local_src, "
+            "Tensor valid, int nodes_per_block, int edges_per_block, "
+            "bool dedup, bool presorted) -> Tensor")
+_LIB.impl("sig_fold", _sig_fold_cpu, "CPU")
+_LIB.impl("sig_fold", _fold_on_card, "CUDA")
+torch.library.register_fake("repro_torch::sig_fold", _sig_fold_fake,
+                            lib=_LIB)
+
+
 def sig_fold(elabel, pid_tgt, local_src, valid, *, nodes_per_block: int,
              edges_per_block: int, dedup: bool = False,
              presorted: bool = False):
@@ -205,15 +238,12 @@ def sig_fold(elabel, pid_tgt, local_src, valid, *, nodes_per_block: int,
     power-of-two ``edges_per_block`` that fits shared memory).
     """
     nb, eb = nodes_per_block, edges_per_block
-    if elabel.device.type == "cpu":
-        return sig_fold_plain(elabel, pid_tgt, local_src, valid,
-                              nodes_per_block=nb, edges_per_block=eb,
-                              dedup=dedup, presorted=presorted)
     _check(elabel, pid_tgt, local_src, valid, nb, eb, dedup, presorted)
-    if elabel.device.type != "cuda":
+    if elabel.device.type not in ("cpu", "cuda"):
         raise ValueError(f"sig_fold: no kernel for device {elabel.device}")
-    return _fold_on_card(elabel, pid_tgt, local_src, valid, nb, eb, dedup,
-                         presorted)
+    return torch.ops.repro_torch.sig_fold(elabel, pid_tgt, local_src, valid,
+                                          nb, eb, bool(dedup),
+                                          bool(presorted))
 
 
 sig_fold.launches = 0  # kernel launches made through the wrapper

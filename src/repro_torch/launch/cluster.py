@@ -56,6 +56,18 @@ def default_backend(device=None, backend=None) -> str:
     return backend
 
 
+def launched_world() -> int:
+    """The world size the launcher gave this process (torchrun's
+    ``WORLD_SIZE``, else Slurm's ``SLURM_NTASKS``, else 1), read before
+    any group starts, in `init_cluster`'s order."""
+    env = os.environ
+    if "RANK" in env and "WORLD_SIZE" in env:
+        return int(env["WORLD_SIZE"])
+    if "SLURM_JOB_NODELIST" in env:
+        return int(env.get("SLURM_NTASKS", "1"))
+    return 1
+
+
 def init_cluster(device=None, backend=None):
     """Start the default process group; returns (rank, world_size).
 

@@ -9,15 +9,21 @@ given.
 Flags, defaults and output lines are those of `repro.launch.train`, plus
 ``--device``.  ``--smoke`` trains the reduced config in f32, otherwise
 bf16 (f32 AdamW state either way).  Parameters are random, from seed 0.
-``--production-mesh`` and ``--multi-pod`` need the device mesh, which
-the port does not have yet (ROADMAP.md, queue 1 item 7:
-``launch/mesh.py``); they raise.  `make_trainer` and `train` take a
-`ModelConfig`, so a caller can train a config of its own (a cut depth)
-with the launcher's flags.
+``--production-mesh`` (16x16) and ``--multi-pod`` (2x16x16) shard the step
+over the launched world (torchrun's or Slurm's ranks, one a card:
+`launch.cluster.init_cluster`), with ``--shape``'s sharding rules; a
+world of another size than the mesh's 256 (512) ranks raises ValueError:
+
+    torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.train \
+        --arch gemma2_9b --production-mesh
+
+`make_trainer` and `train` take a `ModelConfig`, so a caller can train a
+config of its own (a cut depth) with the launcher's flags.
 """
 from __future__ import annotations
 
 import argparse
+import math
 
 import torch
 
@@ -28,6 +34,8 @@ from ..data import PipelineConfig, TokenPipeline
 from ..models.model import Model
 from ..optim import OptConfig
 from ..train import Trainer
+from . import cluster
+from . import mesh as meshlib
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,14 +61,22 @@ def make_trainer(cfg, args, params=None, ckpt: bool = True) -> Trainer:
     """The launcher's `Trainer` for ``cfg`` and ``args``, after printing
     the reference's first line.  ``params``: initial parameters (default:
     random from seed 0); ``ckpt=False`` trains without checkpoints."""
-    if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "--production-mesh/--multi-pod need the device mesh, which is "
-            "not ported yet (ROADMAP.md, queue 1 item 7: launch/mesh.py)")
     device = resolve_device(args.device)
+    mesh = None
+    if args.production_mesh or args.multi_pod:
+        shape, axes = meshlib.production_shape(multi_pod=args.multi_pod)
+        need, world = math.prod(shape), cluster.launched_world()
+        if world != need:
+            raise ValueError(
+                f"--{'multi-pod' if args.multi_pod else 'production-mesh'} "
+                f"shards over a {'x'.join(map(str, shape))} mesh of {need} "
+                f"ranks (one a card); the launched world has {world}: "
+                f"start {need} ranks with torchrun or Slurm")
+        cluster.init_cluster(device)
+        mesh = meshlib.make_mesh(shape, axes, device_type=device.type)
     model = Model(cfg)
     print(f"{cfg.name}: {model.num_params() / 1e6:.1f}M params, "
-          f"1 devices", flush=True)
+          f"{meshlib.world_size()} devices", flush=True)
     pipe = TokenPipeline(
         PipelineConfig(cfg.vocab_size, args.batch, args.seq, seed=0))
     manager = (CheckpointManager(args.ckpt_dir, keep=3, async_save=True)
@@ -69,7 +85,8 @@ def make_trainer(cfg, args, params=None, ckpt: bool = True) -> Trainer:
         model,
         OptConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
                   total_steps=args.steps),
-        pipe, ckpt=manager,
+        pipe, ckpt=manager, mesh=mesh,
+        rules=meshlib.rules_for_shape(args.shape),
         param_dtype=torch.float32 if args.smoke else torch.bfloat16,
         params=params, device=device)
 

@@ -32,7 +32,10 @@ def apply_block(p, x, cfg, block_kind, *, kind, positions, cache=None,
         p["attn"], layers.rms_norm(x, p["ln_attn"], cfg.norm_eps), cfg,
         kind=kind, layer_kind=block_kind, positions=positions,
         cache=None if cache is None else cache["attn"], index=index)
-    x = x + a
+    # pin the residual delta to the residual-stream sharding: the
+    # row-parallel projection's partial sums are then reduce-scattered,
+    # not all-reduced
+    x = x + layers.shard(a, "act_batch", "act_seq", "act_embed")
     x = x + layers.apply_mlp(p["mlp"],
                              layers.rms_norm(x, p["ln_mlp"], cfg.norm_eps))
     return x, {"attn": c}

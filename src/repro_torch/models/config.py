@@ -1,6 +1,6 @@
-"""Model configuration of the port (the port's copy of
-`repro.models.config.ModelConfig`, field for field, so a configuration
-file reads the same in both packages)."""
+"""Model and input-shape configuration of the port (the port's copy of
+`repro.models.config`: `ModelConfig` field for field, so a configuration
+file reads the same in both packages, and the dry-run's `SHAPES`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -86,3 +86,27 @@ class ModelConfig:
     def scaled(self, **kw) -> "ModelConfig":
         """Reduced copy for smoke tests."""
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k needs sub-quadratic attention: a full-attention
+    architecture skips it, as in the JAX package."""
+    if shape.name == "long_500k":
+        return cfg.sub_quadratic
+    return True

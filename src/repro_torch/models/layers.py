@@ -13,8 +13,10 @@ Attention paths:
     JAX package has no kernel there either).
 
 Norms, rope and attention compute in f32 (in f64 for f64 activations, the
-CPU route's float64 evaluation).  The JAX package's sharding constraints
-have nothing to do on one card and are left out; MLA and cross-attention
+CPU route's float64 evaluation).  Sharding constraints use logical names
+resolved by `repro_torch.launch.mesh.shard`: no-ops on one device, DTensor
+redistributions under a mesh (there the attention kernels run on each
+rank's local heads, `flash_xla.local_heads`).  MLA and cross-attention
 wait for their architectures.
 """
 from __future__ import annotations
@@ -25,8 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
-from .flash_xla import attend_flash
+from ..launch import mesh as meshlib
+from .flash_xla import attend_flash, local_heads
 from .params import ParamSpec
+
+shard = meshlib.shard
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -45,7 +50,7 @@ def rms_norm(x, w, eps):
 
 
 def norm_spec(d):
-    return ParamSpec((d,), init="ones")
+    return ParamSpec((d,), (None,), init="ones")
 
 
 def rope(x, positions, theta):
@@ -64,28 +69,59 @@ def rope(x, positions, theta):
 
 
 def linear(p, x):
-    y = x @ p["w"].to(x.dtype)
+    y = x @ meshlib.gather_weight(p["w"]).to(x.dtype)
     if "b" in p:
-        y = y + p["b"].to(x.dtype)
+        y = y + meshlib.gather_weight(p["b"]).to(x.dtype)
     return y
 
 
-def linear_spec(d_in, d_out, *, bias=False):
-    s = {"w": ParamSpec((d_in, d_out))}
+def linear_spec(d_in, d_out, in_ax, out_ax, *, bias=False):
+    s = {"w": ParamSpec((d_in, d_out), (in_ax, out_ax))}
     if bias:
-        s["b"] = ParamSpec((d_out,), init="zeros")
+        s["b"] = ParamSpec((d_out,), (out_ax,), init="zeros")
     return s
 
 
 # ------------------------------------------------------------------ MLP
 def mlp_specs(cfg):
-    return {"gate_up": linear_spec(cfg.d_model, 2 * cfg.d_ff),
-            "down": linear_spec(cfg.d_ff, cfg.d_model)}
+    return {"gate_up": linear_spec(cfg.d_model, 2 * cfg.d_ff, "embed",
+                                   "mlp"),
+            "down": linear_spec(cfg.d_ff, cfg.d_model, "mlp", "embed")}
+
+
+def _gate_up(p, x):
+    """(gate, up): x times the two column halves of ``p["w"]``.  Under a
+    mesh the weight's model axis leaves gate column j and up column j on
+    different ranks.  Where a rank holds more tokens than the weight has
+    rows (training, prefill), the weight is regrouped as [d, 2, F] split
+    over F (one all-gather of the weight, which its backward
+    reduce-scatters) and each rank multiplies its own F columns of both
+    halves; otherwise (decode) the product's halves are regrouped, the
+    smaller move."""
+    w = p["w"]
+    if not meshlib.is_dtensor(w) or "b" in p or (
+            math.prod(x.to_local().shape[:-1]) <= w.shape[0]):
+        return linear(p, x).chunk(2, dim=-1)
+    from torch.distributed.tensor import Shard
+    w = meshlib.gather_weight(w)
+    mesh = w.device_mesh
+    split = [i for i, q in enumerate(w.placements) if q == Shard(1)]
+    w = meshlib.gather_dim(w, 1)
+    d, f = w.shape[0], w.shape[1] // 2
+    w = w.view(d, 2, f)
+    if split and f % math.prod(mesh.size(i) for i in split) == 0:
+        w = w.redistribute(mesh, [Shard(2) if i in split else q
+                                  for i, q in enumerate(w.placements)])
+    return x @ w[:, 0].to(x.dtype), x @ w[:, 1].to(x.dtype)
 
 
 def apply_mlp(p, x):
-    gate, up = linear(p["gate_up"], x).chunk(2, dim=-1)
-    return linear(p["down"], F.silu(gate) * up)
+    gate, up = _gate_up(p["gate_up"], x)
+    h = shard(F.silu(gate) * up, "act_batch", "act_seq", "act_mlp")
+    out = linear(p["down"], h)
+    if out.ndim == 3:  # pin the residual delta (reduce-scatter, not AR)
+        out = shard(out, "act_batch", "act_seq", "act_embed")
+    return out
 
 
 # -------------------------------------------------------- attention core
@@ -94,6 +130,9 @@ def attend_decode(q, k_cache, v_cache, *, window, softcap, index):
     b, _, h, d = q.shape
     skv, hkv = k_cache.shape[1], k_cache.shape[2]
     acc = _acc(q.dtype)
+    # under a mesh the one token's heads are gathered (a few KB), so the
+    # heads regroup by kv head while the cache stays split by sequence
+    q = meshlib.gather_dim(q, 2)
     qg = q.reshape(b, hkv, h // hkv, d).to(acc)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(acc)) / math.sqrt(d)
     if softcap is not None:
@@ -108,13 +147,34 @@ def attend_decode(q, k_cache, v_cache, *, window, softcap, index):
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
+def _write_rows(cache, new, index: int) -> None:
+    """``cache[:, index:index + S] = new``, in place.  A DTensor cache whose
+    sequence the mesh splits is written on the rank that holds those rows,
+    in its local shard (``new`` first takes the cache's other
+    placements): no collective and no second cache, as the reference's
+    donated dynamic_update_slice."""
+    if not meshlib.is_dtensor(cache):
+        cache[:, index:index + new.shape[1]] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    want = [Replicate() if p == Shard(1) else p for p in cache.placements]
+    if list(new.placements) != want:
+        new = new.redistribute(mesh, want)
+    s0 = meshlib.local_offset(1, cache.shape[1], mesh, cache.placements)
+    local, rows = cache.to_local(), new.to_local()
+    lo, hi = max(index, s0), min(index + rows.shape[1], s0 + local.shape[1])
+    if lo < hi:
+        local[:, lo - s0:hi - s0] = rows[:, lo - index:hi - index]
+
+
 # ------------------------------------------------------------------ GQA
 def gqa_specs(cfg):
     h, hkv, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
-    return {"wq": linear_spec(d, h * hd, bias=cfg.qkv_bias),
-            "wk": linear_spec(d, hkv * hd, bias=cfg.qkv_bias),
-            "wv": linear_spec(d, hkv * hd, bias=cfg.qkv_bias),
-            "wo": linear_spec(h * hd, d)}
+    return {"wq": linear_spec(d, h * hd, "embed", "qkv", bias=cfg.qkv_bias),
+            "wk": linear_spec(d, hkv * hd, "embed", "kv", bias=cfg.qkv_bias),
+            "wv": linear_spec(d, hkv * hd, "embed", "kv", bias=cfg.qkv_bias),
+            "wo": linear_spec(h * hd, d, "qkv", "embed")}
 
 
 def apply_gqa(p, x, cfg, *, kind, layer_kind, positions, cache=None,
@@ -127,22 +187,26 @@ def apply_gqa(p, x, cfg, *, kind, layer_kind, positions, cache=None,
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     window = cfg.local_window if layer_kind == "local" else None
-    q = rope(linear(p["wq"], x).reshape(b, s, h, hd), positions,
-             cfg.rope_theta)
-    k = rope(linear(p["wk"], x).reshape(b, s, hkv, hd), positions,
-             cfg.rope_theta)
-    v = linear(p["wv"], x).reshape(b, s, hkv, hd)
+    split = meshlib.split_last
+    q = rope(split(linear(p["wq"], x), h, hd), positions, cfg.rope_theta)
+    k = rope(split(linear(p["wk"], x), hkv, hd), positions, cfg.rope_theta)
+    v = split(linear(p["wv"], x), hkv, hd)
+    q = shard(q, "act_batch", "act_seq", "act_heads", None)
+    k = shard(k, "act_batch", "act_seq", "act_kv_heads", None)
     if kind == "decode":
         k_cache, v_cache = cache["k"], cache["v"]
-        k_cache[:, index:index + s] = k
-        v_cache[:, index:index + s] = v
+        _write_rows(k_cache, k, index)
+        _write_rows(v_cache, v, index)
         o = attend_decode(q, k_cache, v_cache, window=window,
                           softcap=cfg.attn_softcap, index=index)
         new_cache = {"k": k_cache, "v": v_cache}
     elif kind == "prefill":
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True, window=window,
-                            softcap=cfg.attn_softcap).transpose(1, 2)
+        def prefill_attention(q, k, v):
+            return flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=True, window=window,
+                softcap=cfg.attn_softcap).transpose(1, 2)
+        o = local_heads(prefill_attention, q, k, v)
         new_cache = {"k": k, "v": v}
     elif kind == "train":
         o = attend_flash(q, k, v, causal=True, window=window,
@@ -151,4 +215,5 @@ def apply_gqa(p, x, cfg, *, kind, layer_kind, positions, cache=None,
     else:
         raise ValueError(f"kind must be train, prefill or decode, got "
                          f"{kind!r}")
+    o = shard(o, "act_batch", "act_seq", "act_heads", None)
     return linear(p["wo"], o.reshape(b, s, h * hd)), new_cache

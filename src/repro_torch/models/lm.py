@@ -7,16 +7,21 @@ the backward the same way."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..launch import mesh as meshlib
 from . import blocks, layers
 from .params import ParamSpec, tree_map
+
+shard = meshlib.shard
 
 
 def stack_specs(specs, groups: int):
     """Prepend the stacked 'layers' dim to every ParamSpec in the tree."""
-    return tree_map(lambda s: ParamSpec((groups,) + s.shape, init=s.init,
+    return tree_map(lambda s: ParamSpec((groups,) + s.shape,
+                                        ("layers",) + s.axes, init=s.init,
                                         scale=s.scale), specs)
 
 
@@ -24,11 +29,13 @@ def lm_specs(cfg):
     d = cfg.d_model
     pattern = {str(i): blocks.block_specs(cfg, k)
                for i, k in enumerate(cfg.layer_pattern)}
-    specs = {"embed": ParamSpec((cfg.padded_vocab, d), scale=0.02),
+    specs = {"embed": ParamSpec((cfg.padded_vocab, d), ("vocab", "embed"),
+                                scale=0.02),
              "groups": stack_specs(pattern, cfg.pattern_groups),
              "final_norm": layers.norm_spec(d)}
     if not cfg.tie_embeddings:
-        specs["lm_head"] = layers.linear_spec(d, cfg.padded_vocab)
+        specs["lm_head"] = layers.linear_spec(d, cfg.padded_vocab, "embed",
+                                              "vocab")
     return specs
 
 
@@ -57,16 +64,23 @@ def remat_forwards(cfg) -> int:
 
 def _logits(params, cfg, x):
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
+        logits = x @ meshlib.gather_weight(params["embed"]).to(x.dtype).T
     else:
         logits = layers.linear(params["lm_head"], x)
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    return shard(logits, "act_batch", "act_seq", "act_vocab")
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens]
+    table = params["embed"]
+    if meshlib.is_dtensor(table):
+        # embedding's vocab-parallel rule: each rank looks up the rows it
+        # holds and the partial sums meet in `shard`'s reduce-scatter
+        x = F.embedding(tokens, meshlib.gather_weight(table))
+    else:
+        x = table[tokens]
+    return shard(x, "act_batch", "act_seq", "act_embed")
 
 
 def _run_groups(params, cfg, x, *, kind, positions, cache=None, index=None):
@@ -84,6 +98,7 @@ def _run_groups(params, cfg, x, *, kind, positions, cache=None, index=None):
             x, ncs[str(i)] = blocks.apply_block(
                 gp[str(i)], x, cfg, k, kind=kind, positions=positions,
                 cache=None if gc is None else gc[str(i)], index=index)
+        x = shard(x, "act_batch", "act_seq", "act_embed")
         new.append(ncs)
     if cache is not None:
         return x, cache
@@ -104,7 +119,7 @@ def _run_train(params, cfg, x, positions):
         for i, k in enumerate(cfg.layer_pattern):
             xc, _ = blocks.apply_block(gp[str(i)], xc, cfg, k, kind="train",
                                        positions=positions)
-        return xc
+        return shard(xc, "act_batch", "act_seq", "act_embed")
 
     def inner(xc, gp):
         return checkpoint(body, xc, gp, use_reentrant=False)
@@ -129,8 +144,8 @@ def lm_forward(params, cfg, tokens, *, kind="prefill",
     or (final-normed hidden, cache) with ``return_hidden`` (the chunked
     cross-entropy's input)."""
     x = _embed(params, cfg, tokens)
-    b, s = x.shape[0], x.shape[1]
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    # one row of positions, broadcast over the batch by rope
+    positions = torch.arange(x.shape[1], device=x.device)
     x, cache = _run_groups(params, cfg, x, kind=kind, positions=positions)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
@@ -160,6 +175,24 @@ def init_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16,
             for i, k in enumerate(cfg.layer_pattern)}
 
 
+def cache_shapes(cfg, batch: int, seq: int, dtype=torch.bfloat16):
+    """Meta tensors of `init_cache`'s tree (no storage)."""
+    g = cfg.pattern_groups
+    return {str(i): tree_map(lambda a: a.new_empty((g,) + a.shape),
+                             blocks.cache_struct(cfg, k, batch, seq, dtype,
+                                                 "meta"))
+            for i, k in enumerate(cfg.layer_pattern)}
+
+
+def cache_axes(cfg):
+    """Logical axes tree matching `init_cache`'s structure."""
+    kv = ("layers", "act_batch", "act_kv_seq", "act_kv_heads", None)
+    for k in cfg.layer_pattern:
+        blocks._check_kind(cfg, k)
+    return {str(i): {"attn": {"k": kv, "v": kv}}
+            for i, _ in enumerate(cfg.layer_pattern)}
+
+
 def _nll_sum(logits, labels, vocab_size: int):
     """(sum of logz - gold over labels >= 0, their count), padded-vocab
     columns masked out, in f32 (f64 for f64 logits)."""
@@ -168,11 +201,68 @@ def _nll_sum(logits, labels, vocab_size: int):
     if v > vocab_size:
         pad = torch.arange(v, device=logits.device) >= vocab_size
         logits = logits + torch.where(pad, -1e9, 0.0).to(logits.dtype)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp(min=0).long()[..., None])[..., 0]
+    if meshlib.is_dtensor(logits):
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp(min=0).long()[..., None])[..., 0]
+        nll = logz - gold
     valid = (labels >= 0).to(logits.dtype)
-    return torch.sum((logz - gold) * valid), torch.sum(valid)
+    return torch.sum(nll * valid), torch.sum(valid)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """logz - gold of each row of vocab-split logits, on the rank's shard
+    (Megatron's vocab-parallel cross-entropy): the row max and the sums of
+    exponentials and gold logits are all-reduced over the ``groups`` that
+    split the vocab, the gold logit taken where the rank holds it; the
+    backward is softmax minus one-hot, on the shard."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0: int, groups):
+        import torch.distributed as dist
+        m = logits.amax(dim=-1)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        e = torch.exp(logits - m[..., None])
+        local = labels.long() - v0
+        inside = (local >= 0) & (local < logits.shape[-1])
+        local = local.clamp(0, logits.shape[-1] - 1)
+        gold = torch.gather(logits, -1, local[..., None])[..., 0]
+        sums = torch.stack([e.sum(dim=-1), torch.where(inside, gold, 0.0)])
+        for g in groups:
+            dist.all_reduce(sums, group=g)
+        ctx.save_for_backward(e, sums[0], local, inside)
+        return m + torch.log(sums[0]) - sums[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        e, total, local, inside = ctx.saved_tensors
+        d = e / total[..., None]
+        d.scatter_add_(-1, local[..., None],
+                       -inside.to(d.dtype)[..., None])
+        return d * grad[..., None], None, None, None
+
+
+def _vocab_parallel_nll(logits, labels):
+    """`_VocabParallelNLL` of DTensor logits [..., V] (split over V by some
+    mesh dims) and labels, as a DTensor with the logits' other
+    placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    vdim = logits.ndim - 1
+    groups = [mesh.get_group(i) for i, p in enumerate(pl)
+              if p == Shard(vdim)]
+    want = [Replicate() if p == Shard(vdim) else p for p in pl]
+    if not meshlib.is_dtensor(labels):
+        labels = meshlib.distribute(labels, mesh, want)
+    elif list(labels.placements) != want:
+        labels = labels.redistribute(mesh, want)
+    v0 = meshlib.local_offset(vdim, logits.shape[-1], mesh, pl)
+    out = _VocabParallelNLL.apply(logits.to_local(grad_placements=pl),
+                                  labels.to_local(), v0, groups)
+    return DTensor.from_local(out, mesh, want)
 
 
 def chunked_ce(head_fn, x, labels, vocab_size: int, *, chunk: int = 512):

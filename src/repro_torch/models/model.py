@@ -1,6 +1,7 @@
 """Top-level model of the port: config -> specs, parameters, the train
-loss, prefill and decode (the port of `repro.models.model.Model` for the
-dense decoder LMs)."""
+loss, prefill and decode, and the dry-run's input specs (meta tensors +
+logical axes) (the port of `repro.models.model.Model` for the dense
+decoder LMs)."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +9,7 @@ from torch import nn
 
 from .. import resolve_device
 from . import lm, params as P
-from .config import ModelConfig
+from .config import ModelConfig, ShapeConfig
 
 
 def _register(module: nn.Module, tree: dict, trainable: bool) -> dict:
@@ -44,17 +45,23 @@ class Model(nn.Module):
     def param_specs(self):
         return lm.lm_specs(self.cfg)
 
+    def param_shapes(self, dtype=torch.bfloat16):
+        return P.param_shapes(self.param_specs(), dtype)
+
+    def param_axes(self):
+        return P.param_axes(self.param_specs())
+
     def num_params(self) -> int:
         return P.count_params(self.param_specs())
 
     def init(self, seed: int = 0, dtype=torch.float32, device=None,
-             trainable: bool = False):
+             trainable: bool = False, place=None):
         """Random parameters from ``seed`` on ``device`` (the card unless
-        ``cpu`` is asked)."""
+        ``cpu`` is asked); ``place`` as `params.init_params` takes it."""
         gen = torch.Generator(device=resolve_device(device))
         gen.manual_seed(seed)
-        return self.load(P.init_params(self.param_specs(), gen, dtype),
-                         trainable)
+        return self.load(P.init_params(self.param_specs(), gen, dtype,
+                                       place), trainable)
 
     def load(self, params, trainable: bool = False):
         """Take a parameter tree (for example `params_from_jax`'s), after
@@ -95,3 +102,55 @@ class Model(nn.Module):
             tmpl[tuple(slice(0, n) for n in leaf.shape)] = leaf
             return tmpl
         return P.tree_map(pad, cache, self.init_cache(batch, max_seq, dtype))
+
+    def cache_axes(self):
+        return lm.cache_axes(self.cfg)
+
+    def cache_shapes(self, batch: int, seq: int, dtype=torch.bfloat16):
+        """Meta tensors of `init_cache`'s tree (no storage)."""
+        return lm.cache_shapes(self.cfg, batch, seq, dtype)
+
+    # ------------------------------------------------------- input specs
+    def input_specs(self, shape: ShapeConfig, dtype=torch.bfloat16):
+        """Meta-tensor stand-ins + logical axes for every model input.
+
+        train:  {tokens, labels}
+        prefill:{tokens}
+        decode: {token, index, cache}
+
+        The vlm and encoder-decoder inputs (patch embeddings, frames) wait
+        for their architectures (ROADMAP.md, queue 1 item 8).
+        """
+        cfg = self.cfg
+        if cfg.family == "vlm" or cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{cfg.name}: vlm and encoder-decoder inputs are not ported "
+                "yet (ROADMAP.md, queue 1 item 8: the other architectures)")
+        b, s = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        tok_ax = ("act_batch", "act_seq")
+        meta = lambda *size, dt=i32: torch.empty(  # noqa: E731
+            size, dtype=dt, device="meta")
+        specs, axes = {}, {}
+        if shape.kind in ("train", "prefill"):
+            specs["tokens"], axes["tokens"] = meta(b, s), tok_ax
+            if shape.kind == "train":
+                specs["labels"], axes["labels"] = meta(b, s), tok_ax
+        else:  # decode
+            specs["token"], axes["token"] = meta(b), ("act_batch",)
+            specs["index"], axes["index"] = meta(), ()
+            specs["cache"] = self.cache_shapes(b, s, dtype)
+            axes["cache"] = self.cache_axes()
+        return specs, axes
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS: 6·N·D train (3 fwd+bwd passes worth of 2·N·D), 2·N·D
+    decode/prefill; N = the parameters (the dense LMs of the port have no
+    inactive experts; an MoE config raises in `lm_specs`)."""
+    n_active = P.count_params(lm.lm_specs(cfg))
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.global_batch * shape.seq_len
+    return 2.0 * n_active * shape.global_batch  # one token per row

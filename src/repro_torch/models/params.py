@@ -1,9 +1,12 @@
 """Parameter specification trees of the port: one source of truth for
-shapes and initializers (the port of `repro.models.params`).
+shapes, logical sharding axes and initializers (the port of
+`repro.models.params`).
 
-A model builds a nested dict of `ParamSpec`; from it come the parameter
-count (no allocation) and the materialized parameters.  The JAX package's
-logical sharding axes have no counterpart on one card and are left out.
+A model builds a nested dict of `ParamSpec`; from it come:
+  * materialized parameters (`init_params`) — for real runs and tests;
+  * meta tensors (`param_shapes`) — for the dry-run (no allocation);
+  * logical-axis trees (`param_axes`) — mapped to DTensor placements by
+    `repro_torch.launch.mesh`.
 """
 from __future__ import annotations
 
@@ -20,8 +23,17 @@ from .. import resolve_device
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple
+    axes: Optional[tuple] = None  # logical axis name (or None) per dim;
+    #                               None: no axis on any dim
     init: str = "normal"     # 'normal' | 'zeros' | 'ones'
     scale: Optional[float] = None  # None -> 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if self.axes is None:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"ParamSpec: shape {self.shape} and axes "
+                             f"{self.axes} differ in length")
 
 
 def tree_map(fn, tree, *rest):
@@ -39,9 +51,12 @@ def tree_leaves(tree) -> list:
     return out
 
 
-def init_params(specs, generator: torch.Generator, dtype=torch.float32):
+def init_params(specs, generator: torch.Generator, dtype=torch.float32,
+                place=None):
     """Materialize parameters on the generator's device, leaf by leaf in
-    sorted-key order.  The distributions are the JAX package's: ones,
+    sorted-key order.  ``place(tensor, spec)``, if given, turns each leaf
+    into what the tree keeps (a sharded run: this rank's shard) as soon as
+    it is drawn, so only one full leaf is alive at a time.  The distributions are the JAX package's: ones,
     zeros, or normal x scale with scale = 1/sqrt(fan_in), fan_in the first
     dim (for a stacked [G, ...] weight that is G, as in the reference).
     The bits differ from `jax.random`'s; tests convert the JAX package's
@@ -58,7 +73,9 @@ def init_params(specs, generator: torch.Generator, dtype=torch.float32):
             max(fan_in, 1))
         return torch.randn(spec.shape, generator=generator, dtype=dtype,
                            device=dev).mul_(scale)
-    return tree_map(make, specs)
+    if place is None:
+        return tree_map(make, specs)
+    return tree_map(lambda spec: place(make(spec), spec), specs)
 
 
 def params_from_jax(tree, *, dtype=None, device=None):
@@ -73,6 +90,17 @@ def params_from_jax(tree, *, dtype=None, device=None):
         t = torch.from_numpy(np.array(a))
         return t.to(device=device, dtype=dtype or t.dtype)
     return tree_map(convert, tree)
+
+
+def param_shapes(specs, dtype=torch.bfloat16):
+    """Meta tensors of the specs' shapes in ``dtype`` (no storage): the
+    port's ``jax.ShapeDtypeStruct`` tree."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), specs)
+
+
+def param_axes(specs):
+    return tree_map(lambda s: s.axes, specs)
 
 
 def count_params(specs) -> int:

@@ -9,14 +9,22 @@ leaf by leaf, in place, over slices of at most `SLICE` entries, with the
 reference's operations in the reference's order.  The schedule and the
 bias corrections are host scalars in f32, as the reference computes them;
 the global norm stays on the device.
+
+Under a device mesh the leaves are DTensors, pinned to their weights'
+placements (`train.trainer.make_train_step`): the update runs on each
+rank's local shard (``to_local()``, elementwise, so no collective), and
+the global norm sums the local squares and all-reduces once over the
+mesh, a replicated leaf counted once.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
+from ..launch.mesh import is_dtensor
 from ..models.params import tree_leaves, tree_map
 
 SLICE = 1 << 26  # entries a slice of the in-place update (256 MB in f32)
@@ -36,10 +44,12 @@ class OptConfig:
 
 
 def init_opt_state(params):
-    """Zero f32 m and v beside each parameter, and the step (a host int32
-    scalar)."""
+    """Zero f32 m and v beside each parameter (with its placements under a
+    mesh), and the step (a host int32 scalar)."""
     def f32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format,
+                                requires_grad=False)
     return {"m": tree_map(f32, params), "v": tree_map(f32, params),
             "step": torch.zeros((), dtype=torch.int32)}
 
@@ -57,17 +67,48 @@ def schedule_lr(cfg: OptConfig, step) -> float:
     return float(f(cfg.lr) * warm * cos)
 
 
-def _slices(t):
-    return t.view(-1).split(SLICE)
+def _local(t):
+    """A leaf's local tensor: a DTensor's shard, a tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _slices(t, *, inplace: bool = True):
+    """``t``'s local entries in slices of `SLICE`: views of it, or (for a
+    leaf only read, such as a gradient after a redistribution) of a flat
+    copy where the shard is not contiguous."""
+    t = _local(t)
+    return (t.view(-1) if inplace else t.reshape(-1)).split(SLICE)
+
+
+def _copies(t) -> int:
+    """How many ranks of a DTensor's mesh hold each of its entries: the
+    product of its replicated mesh dims (1 for a tensor)."""
+    if not is_dtensor(t):
+        return 1
+    from torch.distributed.tensor import Replicate
+    return math.prod(t.device_mesh.size(i)
+                     for i, p in enumerate(t.placements)
+                     if isinstance(p, Replicate))
 
 
 def global_norm(tree):
     """sqrt of the sum of every leaf's sum of squares, in f32, on the
-    leaves' device (a 0-d tensor)."""
-    total = 0
+    leaves' device (a 0-d tensor).  DTensor leaves add their local squares
+    (a replicated leaf's divided by its copies) and one all-reduce over
+    the mesh sums them."""
+    total, mesh = 0, None
     for g in tree_leaves(tree):
-        sq = sum(s.float().square().sum() for s in _slices(g))
+        sq = sum(s.float().square().sum()
+                 for s in _slices(g, inplace=False))
+        if is_dtensor(g):
+            mesh, sq = g.device_mesh, sq / _copies(g)
         total = total + sq
+    if mesh is not None:
+        import torch.distributed as dist
+        if mesh.size() != dist.get_world_size():
+            raise ValueError("global_norm: the mesh must span the process "
+                             "group's ranks")
+        dist.all_reduce(total)
     return torch.sqrt(total)
 
 
@@ -85,7 +126,8 @@ def apply_updates(params, grads, state, cfg: OptConfig):
     bc2 = float(f(1) - f(b2) ** f(step))
     for p, g, m, v in zip(*(tree_leaves(t) for t in
                             (params, grads, state["m"], state["v"]))):
-        for ps, gs, ms, vs in zip(*(_slices(t) for t in (p, g, m, v))):
+        for ps, gs, ms, vs in zip(_slices(p), _slices(g, inplace=False),
+                                  _slices(m), _slices(v)):
             u = gs.float() * scale                     # g
             ms.mul_(b1).add_(u, alpha=1 - b1)          # m_new
             vs.mul_(b2).add_(u.square_(), alpha=1 - b2)  # v_new

@@ -59,6 +59,30 @@ def test_training_slice_is_guarded():
     assert proc.returncode == 0, proc.stderr
 
 
+MESH_MODULES = ["launch/mesh.py", "launch/roofline.py", "launch/hlo_stats.py",
+                "launch/dryrun.py", "models/config.py", "models/model.py",
+                "models/params.py", "train/trainer.py"]
+
+
+def test_mesh_slice_is_guarded():
+    """The mesh and dry-run slice's modules are among the scanned files,
+    and importing them pulls in neither JAX nor the JAX package (a fresh
+    interpreter in which both are unimportable)."""
+    port = ROOT / "src" / "repro_torch"
+    for rel in MESH_MODULES:
+        assert port / rel in PORT_FILES, rel
+    names = ["repro_torch." + rel[:-3].replace("/", ".")
+             for rel in MESH_MODULES]
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            + "".join(f"import {n}\n" for n in names))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_resolve_device_never_falls_back(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

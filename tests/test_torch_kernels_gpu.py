@@ -879,3 +879,34 @@ def test_card_distributed_one_rank_equals_cpu(cuda, mode, ranking):
     assert card.counts == cpu.counts
     assert card.converged_at == cpu.converged_at
     assert launches == len(card.counts) - 1 > 0 and cpu_launches == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_custom_ops_launch_on_the_card_and_pass_opcheck(cuda, dtype):
+    """The wrappers' custom ops on CUDA tensors: schema, fake
+    implementation (the kernels' output layouts), autograd registration
+    and AOT dispatch, each call launching its kernel."""
+    from repro_torch.kernels import flash_attention as tfa
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(1, 4, 64, 64, generator=g, device=cuda, dtype=dt)
+    k, v = (torch.randn(1, 2, 64, 64, generator=g, device=cuda, dtype=dt)
+            for _ in range(2))
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True, window=32)
+    cases = [(torch.ops.repro_torch.flash_attention,
+              (q, k, v, True, 32, None, None, 128, 128, None, True)),
+             (torch.ops.repro_torch.flash_attention_bwd,
+              (q, k, v, o, lse, torch.randn_like(o), True, 32, None, None,
+               None))]
+    if dtype == "float32":
+        lanes = [x.to(cuda) for x in _lanes(3, 4096, 64)]
+        cases.append((torch.ops.repro_torch.sig_fold,
+                      (*lanes, 64, 4096, False, False)))
+    for op, args in cases:
+        before = (tfold.sig_fold.launches, tfa.flash_attention.launches,
+                  tfa.flash_attention_bwd.launches)
+        res = torch.library.opcheck(op, args)
+        assert set(res.values()) == {"SUCCESS"}, (op, res)
+        after = (tfold.sig_fold.launches, tfa.flash_attention.launches,
+                 tfa.flash_attention_bwd.launches)
+        assert after != before, op

@@ -267,11 +267,15 @@ def test_launcher_matches_reference(tmp_path, monkeypatch):
 
 
 def test_launcher_refuses_the_mesh_and_a_missing_card(monkeypatch):
-    args = launcher.build_parser().parse_args(
-        ["--arch", "gemma2_9b", "--smoke", "--production-mesh",
-         "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        launcher.train(get_smoke_config("gemma2_9b"), args)
+    # the production meshes need 256 (512) launched ranks; this process is
+    # a world of one (no torchrun or Slurm variables)
+    for var in ("RANK", "WORLD_SIZE", "SLURM_JOB_NODELIST"):
+        monkeypatch.delenv(var, raising=False)
+    for flag, need in (("--production-mesh", 256), ("--multi-pod", 512)):
+        args = launcher.build_parser().parse_args(
+            ["--arch", "gemma2_9b", "--smoke", flag, "--device", "cpu"])
+        with pytest.raises(ValueError, match=f"{need} ranks.*has 1"):
+            launcher.train(get_smoke_config("gemma2_9b"), args)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         launcher.main(["--arch", "gemma2_9b", "--smoke", "--steps", "1"])
