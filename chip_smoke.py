@@ -61,7 +61,7 @@ Phases, each printing one JSON line:
              and ``multiset``: a maintainer with device propagation on
              the card and one on the numpy host path take the same ops
              (1, 1,000 and 100,000 random edge inserts, 1,000 existing
-             edges again, DELETE_NODE on 3 nodes, compact) and must agree
+             edges again, DELETE_NODE on 2 nodes, compact) and must agree
              bit for bit after each; one line an op (frontier and changed
              nodes a level, rebuilt, device and host walls, fold launches,
              store sizes and bytes, peak memory); at the end equal stores
@@ -166,9 +166,15 @@ Phases, each printing one JSON line:
              of the same function, with it of a neighbouring one; the
              port never calls it), with the kernel's own time under
              `torch.profiler`, the time of 20 calls in a row by CUDA
-             events and the host's time a call; prints both attention libraries'
-             ``-Xptxas -v`` lines, a register/spill/wgmma count of each
-             kernel's SASS and the route each dtype takes;
+             events and the host's time a call; then minicpm3-4b's MLA
+             prefill (bf16, 40/40 heads, q/k head_dim 96 = 64 nope + 32
+             rope, v head_dim 64, 8192 tokens, causal) the same way, its
+             bound at 2 (D + Dv) flops a visible pair and SDPA on the
+             backends that take a v head_dim of its own, and both MLA
+             pairs (96/64, 24/16) in both dtypes against the plain
+             version; prints the attention libraries' ``-Xptxas -v``
+             lines, a register/spill/wgmma count of each kernel's SASS and
+             the route each dtype takes;
 8a. attention_bwd — ``flash_attention_bwd`` against its plain version
              (`_bwd_rule`'s port) on the card on the cases of
              `tests/test_torch_kernels_gpu.py`, each dtype through its
@@ -181,15 +187,23 @@ Phases, each printing one JSON line:
              (the rule's five products) and SDPA's backward (fwd + bwd
              minus fwd, no softcap); the f32 routes (forward and
              backward) timed the same way at the train-parity shape and
-             at gemma2's train shape, bounds on the f32 peak; prints the
-             route each dtype takes and both backward libraries'
+             at gemma2's train shape, bounds on the f32 peak; then the
+             MLA pairs' cases in both dtypes and minicpm3-4b's heads at the
+             train shape (4096 tokens) in both dtypes, timed the same way
+             beside the bound at 2 (3 D + 2 Dv) flops a visible pair and
+             SDPA's backward where a backend takes the shapes; prints the
+             route each dtype takes and the backward libraries'
              ``-Xptxas -v`` lines and SASS counts (by kernel and
-             head_dim);
+             head_dims);
 9. serve_parity — a 4-layer, d_model-512 gemma2 in f32 served by
              ``ServeEngine`` on the card and on the CPU from one seeded
              init: equal tokens, the card's prefill logits within 1e-4 of
              the CPU's float64 evaluation, and ``flash_attention``
-             launched once a layer a prefill wave;
+             launched once a layer a prefill wave; then the same for a
+             4-layer, d_model-512 minicpm3 at its own head widths (MLA:
+             kv_lora 256, q_lora 768, rope 32, nope 64, v 64; weight
+             matrices at std 1/sqrt(d_in), as train_parity's), one line
+             each;
 10. serve  — the serving launcher's defaults on gemma2-9b at full width
              (42 layers, bf16, random weights from seed 0): 16 requests
              of 4..63 tokens, 32 new tokens each, waves of up to 8, with
@@ -197,6 +211,17 @@ Phases, each printing one JSON line:
              just after (it must be 42 x waves);
 11. serve_profile — device time by kernel and the device's idle share
              for one wave of that server, under `torch.profiler`;
+11a. serve_zoo — the other dense architectures served in bf16 from
+             seed 0, one line each: minicpm3-4b at full width and depth
+             (62 layers; the serving launcher with ``--requests 4
+             --max-new 16``), qwen1.5-110b at full width cut to 8 of its
+             80 layers (4 requests, 16 new tokens) and llava-next-34b at
+             full width cut to 20 of its 60 layers (one wave of 4 rows:
+             2,880 stub patch embeddings and 48 text tokens a row, 16 new
+             tokens, through ``ServeEngine.serve(..., extra=)``): init s,
+             prefill ms, decode ms, tokens/s, peak bytes and share of the
+             card, ``flash_attention`` launches against layers x waves,
+             finite logits and well-formed outputs;
 12. train_parity — a 4-layer, d_model-512 gemma2 in f32 (weight matrices
              at std 1/sqrt(d_in)) trained on the card and on the CPU from
              one init: the card's first-step gradients within 1e-4 of each
@@ -359,7 +384,7 @@ def phase_build() -> dict:
                     .splitlines() if "Used" in ln or "Compiling" in ln]
              for name in _build.SIGNATURES}
     out = {"phase": "build", "seconds": seconds, "nvidia_smi": smi,
-           "ptxas": ptxas}
+           "seconds_by_source": dict(_build.BUILD_SECONDS), "ptxas": ptxas}
     emit(out)
     return out
 
@@ -983,7 +1008,7 @@ def phase_oocore(args, g, inmem) -> dict:
 MAINT = dict(k=10, modes=("sorted", "multiset"), seed=0)
 MAINT_OPS = (("add-edges", 1), ("add-edges", 1000), ("add-edges", 100_000),
              ("re-add-edges", 1000), ("delete-node", 1), ("delete-node", 1),
-             ("delete-node", 1), ("compact", 0))
+             ("compact", 0))
 
 
 def _same_partition(a, b) -> bool:
@@ -2725,6 +2750,26 @@ GEMMA_ATTN = dict(b=1, hq=16, hkv=8, s=8192, d=256, softcap=50.0,
 # the serve-parity model: gemma2 cut to 4 layers at a moderate width
 PARITY_LM = dict(num_layers=4, d_model=512, num_heads=8, num_kv_heads=4,
                  head_dim=64, d_ff=2048, vocab_size=32768, local_window=32)
+# multi-head latent attention: the (q/k, v) head_dim pairs built for it,
+# minicpm3-4b's and its smoke configuration's; the pairs' cases against the
+# plain version in both dtypes (b, hq, hkv, sq, skv, (d, dv), causal,
+# window, softcap, dtype); minicpm3-4b's MLA prefill attention (40 q over
+# 40 kv heads, q/k of 64 nope + 32 rope, v of 64, one sequence of 8192
+# tokens in bf16) and, smaller, in f32
+MLA_PAIRS = ((96, 64), (24, 16))
+MLA_ATTN_CASES = [(c[:5] + (pair,) + c[5:] + (dtype,))
+                  for pair in MLA_PAIRS for dtype in ("float32", "bfloat16")
+                  for c in ((1, 4, 4, 200, 200, True, None, None),
+                            (2, 8, 2, 37, 300, False, 64, 2.0),
+                            (1, 4, 1, 150, 250, True, None, None))]
+MLA_ATTN = dict(b=1, hq=40, hkv=40, s=8192, d=96, dv=64)
+MLA_F32_TOKENS = 1024
+# the MLA serve-parity model: minicpm3-4b cut to 4 layers at d_model 512,
+# its own head widths
+PARITY_MLA = dict(num_layers=4, d_model=512, num_heads=8, num_kv_heads=8,
+                  kv_lora_rank=256, q_lora_rank=768, rope_head_dim=32,
+                  nope_head_dim=64, v_head_dim=64, head_dim=64, d_ff=2048,
+                  vocab_size=32768)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2755,7 +2800,7 @@ def _kernel_name(mangled: str) -> str:
 
 def _sass_summary(name: str, path=None) -> dict:
     """Per kernel of a built library (``path``, default the library
-    ``name`` builds to), keyed by its name and head_dim, from its SASS
+    ``name`` builds to), keyed by its name and head_dims, from its SASS
     (``cuobjdump``): the registers it touches, spill stores and loads,
     wgmma and the waits on them, the instruction count and a digest of the
     instructions (offsets and encodings left out), which tells two builds
@@ -2773,11 +2818,11 @@ def _sass_summary(name: str, path=None) -> dict:
     out = {}
     for block in sass.split("Function : ")[1:]:
         fn = block.split()[0]
-        dim = re.search(r"Li(\d+)E", fn)
+        dims = re.findall(r"Li(\d+)E", fn)
         regs = [int(r) for r in re.findall(r"\bR(\d+)\b", block)]
         code = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln.split(";")[0]).strip()
                 for ln in block.splitlines() if ";" in ln and "/*" in ln]
-        key = _kernel_name(fn) + (f" D={dim.group(1)}" if dim else "")
+        key = _kernel_name(fn) + (f" D={'/'.join(dims)}" if dims else "")
         out[key] = {
             "registers_touched": max(regs, default=-1) + 1,
             "STL": block.count("STL"), "LDL": block.count("LDL"),
@@ -2789,12 +2834,38 @@ def _sass_summary(name: str, path=None) -> dict:
     return out
 
 
+# SDPA's backends that take a v head_dim other than q's and k's (the math
+# backend, which materializes the logits, is left out)
+SDPA_DV_BACKENDS = ("EFFICIENT_ATTENTION", "FLASH_ATTENTION",
+                    "CUDNN_ATTENTION")
+
+
+def _sdpa_ms(fn, backends=None, reps: int = 10) -> tuple:
+    """(ms of ``fn``, a note): SDPA as it picks its backend, or restricted
+    to ``backends`` (names of `torch.nn.attention.SDPBackend`); (None, the
+    reason) when none of them takes the call's shapes."""
+    if backends is None:
+        return cuda_ms(fn, reps), None
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    chosen = [getattr(SDPBackend, name) for name in backends]
+
+    def restricted():
+        with sdpa_kernel(chosen):
+            return fn()
+    try:
+        return cuda_ms(restricted, reps), f"SDPA on {', '.join(backends)}"
+    except RuntimeError as exc:
+        return None, (f"no SDPA backend among {', '.join(backends)} takes "
+                      f"these shapes: {str(exc).splitlines()[0][:200]}")
+
+
 def phase_attention() -> dict:
     """flash_attention on the card vs flash_attention_plain on the card,
     each case timed beside its bound and beside SDPA without softcap."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain,
                                                      kernel_route)
@@ -2803,15 +2874,17 @@ def phase_attention() -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def measure(b, hq, hkv, sq, skv, d, causal, window, softcap, dtype,
-                bshd=False, profile=False):
+                bshd=False, profile=False, dv=None, sdpa_backends=None):
         # bshd: [B, S, H, D] activations viewed as [B, H, S, D], as the
-        # model hands them over
-        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
+        # model hands them over; dv: v's head_dim (MLA), default d
+        dv = dv or d
+        q, k, v = (torch.randn(b, s, h, w, generator=gen, device=dev)
                    .to(getattr(torch, dtype)).transpose(1, 2)
                    if bshd else
-                   torch.randn(b, h, s, d, generator=gen, device=dev)
+                   torch.randn(b, h, s, w, generator=gen, device=dev)
                    .to(getattr(torch, dtype))
-                   for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+                   for h, s, w in ((hq, sq, d), (hkv, skv, d),
+                                   (hkv, skv, dv)))
         kw = dict(causal=causal, window=window, softcap=softcap)
         launches = flash_attention.launches
         got = flash_attention(q, k, v, **kw)
@@ -2823,31 +2896,34 @@ def phase_attention() -> dict:
         keep = attention_mask(sq, skv, causal=causal, window=window,
                               device=dev)
         pairs = int(keep.sum())  # unmasked (query, key) pairs of a head
-        flop_ms = 4 * b * hq * d * pairs / FLOP_PER_S[dtype] * 1e3
-        byte_ms = (q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        flop_ms = (tfa.fwd_flops(d, dv, b * hq * pairs) / FLOP_PER_S[dtype]
+                   * 1e3)
+        byte_ms = (q.element_size() * (q.numel() + k.numel() + v.numel()
+                                       + got.numel())
                    / HBM_BYTES_PER_S * 1e3)
         # the yardstick: one SDPA call, same mask, no softcap (SDPA has
         # none); its is_causal aligns queries top-left, so a boolean mask
         # carries the right-aligned causal and window masks
-        sdpa = dict(enable_gqa=True)
+        sdpa = dict(enable_gqa=True) if hq != hkv or dv == d else {}
         if causal and window is None and sq == skv:
             sdpa["is_causal"] = True
         elif causal or window is not None:
             sdpa["attn_mask"] = keep
-        row = {"case": dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
+        library_ms, library_note = _sdpa_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, **sdpa),
+            sdpa_backends)
+        row = {"case": dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d, dv=dv,
                             causal=causal, window=window, softcap=softcap,
                             dtype=dtype, bshd=bshd),
-               "route": kernel_route(q.dtype),
+               "route": kernel_route(q.dtype, d, dv),
                "max_abs_err": err, "tol": tol,
                "ok": err < tol and launched == 1
-               and got.stride() == q.stride(),
+               and got.stride() == tfa._empty_as(q, dv).stride(),
                "pairs_per_head": pairs,
                "ms": cuda_ms(lambda: flash_attention(q, k, v, **kw), 10),
                "plain_ms": cuda_ms(
                    lambda: flash_attention_plain(q, k, v, **kw), 10),
-               "library_ms": cuda_ms(
-                   lambda: F.scaled_dot_product_attention(q, k, v, **sdpa),
-                   10),
+               "library_ms": library_ms, "library_note": library_note,
                "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
                "bound_ms": max(flop_ms, byte_ms),
                "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
@@ -2871,6 +2947,20 @@ def phase_attention() -> dict:
     cases = [measure(*case) for case in ATTN_CASES]
     cases += [measure(2, 4, 2, 37, 37, 64, True, 16, None, dtype, bshd=True)
               for dtype in ("float32", "bfloat16")]
+    cases += [measure(*c[:5], c[5][0], *c[6:], dv=c[5][1])
+              for c in MLA_ATTN_CASES]
+    cases += [measure(2, 8, 8, 100, 100, d, True, None, None, dtype,
+                      bshd=True, dv=dv)
+              for d, dv in MLA_PAIRS for dtype in ("float32", "bfloat16")]
+    m = MLA_ATTN
+    mla = {"bfloat16": measure(m["b"], m["hq"], m["hkv"], m["s"], m["s"],
+                               m["d"], True, None, None, "bfloat16",
+                               profile=True, dv=m["dv"],
+                               sdpa_backends=SDPA_DV_BACKENDS),
+           "float32": measure(m["b"], m["hq"], m["hkv"], MLA_F32_TOKENS,
+                              MLA_F32_TOKENS, m["d"], True, None, None,
+                              "float32", profile=True, dv=m["dv"],
+                              sdpa_backends=SDPA_DV_BACKENDS)}
     g = GEMMA_ATTN
     timing = {name: measure(g["b"], g["hq"], g["hkv"], g["s"], g["s"],
                             g["d"], True, window, softcap, "bfloat16",
@@ -2879,10 +2969,11 @@ def phase_attention() -> dict:
                   ("global", None, g["softcap"]),
                   ("local", g["window"], g["softcap"]),
                   ("global_no_softcap", None, None))}
-    rows = cases + list(timing.values())
+    rows = cases + list(timing.values()) + list(mla.values())
     ptxas = {lib: [ln.strip() for ln in _build.ptxas_report(lib).splitlines()
                    if "Used" in ln or "spill" in ln or "C75" in ln]
-             for lib in ("flash_attention", "flash_attention_sm90")}
+             for lib in ("flash_attention", "flash_attention_sm90",
+                         "flash_attention_mla", "flash_attention_sm90_mla")}
     routes = {"bfloat16": kernel_route(torch.bfloat16) + " (wgmma, TMA)",
               "float32": kernel_route(torch.float32) + " (CUDA cores)"}
     print(f"flash_attention route: bf16 -> {routes['bfloat16']}, "
@@ -2904,7 +2995,9 @@ def phase_attention() -> dict:
                       "mask is not top-left causal",
            "cases": cases, "mismatches": bad,
            "max_abs_err": max(c["max_abs_err"] for c in rows),
-           "gemma2_9b_prefill": timing, "ptxas": ptxas, "sass": sass}
+           "gemma2_9b_prefill": timing, "minicpm3_4b_prefill": mla,
+           "built_pairs": [list(p) for p in tfa.HEAD_DIMS],
+           "ptxas": ptxas, "sass": sass}
     emit(out)
     if bad:
         raise SystemExit("flash_attention disagrees with its plain version")
@@ -2921,9 +3014,14 @@ def _host_cpu() -> str:
     return f"{platform.machine()} {' / '.join(names)} x{os.cpu_count()}"
 
 
-def phase_serve_parity() -> dict:
-    """A small gemma2 served on the card (prefill attention through the
-    kernel) and on the CPU (plain version) from one init: equal tokens,
+def phase_serve_parity(arch: str = "gemma2_9b", overrides=None,
+                       phase: str = "serve_parity",
+                       trained_scale: bool = False) -> dict:
+    """A small ``arch`` (default gemma2 at `PARITY_LM`; minicpm3 at
+    `PARITY_MLA` is the MLA one) served on the card (prefill attention
+    through the kernel) and on the CPU (plain version) from one init
+    (with ``trained_scale``, its weight matrices at std 1/sqrt(d_in):
+    `_trained_scale`): equal tokens,
     one launch a layer a prefill wave, and the card's prefill logits
     within 1e-4 of the CPU's plain route evaluated in float64.  (Card and
     CPU in f32 each lie ~2e-5 from float64 on this model, but their f32
@@ -2938,8 +3036,11 @@ def phase_serve_parity() -> dict:
     from repro_torch.serve import ServeEngine
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
     t0 = time.perf_counter()
-    cfg = get_config("gemma2_9b").scaled(**PARITY_LM)
+    overrides = PARITY_LM if overrides is None else overrides
+    cfg = get_config(arch).scaled(**overrides)
     card = Model(cfg).init(0, torch.float32, DEVICE)
+    if trained_scale:
+        _trained_scale(card.params)
     cpu = Model(cfg).load(tree_map(lambda t: t.cpu(), card.params))
     cpu64 = Model(cfg).load(tree_map(lambda t: t.double(), cpu.params))
     rng = np.random.default_rng(0)
@@ -2959,7 +3060,8 @@ def phase_serve_parity() -> dict:
     launches = flash_attention.launches
     cpu_eng = ServeEngine(cpu, **kw)
     want = cpu_eng.serve(reqs, max_new=16)
-    out = {"phase": "serve_parity", "config": PARITY_LM, "dtype": "float32",
+    out = {"phase": phase, "arch": arch, "config": overrides,
+           "trained_scale": trained_scale, "dtype": "float32",
            "requests": len(reqs), "prompt_lengths": [len(r) for r in reqs],
            "prefill_logit_max_abs_err": err, "host_cpu": _host_cpu(),
            "tokens_equal": got == want, "stats": vars(eng.stats),
@@ -2971,7 +3073,7 @@ def phase_serve_parity() -> dict:
     if not (got == want and eng.stats == cpu_eng.stats
             and err["card_vs_f64"] < 1e-4
             and launches == cfg.num_layers * eng.stats.waves):
-        raise SystemExit("card serving differs from the CPU's")
+        raise SystemExit(f"{phase}: card serving differs from the CPU's")
     return out
 
 
@@ -3091,6 +3193,112 @@ def phase_serve_profile(eng, reqs) -> dict:
     return out
 
 
+# the other dense architectures served at full width in bf16 from seed 0
+# (arch, layers kept or None for full depth, traffic): minicpm3-4b at full
+# depth (4,263,336,448 parameters, 8.5 GB) through the serving launcher;
+# qwen1.5-110b cut to 8 of 80 layers (111.2e9 parameters, 222 GB, do not
+# fit: 8 layers are 13,388,439,552, 26.8 GB) and llava-next-34b cut to 20
+# of 60 (68.8 GB before its cache; 20 layers are 12,096,666,624, 24.2 GB)
+ZOO = (("minicpm3_4b", None, "launcher"), ("qwen1p5_110b", 8, "requests"),
+       ("llava_next_34b", 20, "vlm_wave"))
+ZOO_TRAFFIC = dict(requests=4, max_new=16, vlm_rows=4, vlm_text=48)
+
+
+def phase_serve_zoo() -> dict:
+    """minicpm3-4b, qwen1.5-110b and llava-next-34b served on the card
+    (`ZOO`), each model freed before the next; one line each, with the
+    ``flash_attention`` count set to 0 just before each model serves and
+    read just after (it must be its layers x waves)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
+    tr, bf16 = ZOO_TRAFFIC, torch.bfloat16
+    lines = {}
+    for arch, layers, traffic in ZOO:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        extra = None
+        if traffic == "launcher":
+            args = launcher.build_parser().parse_args([
+                "--arch", arch, "--device", DEVICE, "--requests",
+                str(tr["requests"]), "--max-new", str(tr["max_new"])])
+            eng = launcher.make_engine(args)
+            cfg = eng.model.cfg
+            reqs = launcher.make_requests(cfg, args.requests)
+        else:
+            cfg = get_config(arch).scaled(num_layers=layers)
+            model = Model(cfg).init(0, bf16, DEVICE)
+            if traffic == "requests":
+                eng = ServeEngine(model, max_batch=8, max_seq=256, dtype=bf16)
+                reqs = launcher.make_requests(cfg, tr["requests"])
+            else:  # one vlm wave: patches ahead of the text tokens
+                rng = np.random.default_rng(0)
+                reqs = [rng.integers(1, cfg.vocab_size, tr["vlm_text"])
+                        .tolist() for _ in range(tr["vlm_rows"])]
+                eng = ServeEngine(model, max_batch=tr["vlm_rows"],
+                                  max_seq=cfg.num_patch_tokens
+                                  + tr["vlm_text"] + tr["max_new"],
+                                  dtype=bf16)
+                extra = {"patch_embeds": launcher.patch_embeds(
+                    cfg, tr["vlm_rows"], bf16, DEVICE)}
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        model = eng.model
+        prefill_ms, decode_ms, finite = [], [], []
+        model.prefill = _timed_host(model.prefill, prefill_ms, finite)
+        model.decode_step = _timed_host(model.decode_step, decode_ms, finite)
+        try:
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            outs = eng.serve(reqs, max_new=tr["max_new"], extra=extra)
+            wall = time.perf_counter() - t0
+            launches = flash_attention.launches
+        finally:
+            del model.prefill, model.decode_step
+        peak = torch.cuda.max_memory_allocated()
+        card = torch.cuda.get_device_properties(0).total_memory
+        st = eng.stats
+        shapes_ok = (len(outs) == len(reqs)
+                     and all(len(o) == tr["max_new"] for o in outs)
+                     and all(0 <= t < cfg.padded_vocab
+                             for o in outs for t in o))
+        out = {"phase": "serve_zoo", "arch": cfg.name, "dtype": "bfloat16",
+               "layers": cfg.num_layers, "params": model.num_params(),
+               "traffic": traffic, "requests": len(reqs),
+               "prompt_lengths": [len(r) for r in reqs],
+               "patch_tokens": (cfg.num_patch_tokens if extra is not None
+                                else 0),
+               "max_new": tr["max_new"], "init_s": init_s, "wall_s": wall,
+               "generated_tokens": st.generated_tokens,
+               "tokens_per_s": st.generated_tokens / wall,
+               "waves": st.waves, "prefill_tokens": st.prefill_tokens,
+               "prefill_ms": prefill_ms,
+               "decode_ms_median": float(np.median(decode_ms)),
+               "flash_attention_launches": launches,
+               "layers_x_waves": cfg.num_layers * st.waves,
+               "logits_finite": all(finite),
+               "outputs_well_formed": shapes_ok, "peak_bytes": peak,
+               "peak_share": peak / card, "first_output": outs[0][:8]}
+        emit(out)
+        lines[arch] = out
+        del eng, model, outs, extra
+        if launches != cfg.num_layers * st.waves or launches == 0:
+            raise SystemExit(f"serve_zoo {arch}: {launches} flash_attention "
+                             f"launches for {st.waves} waves of "
+                             f"{cfg.num_layers} layers")
+        if not (all(finite) and shapes_ok):
+            raise SystemExit(f"serve_zoo {arch}: non-finite logits or "
+                             f"malformed outputs")
+    torch.cuda.empty_cache()
+    return lines
+
+
 # the backward's cases, those of `tests/test_torch_kernels_gpu.py`: the
 # reference's gradient test, causal on and off, window, softcap, GQA groups
 # 1, 2, 4 and 8, right-aligned and shifted queries, rows with no key, and
@@ -3115,6 +3323,17 @@ BWD_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset
     (1, 8, 1, 70, 70, 64, True, None, 3.0, 0),
     (1, 16, 8, 200, 200, 256, True, 64, 2.0, 0),
 ]
+# the MLA pairs' backward cases: causal and not, GQA, window, softcaps that
+# the logits reach, shifted queries with rows that see no key; then the
+# (d, dv) pair as an 11th field
+MLA_BWD_CASES = [c + (pair[1],) for pair in MLA_PAIRS for c in (
+    (1, 4, 4, 100, 100, pair[0], True, None, None, 0),
+    (2, 4, 4, 64, 64, pair[0], False, None, None, 0),
+    (1, 8, 2, 70, 70, pair[0], True, None, 2.0, 0),
+    (1, 4, 1, 40, 64, pair[0], True, 16, None, 24),
+    (2, 4, 2, 33, 33, pair[0], False, 8, 3.0, -5))]
+# minicpm3-4b's train attention: its MLA heads at train_4k's 4096 tokens
+MLA_TRAIN_TOKENS = 4096
 # gemma2-9b's train attention: one sequence of train_4k's 4096 tokens, bf16
 GEMMA_TRAIN_ATTN = dict(b=1, hq=16, hkv=8, s=4096, d=256, softcap=50.0,
                         window=4096)
@@ -3144,15 +3363,18 @@ def phase_attention_bwd() -> dict:
         return call(route, *args)
     tfa._call = record
 
-    def inputs(b, hq, hkv, sq, skv, d, dtype, seed):
+    def inputs(b, hq, hkv, sq, skv, d, dtype, seed, dv=None):
+        # q, k of head_dim d; v, dO of dv (MLA), default d
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return [torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
-                for h, s in ((hq, sq), (hkv, skv), (hkv, skv), (hq, sq))]
+        return [torch.randn(b, h, s, w, generator=gen, device=dev).to(dtype)
+                for h, s, w in ((hq, sq, d), (hkv, skv, d), (hkv, skv, dv or d),
+                                (hq, sq, dv or d))]
 
     def check(case, dtype):
-        b, hq, hkv, sq, skv, d, causal, window, softcap, off = case
+        b, hq, hkv, sq, skv, d, causal, window, softcap, off = case[:10]
+        dv = case[10] if len(case) > 10 else d
         dt = getattr(torch, dtype)
-        q, k, v, do = inputs(b, hq, hkv, sq, skv, d, dt, sq + d)
+        q, k, v, do = inputs(b, hq, hkv, sq, skv, d, dt, sq + d, dv)
         kw = dict(causal=causal, window=window, softcap=softcap,
                   q_offset=off)
         o, lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
@@ -3173,26 +3395,28 @@ def phase_attention_bwd() -> dict:
         lse_err = float((lse_k - lse).abs().masked_fill(big, 0.0).max())
         lse_scale = max(1.0, float(lse.masked_fill(big, 0.0).abs().max()))
         lse_tol = 1e-3 if dtype == "bfloat16" else 1e-4
-        ok = (launched == 1 and routes == [tfa.bwd_kernel_route(dt)]
+        ok = (launched == 1 and routes == [tfa.bwd_kernel_route(dt, d, dv)]
               and all(errs[n] <= tol * max(scales[n], 1e-30) for n in errs)
               and torch.equal(lse_k == tfa.BIG, big)
               and lse_err <= lse_tol * lse_scale
               and torch.equal(o_k, tfa.flash_attention(q, k, v, **kw)))
-        return {"case": dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
+        return {"case": dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d, dv=dv,
                              causal=causal, window=window, softcap=softcap,
                              q_offset=off, dtype=dtype),
-                "route": routes, "fwd_route": tfa.kernel_route(dt),
+                "route": routes, "fwd_route": tfa.kernel_route(dt, d, dv),
                 "max_abs_err": errs,
                 "max_abs": scales, "tol_of_max": tol,
                 "lse_max_abs_err": lse_err, "lse_tol": lse_tol * lse_scale,
                 "empty_rows": int(big.sum()), "ok": ok}
 
     cases = [check(c, dt) for dt in ("float32", "bfloat16")
-             for c in BWD_CASES]
+             for c in BWD_CASES + MLA_BWD_CASES]
 
-    def timed(dtype, shape, window, softcap):
+    def timed(dtype, shape, window, softcap, dv=None, sdpa_backends=None):
         b, hq, hkv, s, d = shape
-        q, k, v, do = inputs(b, hq, hkv, s, s, d, getattr(torch, dtype), 7)
+        dv = dv or d
+        q, k, v, do = inputs(b, hq, hkv, s, s, d, getattr(torch, dtype), 7,
+                             dv)
         kw = dict(causal=True, window=window, softcap=softcap)
         o, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
 
@@ -3208,17 +3432,19 @@ def phase_attention_bwd() -> dict:
         del got, want
         keep = attention_mask(s, s, causal=True, window=window, device=dev)
         pairs = int(keep.sum())
-        # the rule's five products (s, dv, dp, dq, dk), 2 D flops a
-        # visible pair each, on the peak of the dtype (bf16 the tensor
-        # cores', f32 the CUDA cores'); bytes: q, k, v, o, dO and the
-        # outputs once, lse once.  The forward: two products, q, k, v read
-        # and o, lse written once
+        # the rule's five products (s, dq, dk over D; dp, dv over Dv),
+        # 2 flops a visible pair a column each, on the peak of the dtype
+        # (bf16 the tensor cores', f32 the CUDA cores'); bytes: q, k, v,
+        # o, dO and the outputs once, lse once.  The forward: two products
+        # (QK^T over D, PV over Dv), q, k, v read and o, lse written once
         peak, size = FLOP_PER_S[dtype], q.element_size()
-        flop_ms = 10 * d * pairs * b * hq / peak * 1e3
-        byte_ms = (size * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+        flop_ms = tfa.bwd_flops(d, dv, pairs * b * hq) / peak * 1e3
+        byte_ms = (size * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                           + 2 * o.numel() + do.numel())
                    + 4 * lse.numel()) / HBM_BYTES_PER_S * 1e3
-        fwd_flop_ms = 4 * d * pairs * b * hq / peak * 1e3
-        fwd_byte_ms = (size * (2 * q.numel() + k.numel() + v.numel())
+        fwd_flop_ms = tfa.fwd_flops(d, dv, pairs * b * hq) / peak * 1e3
+        fwd_byte_ms = (size * (q.numel() + k.numel() + v.numel()
+                               + o.numel())
                        + 4 * lse.numel()) / HBM_BYTES_PER_S * 1e3
         # a call's device time: the mean event of each of its passes (the
         # profiler may see only some of the 20 calls' events)
@@ -3234,15 +3460,17 @@ def phase_attention_bwd() -> dict:
         # mask (the 4096 window masks nothing more at 4096 tokens), no
         # softcap (SDPA has none): the same function without the cap
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        gqa = dict(enable_gqa=True) if hq != hkv or dv == d else {}
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qs, ks, vs, is_causal=True, enable_gqa=True)
-        sdpa_fwd_ms = cuda_ms(sdpa, 10)
-        sdpa_fb_ms = cuda_ms(lambda: sdpa().backward(do), 10)
+            qs, ks, vs, is_causal=True, **gqa)
+        sdpa_fwd_ms, library_note = _sdpa_ms(sdpa, sdpa_backends)
+        sdpa_fb_ms = _sdpa_ms(lambda: sdpa().backward(do), sdpa_backends)[0]
         tol = 2e-2 if dtype == "bfloat16" else 1e-4
-        row = {"case": dict(b=b, hq=hq, hkv=hkv, s=s, d=d, causal=True,
-                            window=window, softcap=softcap, dtype=dtype),
+        row = {"case": dict(b=b, hq=hq, hkv=hkv, s=s, d=d, dv=dv,
+                            causal=True, window=window, softcap=softcap,
+                            dtype=dtype),
                "route": route, "err_of_max": errs, "tol_of_max": tol,
-               "ok": (route == [tfa.bwd_kernel_route(q.dtype)]
+               "ok": (route == [tfa.bwd_kernel_route(q.dtype, d, dv)]
                       and max(errs.values()) <= tol),
                "pairs_per_head": pairs, "kernel_ms": kernel_ms,
                "kernel_ms_source": source, "device_ms_by_name": names,
@@ -3259,7 +3487,10 @@ def phase_attention_bwd() -> dict:
                                 else "bytes"),
                "library_fwd_bwd_ms": sdpa_fb_ms,
                "library_fwd_ms": sdpa_fwd_ms,
-               "library_ms": sdpa_fb_ms - sdpa_fwd_ms,
+               "library_ms": (sdpa_fb_ms - sdpa_fwd_ms
+                              if sdpa_fb_ms is not None
+                              and sdpa_fwd_ms is not None else None),
+               "library_note": library_note,
                "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
                "bound_ms": max(flop_ms, byte_ms),
                "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
@@ -3277,6 +3508,12 @@ def phase_attention_bwd() -> dict:
     # main path, train_parity's global layers, and at gemma2's train shape
     f32 = {"train_parity": timed("float32", parity, None, g["softcap"]),
            "gemma2_9b_train": timed("float32", train, None, g["softcap"])}
+    # minicpm3-4b's MLA heads at the train shape, both dtypes
+    m = MLA_ATTN
+    mla_shape = (m["b"], m["hq"], m["hkv"], MLA_TRAIN_TOKENS, m["d"])
+    mla = {dtype: timed(dtype, mla_shape, None, None, dv=m["dv"],
+                        sdpa_backends=SDPA_DV_BACKENDS)
+           for dtype in ("bfloat16", "float32")}
     tfa._call = call
     routes = {"bfloat16": tfa.bwd_kernel_route(torch.bfloat16)
               + " (wgmma, TMA)",
@@ -3284,7 +3521,8 @@ def phase_attention_bwd() -> dict:
               + " (CUDA cores)"}
     print(f"flash_attention_bwd route: bf16 -> {routes['bfloat16']}, "
           f"f32 -> {routes['float32']}", flush=True)
-    libs = ("flash_attention_bwd_sm90", "flash_attention_bwd")
+    libs = ("flash_attention_bwd_sm90", "flash_attention_bwd",
+            "flash_attention_bwd_sm90_mla", "flash_attention_bwd_mla")
     ptxas = {lib: [ln.strip() for ln in _build.ptxas_report(lib).splitlines()
                    if "Used" in ln or "spill" in ln or "Compiling" in ln
                    or "C75" in ln]
@@ -3297,7 +3535,7 @@ def phase_attention_bwd() -> dict:
         for kernel, counts in kernels.items():
             print(f"sass {lib} {kernel}: {json.dumps(counts)}", flush=True)
     bad = [c for c in cases + list(timing.values()) + list(f32.values())
-           if not c["ok"]]
+           + list(mla.values()) if not c["ok"]]
     out = {"phase": "attention_bwd", "kernel": "flash_attention_bwd",
            "replaces": "none: the JAX package differentiates in XLA "
                        "(src/repro/models/flash_xla.py:100, _bwd_rule)",
@@ -3307,8 +3545,8 @@ def phase_attention_bwd() -> dict:
            "cases": cases, "mismatches": bad,
            "max_abs_err": max(max(c["max_abs_err"].values())
                               for c in cases),
-           "gemma2_9b_train": timing, "f32_routes": f32, "ptxas": ptxas,
-           "sass": sass}
+           "gemma2_9b_train": timing, "f32_routes": f32,
+           "minicpm3_4b_train": mla, "ptxas": ptxas, "sass": sass}
     emit(out)
     if bad:
         raise SystemExit("flash_attention_bwd or an lse disagrees with its "
@@ -4156,9 +4394,15 @@ def main() -> int:
     attn = phase_attention()
     attn_bwd = phase_attention_bwd()
     phase_serve_parity()
+    # minicpm3 has no logit softcap, and at the init's scale its attention
+    # saturates: card and CPU in f32 alike lie ~3e-4 from float64 there,
+    # ~9e-6 at the trained scale
+    phase_serve_parity("minicpm3_4b", PARITY_MLA, "serve_parity_mla",
+                       trained_scale=True)
     serve, eng, reqs = phase_serve()
     phase_serve_profile(eng, reqs)
     del eng
+    zoo = phase_serve_zoo()
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
     phase_train_parity()
     train = phase_train()
@@ -4186,6 +4430,16 @@ def main() -> int:
     emit({"phase": "op_dispatch", "host_us_a_call": dispatch,
           "inputs": "sig_fold 4,096 lanes / 256 rows; attention bf16 "
           "1 x 4/2 heads x 128 tokens x 64"})
+    # MLA's (96, 64) pair at minicpm3-4b's shapes, the serve_zoo's
+    # launches and the (D, Dv) pairs the libraries are built for
+    mla_keys = (*times, "bound_by", "library_ms", "library_note",
+                "kernel_ms_source", "back_to_back_ms", "max_abs_err",
+                "case")
+    mla_bwd_keys = tuple(k for k in mla_keys if k != "max_abs_err") + (
+        "err_of_max", "fwd_ms", "fwd_bound_ms", "library_fwd_ms")
+    pairs = attn["built_pairs"]
+    zoo_launches = {arch: line["flash_attention_launches"]
+                    for arch, line in zoo.items()}
     sharded_launches = {"fwd": [r["fwd"] for r in
                                 sharded_out["launches_by_rank"]],
                         "bwd": [r["bwd"] for r in
@@ -4238,7 +4492,12 @@ def main() -> int:
         "max_abs_err": attn["max_abs_err"], **{k: glob[k] for k in times},
         "kernel_ms_source": glob["kernel_ms_source"],
         "back_to_back_ms": glob["back_to_back_ms"],
-        "bound_by": glob["bound_by"], "library_ms": glob["library_ms"]}, {
+        "bound_by": glob["bound_by"], "library_ms": glob["library_ms"],
+        "mla_source":
+            "src/repro_torch/kernels/csrc/flash_attention_sm90_mla.cu",
+        "built_pairs": pairs, "serve_zoo_launches": zoo_launches,
+        "mla": {dtype: {k: row[k] for k in mla_keys} for dtype, row in
+                attn["minicpm3_4b_prefill"].items()}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "f32_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4255,7 +4514,12 @@ def main() -> int:
         "f32_route": {name: {k: row[k] for k in (
             *times, "bound_by", "library_ms", "fwd_ms", "fwd_bound_ms",
             "library_fwd_ms")} for name, row in
-            attn_bwd["f32_routes"].items()}}]})
+            attn_bwd["f32_routes"].items()},
+        "mla_source":
+            "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90_mla.cu",
+        "built_pairs": pairs,
+        "mla": {dtype: {k: row[k] for k in mla_bwd_keys} for dtype, row in
+                attn_bwd["minicpm3_4b_train"].items()}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -17,7 +17,8 @@ ARCH_IDS = [
     "seamless_m4t_large_v2",
 ]
 # the architectures whose block kinds are ported
-PORTED = ["gemma2_9b", "phi4_mini_3p8b"]
+PORTED = ["gemma2_9b", "phi4_mini_3p8b", "qwen1p5_110b", "llava_next_34b",
+          "minicpm3_4b"]
 
 
 def _module(arch: str):

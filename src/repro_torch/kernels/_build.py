@@ -2,10 +2,13 @@
 
 Each ``csrc/<name>.cu`` has a plain-C interface and compiles, at first use,
 into ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout
-(the digest covers the source, the ``csrc/*.cuh`` headers it includes and
-the flags, so an edited source or header builds anew).  ``nvcc``'s
+(the digest covers the source, the ``csrc`` files it includes and the
+flags, so an edited source or header builds anew).  ``nvcc``'s
 ``-Xptxas -v`` report is kept beside the library.  No
-PyTorch header is included, so a build takes seconds.
+PyTorch header is included, so a build takes seconds.  A ``*_mla.cu``
+source includes the attention source of its name and instantiates its
+kernels at other head_dim pairs: a library of its own, built in parallel
+with the rest.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -56,7 +61,15 @@ SIGNATURES = {
                                                   _I, _F, _F, _P],
     },
 }
-_INCLUDE = re.compile(r'^#include "([^"]+\.cuh)"', re.M)
+# each attention library's `*_mla` twin: the same entry points, named with
+# the suffix, for the (q/k, v) head_dim pairs of MLA
+for _name in ("flash_attention", "flash_attention_sm90", "flash_attention_bwd",
+              "flash_attention_bwd_sm90"):
+    SIGNATURES[f"{_name}_mla"] = {f"{fn}_mla": args for fn, args in
+                                  SIGNATURES[_name].items()}
+_INCLUDE = re.compile(r'^#include "([^"]+\.cuh?)"', re.M)
+# wall seconds of each source's nvcc in the last `build` that compiled it
+BUILD_SECONDS: dict = {}
 
 
 def nvcc() -> str:
@@ -68,8 +81,8 @@ def nvcc() -> str:
 
 
 def sources(name: str) -> list:
-    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly
-    or through another header, in the order first met."""
+    """``csrc/<name>.cu`` and the ``csrc`` files it includes, directly or
+    through another include, in the order first met."""
     found = [CSRC / f"{name}.cu"]
     for path in found:
         for header in _INCLUDE.findall(path.read_text()):
@@ -86,10 +99,12 @@ def library_path(name: str) -> Path:
 
 def build(*names: str) -> dict:
     """Compile every named source that is not built yet, all ``nvcc``
-    processes at once.  Returns {name: library path}; raises with
-    ``nvcc``'s output if one fails."""
+    processes at once (`BUILD_SECONDS` gets each one's wall seconds).
+    Returns {name: library path}; raises with ``nvcc``'s output if one
+    fails."""
     paths = {name: library_path(name) for name in names}
-    started = {}
+    started, logs = {}, {}
+    t0 = time.perf_counter()
     for name, out in paths.items():
         if out.exists():
             continue
@@ -98,9 +113,19 @@ def build(*names: str) -> dict:
         started[name] = (tmp, subprocess.Popen(
             [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    def wait(name, proc):
+        logs[name] = proc.communicate()[0]
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+    waiters = [threading.Thread(target=wait, args=(name, proc))
+               for name, (_, proc) in started.items()]
+    for th in waiters:
+        th.start()
+    for th in waiters:
+        th.join()
     failed = []
     for name, (tmp, proc) in started.items():
-        log, _ = proc.communicate()
+        log = logs[name]
         if proc.returncode:
             failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n{log}")
             continue

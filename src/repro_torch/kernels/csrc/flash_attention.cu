@@ -34,13 +34,24 @@
 // stores and reads), v row-major; at D = 256 that is 215,296 B, above the 48 KB of
 // static shared memory, so the launch opts in to dynamic shared memory.
 //
+// q and k have head_dim D, v (and so o) head_dim DV: the logits run over
+// D, the output over DV (MLA's 96 / 64).  D and DV are multiples of 8.
+//
 // Plain-C entry point, loaded with ctypes; it returns cudaGetLastError()
-// so a refused launch reaches the caller, or -1 for a head_dim it was not
-// built for.
+// so a refused launch reaches the caller, or -1 for a (D, DV) pair it was
+// not built for.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+// The (q/k head_dim, v head_dim) pairs this library is built for and its
+// entry point's name.  flash_attention_mla.cu includes this file with its
+// own pairs, so each set compiles in a translation unit of its own.
+#ifndef FA_PAIRS
+#define FA_PAIRS(X) X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(256, 256)
+#define FA_ENTRY flash_attention_fwd
+#endif
 
 namespace {
 
@@ -70,23 +81,23 @@ __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
   return a > b ? a : b;
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_bytes() {
-  // q^T [D][kPad], k^T [D][kPad], v [kTileK][D], p [kTileQ][kPad]
+  // q^T [D][kPad], k^T [D][kPad], v [kTileK][DV], p [kTileQ][kPad]
   return sizeof(float) *
-         (size_t(2) * D * kPad + size_t(kTileK) * D + size_t(kTileQ) * kPad);
+         (size_t(2) * D * kPad + size_t(kTileK) * DV + size_t(kTileQ) * kPad);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, Params p) {
-  constexpr int kCols = D / 8;  // output columns a thread
+  constexpr int kCols = DV / 8;  // output columns a thread
   extern __shared__ float smem[];
   float* qt = smem;                // [D][kPad]
   float* kt = qt + D * kPad;       // [D][kPad]
-  float* vv = kt + D * kPad;       // [kTileK][D]
-  float* pp = vv + kTileK * D;     // [kTileQ][kPad]
+  float* vv = kt + D * kPad;       // [kTileK][DV]
+  float* pp = vv + kTileK * DV;    // [kTileQ][kPad]
 
   const int tid = threadIdx.x;
   const int tx = tid & 7, ty = tid >> 3;
@@ -125,9 +136,11 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < kTileK * D; e += kThreads) {
       const int c = e / D, d = e % D;
-      const bool in = c < keys;
-      kt[d * kPad + c] = in ? kb[(k0 + c) * p.ks[2] + d] : 0.f;
-      vv[c * D + d] = in ? vb[(k0 + c) * p.vs[2] + d] : 0.f;
+      kt[d * kPad + c] = c < keys ? kb[(k0 + c) * p.ks[2] + d] : 0.f;
+    }
+    for (int e = tid; e < kTileK * DV; e += kThreads) {
+      const int c = e / DV, d = e % DV;
+      vv[c * DV + d] = c < keys ? vb[(k0 + c) * p.vs[2] + d] : 0.f;
     }
     __syncthreads();
 
@@ -193,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
       const float pc = pp[(2 * ty + 1) * kPad + c];
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        const float x = vv[c * D + tx + 8 * j];
+        const float x = vv[c * DV + tx + 8 * j];
         acc[0][j] = fmaf(pa, x, acc[0][j]);
         acc[1][j] = fmaf(pc, x, acc[1][j]);
       }
@@ -213,26 +226,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Params& p, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
-  cudaFuncSetAttribute(flash_fwd<D>,
+  constexpr size_t bytes = smem_bytes<D, DV>();
+  cudaFuncSetAttribute(flash_fwd<D, DV>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)bytes);
   const dim3 grid((unsigned)((p.sq + p.bq - 1) / p.bq),
                   (unsigned)(p.batch * p.hq));
-  flash_fwd<D><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd<D, DV><<<grid, kThreads, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dims: batch, hq, hkv, sq, skv, head_dim, then the (batch, head, seq)
-// element strides of q, k, v and o, all f32; lse: f32 [batch, hq, sq],
-// contiguous, or null.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
+// dims: batch, hq, hkv, sq, skv, head_dim (of q and k), then the (batch,
+// head, seq) element strides of q, k, v and o, all f32, then v's head_dim;
+// lse: f32 [batch, hq, sq], contiguous, or null.
+extern "C" int FA_ENTRY(const void* q, const void* k,
                                    const void* v, void* o,
                                    const long long* dims, int causal,
                                    int has_window, long long window,
@@ -246,7 +259,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.hkv = dims[2];
   p.sq = dims[3];
   p.skv = dims[4];
-  const int head_dim = (int)dims[5];
+  const int head_dim = (int)dims[5], v_dim = (int)dims[18];
   for (int i = 0; i < 3; ++i) {
     p.qs[i] = dims[6 + i];
     p.ks[i] = dims[9 + i];
@@ -265,12 +278,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.lse = (float*)lse;
   if (p.sq <= 0 || p.batch * p.hq <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (head_dim) {
-    case 16: return launch<16>(q, k, v, o, p, s);
-    case 32: return launch<32>(q, k, v, o, p, s);
-    case 64: return launch<64>(q, k, v, o, p, s);
-    case 128: return launch<128>(q, k, v, o, p, s);
-    case 256: return launch<256>(q, k, v, o, p, s);
-    default: return -1;
-  }
+#define FA_CASE(D, DV) \
+  if (head_dim == D && v_dim == DV) return launch<D, DV>(q, k, v, o, p, s);
+  FA_PAIRS(FA_CASE)
+#undef FA_CASE
+  return -1;
 }

@@ -38,13 +38,24 @@
 // stride of D + 1, P and dS [32][33]: 142,080 bytes at D = 256, so the
 // launch opts in to dynamic shared memory.
 //
+// q and k have head_dim D, v, o and dO head_dim DV (MLA's 96 / 64): s and
+// dq, dk run over D, dp, delta and dv over DV.  D and DV are multiples of 8.
+//
 // Plain-C entry point, loaded with ctypes; it returns the first
-// cudaGetLastError() that is not 0, or -1 for a head_dim it was not built
-// for.
+// cudaGetLastError() that is not 0, or -1 for a (D, DV) pair it was not
+// built for.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+// The (q/k head_dim, v head_dim) pairs this library is built for and its
+// entry point's name.  flash_attention_bwd_mla.cu includes this file with
+// its own pairs, so each set compiles in a translation unit of its own.
+#ifndef FA_PAIRS
+#define FA_PAIRS(X) X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(256, 256)
+#define FA_ENTRY flash_attention_bwd
+#endif
 
 namespace {
 
@@ -69,17 +80,17 @@ __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
   return a > b ? a : b;
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t dkdv_smem() {
-  // K^T, V^T [D][kPadT]; Q, dO [kTile][D + 1]; P, dS [kTile][kPadT];
-  // lse, delta [kTile]
-  return sizeof(float) * (size_t(2) * D * kPadT + size_t(2) * kTile * (D + 1) +
+  // K^T [D][kPadT], V^T [DV][kPadT]; Q [kTile][D + 1], dO [kTile][DV + 1];
+  // P, dS [kTile][kPadT]; lse, delta [kTile]
+  return sizeof(float) * (size_t(D + DV) * kPadT + size_t(kTile) * (D + DV + 2) +
                           size_t(2) * kTile * kPadT + 2 * kTile);
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (size_t(2) * D * kPadT + size_t(2) * kTile * (D + 1) +
+  return sizeof(float) * (size_t(D + DV) * kPadT + size_t(kTile) * (D + DV + 2) +
                           size_t(kTile) * kPadT + 2 * kTile);
 }
 
@@ -91,7 +102,8 @@ __device__ __forceinline__ bool visible(const Params& p, int64_t qpos,
   return ok;
 }
 
-// delta[b, h, i] = sum_d dO[b, h, i, d] * o[b, h, i, d], a warp a row.
+// delta[b, h, i] = sum_d dO[b, h, i, d] * o[b, h, i, d], a warp a row (D
+// here is v's head_dim).
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
@@ -111,9 +123,9 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) delta[row] = sum;
 }
 
-// One query tile's rows into shared memory (Q and dO by rows, stride D + 1;
-// rows past Sq are zero, their lse +BIG and delta 0).
-template <int D>
+// One query tile's rows into shared memory (Q and dO by rows, strides D + 1
+// and DV + 1; rows past Sq are zero, their lse +BIG and delta 0).
+template <int D, int DV>
 __device__ __forceinline__ void load_rows(
     const float* __restrict__ q, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -123,9 +135,11 @@ __device__ __forceinline__ void load_rows(
   const float* db = dout + b * p.dos[0] + h * p.dos[1];
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, d = e % D;
-    const bool in = i0 + r < p.sq;
-    qs_[r * (D + 1) + d] = in ? qb[(i0 + r) * p.qs[2] + d] : 0.f;
-    dos_[r * (D + 1) + d] = in ? db[(i0 + r) * p.dos[2] + d] : 0.f;
+    qs_[r * (D + 1) + d] = i0 + r < p.sq ? qb[(i0 + r) * p.qs[2] + d] : 0.f;
+  }
+  for (int e = threadIdx.x; e < kTile * DV; e += kThreads) {
+    const int r = e / DV, d = e % DV;
+    dos_[r * (DV + 1) + d] = i0 + r < p.sq ? db[(i0 + r) * p.dos[2] + d] : 0.f;
   }
   if (threadIdx.x < kTile) {
     const int r = threadIdx.x;
@@ -136,9 +150,9 @@ __device__ __forceinline__ void load_rows(
   }
 }
 
-// One kv tile's keys into shared memory, transposed ([D][kPadT]; keys past
-// Skv are zero).
-template <int D>
+// One kv tile's keys into shared memory, transposed (K [D][kPadT], V
+// [DV][kPadT]; keys past Skv are zero).
+template <int D, int DV>
 __device__ __forceinline__ void load_keys(const float* __restrict__ k,
                                           const float* __restrict__ v,
                                           const Params& p, int64_t b,
@@ -148,15 +162,17 @@ __device__ __forceinline__ void load_keys(const float* __restrict__ k,
   const float* vb = v + b * p.vs[0] + hk * p.vs[1];
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int c = e / D, d = e % D;
-    const bool in = k0 + c < p.skv;
-    kt[d * kPadT + c] = in ? kb[(k0 + c) * p.ks[2] + d] : 0.f;
-    vt[d * kPadT + c] = in ? vb[(k0 + c) * p.vs[2] + d] : 0.f;
+    kt[d * kPadT + c] = k0 + c < p.skv ? kb[(k0 + c) * p.ks[2] + d] : 0.f;
+  }
+  for (int e = threadIdx.x; e < kTile * DV; e += kThreads) {
+    const int c = e / DV, d = e % DV;
+    vt[d * kPadT + c] = k0 + c < p.skv ? vb[(k0 + c) * p.vs[2] + d] : 0.f;
   }
 }
 
 // p and ds of a 32 x 32 tile: thread (r = tid / 8, c = tid % 8) computes
 // row r, columns c + 8 j (j < 4), and writes them to P (if not null) and dS.
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void tile_p_ds(const Params& p, int64_t i0,
                                           int64_t k0, const float* qs_,
                                           const float* dos_, const float* kt,
@@ -167,12 +183,14 @@ __device__ __forceinline__ void tile_p_ds(const Params& p, int64_t i0,
   float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
   for (int d = 0; d < D; ++d) {
     const float qa = qs_[r * (D + 1) + d];
-    const float da = dos_[r * (D + 1) + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[j] = fmaf(qa, kt[d * kPadT + c + 8 * j], s[j]);
+    for (int j = 0; j < 4; ++j) s[j] = fmaf(qa, kt[d * kPadT + c + 8 * j], s[j]);
+  }
+  for (int d = 0; d < DV; ++d) {
+    const float da = dos_[r * (DV + 1) + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
       dp[j] = fmaf(da, vt[d * kPadT + c + 8 * j], dp[j]);
-    }
   }
   const int64_t qpos = i0 + r + p.off;
   const bool row_in = i0 + r < p.sq;
@@ -195,19 +213,19 @@ __device__ __forceinline__ void tile_p_ds(const Params& p, int64_t i0,
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              float* __restrict__ dk, float* __restrict__ dv, Params p) {
-  constexpr int kCols = D / 8;  // dk and dv columns a thread
+  constexpr int kCols = D / 8, kVCols = DV / 8;  // dk, dv columns a thread
   extern __shared__ float smem[];
   float* kt = smem;                      // [D][kPadT]
-  float* vt = kt + D * kPadT;            // [D][kPadT]
-  float* qs_ = vt + D * kPadT;           // [kTile][D + 1]
-  float* dos_ = qs_ + kTile * (D + 1);   // [kTile][D + 1]
-  float* pp = dos_ + kTile * (D + 1);    // [kTile][kPadT]
+  float* vt = kt + D * kPadT;            // [DV][kPadT]
+  float* qs_ = vt + DV * kPadT;          // [kTile][D + 1]
+  float* dos_ = qs_ + kTile * (D + 1);   // [kTile][DV + 1]
+  float* pp = dos_ + kTile * (DV + 1);   // [kTile][kPadT]
   float* dss = pp + kTile * kPadT;       // [kTile][kPadT]
   float* lse_ = dss + kTile * kPadT;     // [kTile]
   float* delta_ = lse_ + kTile;          // [kTile]
@@ -217,7 +235,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t g = p.hq / p.hkv;
   const int64_t k0 = (int64_t)blockIdx.x * kTile;
   const int64_t keys = min64(kTile, p.skv - k0);
-  load_keys<D>(k, v, p, b, hk, k0, kt, vt);
+  load_keys<D, DV>(k, v, p, b, hk, k0, kt, vt);
 
   // the query rows that any of these keys can see
   int64_t i_begin = 0, i_end = p.sq;
@@ -225,27 +243,30 @@ __global__ void __launch_bounds__(kThreads)
   if (p.has_window) i_end = min64(p.sq, k0 + keys - 1 + p.window - p.off);
 
   const int jr = threadIdx.x / 8, tx = threadIdx.x % 8;
-  float dk_acc[kCols], dv_acc[kCols];
+  float dk_acc[kCols], dv_acc[kVCols];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) dk_acc[c] = dv_acc[c] = 0.f;
+  for (int c = 0; c < kCols; ++c) dk_acc[c] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kVCols; ++c) dv_acc[c] = 0.f;
 
   for (int64_t gi = 0; gi < g; ++gi) {
     const int64_t h = hk * g + gi;
     for (int64_t i0 = i_begin; i0 < i_end; i0 += kTile) {
       __syncthreads();  // the previous tile's readers are done
-      load_rows<D>(q, dout, lse, delta, p, b, h, i0, qs_, dos_, lse_,
-                   delta_);
+      load_rows<D, DV>(q, dout, lse, delta, p, b, h, i0, qs_, dos_, lse_,
+                       delta_);
       __syncthreads();
-      tile_p_ds<D>(p, i0, k0, qs_, dos_, kt, vt, lse_, delta_, pp, dss);
+      tile_p_ds<D, DV>(p, i0, k0, qs_, dos_, kt, vt, lse_, delta_, pp, dss);
       __syncthreads();
       for (int r = 0; r < kTile; ++r) {
         const float pr = pp[r * kPadT + jr];
         const float ds = dss[r * kPadT + jr];
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          dv_acc[c] = fmaf(pr, dos_[r * (D + 1) + tx + 8 * c], dv_acc[c]);
+        for (int c = 0; c < kVCols; ++c)
+          dv_acc[c] = fmaf(pr, dos_[r * (DV + 1) + tx + 8 * c], dv_acc[c]);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
           dk_acc[c] = fmaf(ds, qs_[r * (D + 1) + tx + 8 * c], dk_acc[c]);
-        }
       }
     }
   }
@@ -253,14 +274,13 @@ __global__ void __launch_bounds__(kThreads)
     float* dkr = dk + b * p.dks[0] + hk * p.dks[1] + (k0 + jr) * p.dks[2];
     float* dvr = dv + b * p.dvs[0] + hk * p.dvs[1] + (k0 + jr) * p.dvs[2];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      dkr[tx + 8 * c] = dk_acc[c];
-      dvr[tx + 8 * c] = dv_acc[c];
-    }
+    for (int c = 0; c < kCols; ++c) dkr[tx + 8 * c] = dk_acc[c];
+#pragma unroll
+    for (int c = 0; c < kVCols; ++c) dvr[tx + 8 * c] = dv_acc[c];
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
@@ -270,9 +290,9 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ float smem[];
   float* kt = smem;
   float* vt = kt + D * kPadT;
-  float* qs_ = vt + D * kPadT;
+  float* qs_ = vt + DV * kPadT;
   float* dos_ = qs_ + kTile * (D + 1);
-  float* dss = dos_ + kTile * (D + 1);
+  float* dss = dos_ + kTile * (DV + 1);
   float* lse_ = dss + kTile * kPadT;
   float* delta_ = lse_ + kTile;
 
@@ -281,7 +301,8 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t hk = h / (p.hq / p.hkv);
   const int64_t i0 = (int64_t)blockIdx.x * kTile;
   const int64_t rows = min64(kTile, p.sq - i0);
-  load_rows<D>(q, dout, lse, delta, p, b, h, i0, qs_, dos_, lse_, delta_);
+  load_rows<D, DV>(q, dout, lse, delta, p, b, h, i0, qs_, dos_, lse_,
+                   delta_);
 
   // the keys that any of these rows can see
   int64_t k_begin = 0, k_end = p.skv;
@@ -295,9 +316,10 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int64_t k0 = k_begin; k0 < k_end; k0 += kTile) {
     __syncthreads();
-    load_keys<D>(k, v, p, b, hk, k0, kt, vt);
+    load_keys<D, DV>(k, v, p, b, hk, k0, kt, vt);
     __syncthreads();
-    tile_p_ds<D>(p, i0, k0, qs_, dos_, kt, vt, lse_, delta_, nullptr, dss);
+    tile_p_ds<D, DV>(p, i0, k0, qs_, dos_, kt, vt, lse_, delta_, nullptr,
+                     dss);
     __syncthreads();
     for (int j = 0; j < kTile; ++j) {
       const float ds = dss[ir * kPadT + j];
@@ -313,64 +335,63 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* lse, const float* dout, float* dq, float* dk,
            float* dv, float* delta, const Params& p, cudaStream_t stream) {
   // a pass with nothing to do is not launched (a grid of 0 is refused)
   const int64_t rows = p.batch * p.hq * p.sq;
   if (rows > 0) {
-    bwd_delta<D><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)),
+    bwd_delta<DV><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)),
                    kThreads, 0, stream>>>(o, dout, delta, p);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
   if (p.skv > 0) {
-    constexpr size_t bytes = dkdv_smem<D>();
-    cudaFuncSetAttribute(bwd_dkdv<D>,
+    constexpr size_t bytes = dkdv_smem<D, DV>();
+    cudaFuncSetAttribute(bwd_dkdv<D, DV>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
     const dim3 grid((unsigned)((p.skv + kTile - 1) / kTile),
                     (unsigned)(p.batch * p.hkv));
-    bwd_dkdv<D><<<grid, kThreads, bytes, stream>>>(q, k, v, dout, lse, delta,
-                                                   dk, dv, p);
+    bwd_dkdv<D, DV><<<grid, kThreads, bytes, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, p);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
   if (rows > 0) {
-    constexpr size_t bytes = dq_smem<D>();
-    cudaFuncSetAttribute(bwd_dq<D>,
+    constexpr size_t bytes = dq_smem<D, DV>();
+    cudaFuncSetAttribute(bwd_dq<D, DV>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
     const dim3 grid((unsigned)((p.sq + kTile - 1) / kTile),
                     (unsigned)(p.batch * p.hq));
-    bwd_dq<D><<<grid, kThreads, bytes, stream>>>(q, k, v, dout, lse, delta, dq,
-                                                 p);
+    bwd_dq<D, DV><<<grid, kThreads, bytes, stream>>>(q, k, v, dout, lse,
+                                                     delta, dq, p);
     return (int)cudaGetLastError();
   }
   return 0;
 }
 
-int dispatch(int head_dim, const float* q, const float* k, const float* v,
-             const float* o, const float* lse, const float* dout, float* dq,
-             float* dk, float* dv, float* delta, const Params& p,
-             cudaStream_t s) {
-  switch (head_dim) {
-    case 16: return launch<16>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
-    case 32: return launch<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
-    case 64: return launch<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
-    case 128: return launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
-    case 256: return launch<256>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
-    default: return -1;
-  }
+int dispatch(int head_dim, int v_dim, const float* q, const float* k,
+             const float* v, const float* o, const float* lse,
+             const float* dout, float* dq, float* dk, float* dv, float* delta,
+             const Params& p, cudaStream_t s) {
+#define FA_CASE(D, DV)                   \
+  if (head_dim == D && v_dim == DV)      \
+    return launch<D, DV>(q, k, v, o, lse, dout, dq, dk, dv, delta, p, s);
+  FA_PAIRS(FA_CASE)
+#undef FA_CASE
+  return -1;
 }
 
 }  // namespace
 
-// dims: batch, hq, hkv, sq, skv, head_dim, then the (batch, head, seq)
-// element strides of q, k, v, o, do, dq, dk and dv; every tensor f32
-// (lse and delta [batch, hq, sq], contiguous; delta is scratch).
-extern "C" int flash_attention_bwd(const float* q, const float* k,
+// dims: batch, hq, hkv, sq, skv, head_dim (of q and k), then the (batch,
+// head, seq) element strides of q, k, v, o, do, dq, dk and dv, then v's
+// head_dim; every tensor f32 (lse and delta [batch, hq, sq], contiguous;
+// delta is scratch).
+extern "C" int FA_ENTRY(const float* q, const float* k,
                                    const float* v, const float* o,
                                    const float* lse, const float* dout,
                                    float* dq, float* dk, float* dv,
@@ -385,7 +406,7 @@ extern "C" int flash_attention_bwd(const float* q, const float* k,
   p.hkv = dims[2];
   p.sq = dims[3];
   p.skv = dims[4];
-  const int head_dim = (int)dims[5];
+  const int head_dim = (int)dims[5], v_dim = (int)dims[30];
   int64_t* strides[8] = {p.qs, p.ks, p.vs, p.os, p.dos, p.dqs, p.dks, p.dvs};
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) strides[t][i] = dims[6 + 3 * t + i];
@@ -397,6 +418,6 @@ extern "C" int flash_attention_bwd(const float* q, const float* k,
   p.softcap = softcap;
   p.scale = scale;
   if (p.batch * p.hq <= 0) return 0;
-  return dispatch(head_dim, q, k, v, o, lse, dout, dq, dk, dv, delta, p,
-                  (cudaStream_t)stream);
+  return dispatch(head_dim, v_dim, q, k, v, o, lse, dout, dq, dk, dv, delta,
+                  p, (cudaStream_t)stream);
 }

@@ -58,20 +58,39 @@
 // ``tiles`` kv tiles of 32 keys from key ``first``.  The table orders the
 // blocks heaviest first.
 //
-// Tiles sit in shared memory as TMA writes them (rows of min(D, 64) bf16
-// with the matching swizzle; a D = 256 tile is four column chunks), rows
-// past Sq or Skv zero-filled; the mask is built only on edge tiles.
+// Tiles sit in shared memory as TMA writes them (`Cols`: rows of at most 64
+// bf16 with the matching swizzle; a D = 256 tile is four column chunks, a
+// D = 96 one three 32-wide chunks, and D = 24 is padded to 32 columns that
+// TMA zero-fills), rows past Sq or Skv zero-filled; the mask is built only
+// on edge tiles.
+//
+// q, k (and so dq, dk) have head_dim D; v, o, dO (and dv) head_dim DV (MLA:
+// 96 / 64).  S^T, S and dq, dk run over D; dP^T, dP, delta and dv over DV.
+// In the dk/dv pass the two warpgroups' products then differ in width
+// (dV m64n{DV}, dK m64n{D}), so each warpgroup runs a consumer of its own
+// width.  Shared memory a block (dk/dv pass, dq pass): 226.0 and 193.0 KB
+// at (256, 256), 94.0 and 61.0 KB at (96, 64), 52.0 and 19.0 KB at (24,
+// 16), with the same tiles and ring depth at every pair.
 // Registers: setmaxnreg gives the consumers 240 and the producer 24; no
 // trap lies on the consumers' path (a trap made ptxas ignore setmaxnreg in
 // the forward).
 //
 // Plain-C entry point, loaded with ctypes; it returns the first
-// cudaGetLastError() that is not 0, -1 for a head_dim it was not built for
-// and -2 when a tensor map is refused.
+// cudaGetLastError() that is not 0, -1 for a (D, DV) pair it was not built
+// for and -2 when a tensor map is refused.
 
 #include <float.h>
 
 #include "sm90_common.cuh"
+
+// The (q/k head_dim, v head_dim) pairs this library is built for and its
+// entry point's name.  flash_attention_bwd_sm90_mla.cu includes this file
+// with its own pairs, so each set compiles in a translation unit of its
+// own.
+#ifndef FA_PAIRS
+#define FA_PAIRS(X) X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(256, 256)
+#define FA_ENTRY flash_attention_bwd_sm90
+#endif
 
 namespace {
 
@@ -97,15 +116,9 @@ struct Params {
 
 // Tile geometry of one TMA box of ``Rows`` rows by D columns.
 template <int D, int Rows>
-struct Tile {
-  static constexpr int W = D < 64 ? D : 64;  // bf16 columns of a smem row
-  static constexpr int kChunks = D / W;
-  static constexpr uint32_t kRow = W * 2;
-  static constexpr uint32_t kChunk = Rows * kRow;
-  static constexpr uint32_t kBytes = kChunk * kChunks;
-  // wgmma layout type: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
-  static constexpr uint64_t kLayout = W == 64 ? 1 : W == 32 ? 2 : 3;
-  static constexpr uint32_t kSbo = 8 * kRow / 16;  // 8 rows, 16-byte units
+struct Tile : Cols<D> {
+  static constexpr uint32_t kChunk = Rows * Cols<D>::kRow;
+  static constexpr uint32_t kBytes = kChunk * Cols<D>::kChunks;
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int qpos,
@@ -165,14 +178,15 @@ constexpr int kKeys = 64;     // keys a block
 constexpr int kHalf = 32;     // queries a consumer warpgroup takes of a tile
 constexpr uint32_t kPBytes = kKeys * kRowTile * 2;  // one of P^T, dS^T
 
-template <int D>
+template <int D, int DV>
 struct Plan {
-  using T = Tile<D, kRowTile>;  // K, V, Q and dO tiles all have 64 rows
+  using TK = Tile<D, kRowTile>;   // K and Q tiles: 64 rows
+  using TV = Tile<DV, kRowTile>;  // V and dO tiles
   static constexpr uint32_t kK = 0;
-  static constexpr uint32_t kV = T::kBytes;
-  static constexpr uint32_t kQ = 2 * T::kBytes;  // + stage * T::kBytes
-  static constexpr uint32_t kDO = kQ + kStages * T::kBytes;
-  static constexpr uint32_t kP = kDO + kStages * T::kBytes;  // + buf * 2P
+  static constexpr uint32_t kV = TK::kBytes;
+  static constexpr uint32_t kQ = kV + TV::kBytes;  // + stage * TK::kBytes
+  static constexpr uint32_t kDO = kQ + kStages * TK::kBytes;  // + stage * TV
+  static constexpr uint32_t kP = kDO + kStages * TV::kBytes;  // + buf * 2P
   static constexpr uint32_t kRows = kP + 4 * kPBytes;  // + stage * 512
   static constexpr uint32_t kBar = kRows + kStages * 2 * kRowTile * 4;
   // kv, full[kStages], empty[kStages]; + 1024 to align the base
@@ -193,7 +207,7 @@ __device__ __forceinline__ uint32_t swz128(int r, int c) {
   return r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
 }
 
-template <int D, bool kCap>
+template <bool kCap>
 __device__ __forceinline__ void p_ds(float (&s)[16], float (&dp)[16],
                                      const Params& p, uint32_t rows,
                                      uint32_t p_buf, int wg, bool mask,
@@ -227,19 +241,25 @@ __device__ __forceinline__ void p_ds(float (&s)[16], float (&dp)[16],
   }
 }
 
-template <int D>
+// A consumer warpgroup whose product is COLS wide: dV (warpgroup 0, COLS =
+// DV, B = dO) or dK (warpgroup 1, COLS = D, B = Q).
+template <int D, int DV, int COLS>
 __device__ __forceinline__ void consume(uint32_t base, const Params& p,
                                         __nv_bfloat16* __restrict__ dk,
                                         __nv_bfloat16* __restrict__ dv,
                                         int wg, int b, int hk, int k0,
                                         int i_start, int n_q) {
-  using L = Plan<D>;
-  using T = typename L::T;
+  using L = Plan<D, DV>;
+  using TK = typename L::TK;
+  using TV = typename L::TV;
+  using TB = Tile<COLS, kRowTile>;  // B of this warpgroup's product
+  constexpr int kAcc = TB::kPad / 2;
+  constexpr int kSteps = (TK::kPad > TV::kPad ? TK::kPad : TV::kPad) / 16;
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int col0 = 2 * (lane % 4);
-  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+  float acc[kAcc];  // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 
   mbar_wait(base + L::kBar, 0);
   __syncwarp();
@@ -250,8 +270,8 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
       const int i0 = i_start + it * kRowTile;
       const uint32_t full = base + L::kBar + 8 * (1 + stage);
       const uint32_t empty = base + L::kBar + 8 * (1 + kStages + stage);
-      const uint32_t q_smem = base + L::kQ + stage * T::kBytes;
-      const uint32_t do_smem = base + L::kDO + stage * T::kBytes;
+      const uint32_t q_smem = base + L::kQ + stage * TK::kBytes;
+      const uint32_t do_smem = base + L::kDO + stage * TV::kBytes;
       const uint32_t p_buf = base + L::kP + (t & 1) * 2 * kPBytes;
       // what this warpgroup's 32 queries see of the 64 keys
       const int qmin = i0 + kHalf * wg + p.off, qmax = qmin + kHalf - 1;
@@ -264,22 +284,29 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
       float s[16], dp[16];
 #pragma unroll
       for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
-      const uint64_t dk_ = fresh(smem_desc(base + L::kK, 1, T::kSbo,
-                                           T::kLayout));
-      const uint64_t dv_ = fresh(smem_desc(base + L::kV, 1, T::kSbo,
-                                           T::kLayout));
-      const uint64_t dq_ = fresh(smem_desc(q_smem + kHalf * wg * T::kRow, 1,
-                                           T::kSbo, T::kLayout));
-      const uint64_t ddo = fresh(smem_desc(do_smem + kHalf * wg * T::kRow,
-                                           1, T::kSbo, T::kLayout));
+      const uint64_t dk_ = fresh(smem_desc(base + L::kK, 1, TK::kSbo,
+                                           TK::kLayout));
+      const uint64_t dv_ = fresh(smem_desc(base + L::kV, 1, TV::kSbo,
+                                           TV::kLayout));
+      const uint64_t dq_ = fresh(smem_desc(q_smem + kHalf * wg * TK::kRow, 1,
+                                           TK::kSbo, TK::kLayout));
+      const uint64_t ddo = fresh(smem_desc(do_smem + kHalf * wg * TV::kRow,
+                                           1, TV::kSbo, TV::kLayout));
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        // k-step kk: columns 16 kk of chunk (16 kk) / W, 32 bytes a step
-        const uint32_t c = (16 * kk) / T::W, in = (16 * kk) % T::W * 2;
-        const uint32_t at = (c * T::kChunk + in) >> 4;
-        wgmma_ss32(s, dk_ + at, dq_ + at, kk > 0);
-        wgmma_ss32(dp, dv_ + at, ddo + at, kk > 0);
+      for (int kk = 0; kk < kSteps; ++kk) {
+        // k-step kk: columns 16 kk of chunk (16 kk) / W, 32 bytes a step;
+        // S^T over D's k-steps, dP^T over DV's
+        if (kk < TK::kPad / 16) {
+          const uint32_t c = (16 * kk) / TK::W, in = (16 * kk) % TK::W * 2;
+          const uint32_t at = (c * TK::kChunk + in) >> 4;
+          wgmma_ss32(s, dk_ + at, dq_ + at, kk > 0);
+        }
+        if (kk < TV::kPad / 16) {
+          const uint32_t c = (16 * kk) / TV::W, in = (16 * kk) % TV::W * 2;
+          const uint32_t at = (c * TV::kChunk + in) >> 4;
+          wgmma_ss32(dp, dv_ + at, ddo + at, kk > 0);
+        }
       }
       wg_commit();
       wg_wait_all();
@@ -290,9 +317,9 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
       const int kpos0 = k0 + 16 * warp + lane / 4;
       const int qpos0 = qmin + col0;
       if (p.has_softcap)
-        p_ds<D, true>(s, dp, p, rows, p_buf, wg, mask, kpos0, qpos0);
+        p_ds<true>(s, dp, p, rows, p_buf, wg, mask, kpos0, qpos0);
       else
-        p_ds<D, false>(s, dp, p, rows, p_buf, wg, mask, kpos0, qpos0);
+        p_ds<false>(s, dp, p, rows, p_buf, wg, mask, kpos0, qpos0);
       fence_async_smem();
       named_sync<1, 128 * kConsumers>();
 
@@ -300,13 +327,14 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
       // a k-step, B's chunks kChunk apart
       const uint64_t da = fresh(smem_desc(p_buf + wg * kPBytes, 1, 64, 1));
       const uint64_t db = fresh(smem_desc(wg ? q_smem : do_smem,
-                                          T::kChunk / 16, T::kSbo,
-                                          T::kLayout));
+                                          TB::kChunk / 16, TB::kSbo,
+                                          TB::kLayout));
       pin(acc);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kRowTile / 16; ++kk)
-        wgmma_ss_tb<D>(acc, da + 2 * kk, db + ((16 * kk * T::kRow) >> 4));
+        wgmma_ss_tb<TB::kPad>(acc, da + 2 * kk,
+                              db + ((16 * kk * TB::kRow) >> 4));
       wg_commit();
       wg_wait_all();
       pin(acc);
@@ -326,13 +354,13 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
     if (key >= p.skv) continue;
     __nv_bfloat16* row = out + b * sb + hk * sh + key * ss;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < COLS / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + col0) =
           __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dkdv(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tdo,
@@ -340,8 +368,9 @@ __global__ void __launch_bounds__(kThreads, 1)
              const __grid_constant__ CUtensorMap tv,
              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
              const Params p) {
-  using L = Plan<D>;
-  using T = typename L::T;
+  using L = Plan<D, DV>;
+  using TK = typename L::TK;
+  using TV = typename L::TV;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar = base + L::kBar;
@@ -365,11 +394,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 128 * kConsumers) {
-      mbar_expect_tx(bar, 2 * T::kBytes);
-      for (int c = 0; c < T::kChunks; ++c) {
-        tma_load(base + L::kK + c * T::kChunk, &tk, bar, c * T::W, k0, hk, b);
-        tma_load(base + L::kV + c * T::kChunk, &tv, bar, c * T::W, k0, hk, b);
-      }
+      mbar_expect_tx(bar, TK::kBytes + TV::kBytes);
+      for (int c = 0; c < TK::kChunks; ++c)
+        tma_load(base + L::kK + c * TK::kChunk, &tk, bar, c * TK::W, k0, hk,
+                 b);
+      for (int c = 0; c < TV::kChunks; ++c)
+        tma_load(base + L::kV + c * TV::kChunk, &tv, bar, c * TV::W, k0, hk,
+                 b);
       int t = 0;
       for (int gi = 0; gi < p.group; ++gi) {
         const int h = hk * p.group + gi;
@@ -379,14 +410,14 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int i0 = qt.x + it * kRowTile;
           const uint32_t full = bar + 8 * (1 + stage);
           mbar_wait(bar + 8 * (1 + kStages + stage), ((t / kStages) & 1) ^ 1);
-          mbar_expect_tx(full, 2 * T::kBytes + 2 * kRowTile * 4);
-          const uint32_t q_smem = base + L::kQ + stage * T::kBytes;
-          const uint32_t do_smem = base + L::kDO + stage * T::kBytes;
-          for (int c = 0; c < T::kChunks; ++c) {
-            tma_load(q_smem + c * T::kChunk, &tq, full, c * T::W, i0, h, b);
-            tma_load(do_smem + c * T::kChunk, &tdo, full, c * T::W, i0, h,
+          mbar_expect_tx(full, TK::kBytes + TV::kBytes + 2 * kRowTile * 4);
+          const uint32_t q_smem = base + L::kQ + stage * TK::kBytes;
+          const uint32_t do_smem = base + L::kDO + stage * TV::kBytes;
+          for (int c = 0; c < TK::kChunks; ++c)
+            tma_load(q_smem + c * TK::kChunk, &tq, full, c * TK::W, i0, h, b);
+          for (int c = 0; c < TV::kChunks; ++c)
+            tma_load(do_smem + c * TV::kChunk, &tdo, full, c * TV::W, i0, h,
                      b);
-          }
           const uint32_t rows = base + L::kRows + stage * 2 * kRowTile * 4;
           bulk_load(rows, p.lse2 + row0 + i0, kRowTile * 4, full);
           bulk_load(rows + kRowTile * 4, p.delta + row0 + i0, kRowTile * 4,
@@ -396,7 +427,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume<D>(base, p, dk, dv, wg, b, hk, k0, qt.x, qt.y);
+    if constexpr (D == DV)
+      consume<D, DV, D>(base, p, dk, dv, wg, b, hk, k0, qt.x, qt.y);
+    else if (wg)
+      consume<D, DV, D>(base, p, dk, dv, wg, b, hk, k0, qt.x, qt.y);
+    else
+      consume<D, DV, DV>(base, p, dk, dv, wg, b, hk, k0, qt.x, qt.y);
   }
 }
 
@@ -410,20 +446,22 @@ constexpr int kRows = 128;   // query rows a block
 constexpr int kRowsWG = 64;  // query rows a consumer warpgroup
 constexpr int kKeys = 32;    // keys a kv tile
 
-template <int D>
+template <int D, int DV>
 struct Plan {
-  using Q = Tile<D, kRows>;   // Q and dO: two TMA boxes of 64 rows a chunk
-  using K = Tile<D, kKeys>;   // K and V
+  using Q = Tile<D, kRows>;   // Q: two TMA boxes of 64 rows a chunk
+  using O = Tile<DV, kRows>;  // dO, the same
+  using K = Tile<D, kKeys>;
+  using V = Tile<DV, kKeys>;
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kDO = Q::kBytes;
-  static constexpr uint32_t kK = 2 * Q::kBytes;  // + stage * K::kBytes
-  static constexpr uint32_t kV = kK + kStages * K::kBytes;
-  static constexpr uint32_t kBar = kV + kStages * K::kBytes;
+  static constexpr uint32_t kK = kDO + O::kBytes;  // + stage * K::kBytes
+  static constexpr uint32_t kV = kK + kStages * K::kBytes;  // + stage * V
+  static constexpr uint32_t kBar = kV + kStages * V::kBytes;
   // q, full[kStages], empty[kStages]; + 1024 to align the base
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int D, bool kMask, bool kCap>
+template <bool kMask, bool kCap>
 __device__ __forceinline__ void ds_frags(const float (&s)[16],
                                          const float (&dp)[16],
                                          uint32_t (&a)[2][4], const Params& p,
@@ -449,14 +487,18 @@ __device__ __forceinline__ void ds_frags(const float (&s)[16],
       a[kk][r] = pack_bf16(ds[8 * kk + 2 * r], ds[8 * kk + 2 * r + 1]);
 }
 
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void consume(uint32_t base, const Params& p,
                                         __nv_bfloat16* __restrict__ dq,
                                         int wg, int b, int h, int q0,
                                         int k_start, int n_k) {
-  using L = Plan<D>;
+  using L = Plan<D, DV>;
   using Q = typename L::Q;
+  using O = typename L::O;
   using K = typename L::K;
+  using V = typename L::V;
+  constexpr int kAcc = K::kPad / 2;  // dQ: m64n{D} accumulator registers
+  constexpr int kSteps = (Q::kPad > O::kPad ? Q::kPad : O::kPad) / 16;
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int r_lo = q0 + kRowsWG * wg;
   const int r_hi = min(r_lo + kRowsWG, p.sq);
@@ -469,9 +511,9 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
     l2[hh] = p.lse2[bh * p.sq_pad + row0 + 8 * hh];
     dl[hh] = p.delta[bh * p.sq_pad + row0 + 8 * hh];
   }
-  float acc[D / 2];
+  float acc[kAcc];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 
   mbar_wait(base + L::kBar, 0);
   __syncwarp();
@@ -495,24 +537,30 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
     __syncwarp();
     if (!skip) {
       const uint32_t k_smem = base + L::kK + stage * K::kBytes;
-      const uint32_t v_smem = base + L::kV + stage * K::kBytes;
+      const uint32_t v_smem = base + L::kV + stage * V::kBytes;
       float s[16], dp[16];
 #pragma unroll
       for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
       const uint64_t dq_ = fresh(smem_desc(
           base + L::kQ + wg * kRowsWG * Q::kRow, 1, Q::kSbo, Q::kLayout));
       const uint64_t ddo = fresh(smem_desc(
-          base + L::kDO + wg * kRowsWG * Q::kRow, 1, Q::kSbo, Q::kLayout));
+          base + L::kDO + wg * kRowsWG * O::kRow, 1, O::kSbo, O::kLayout));
       const uint64_t dk_ = fresh(smem_desc(k_smem, 1, K::kSbo, K::kLayout));
-      const uint64_t dv_ = fresh(smem_desc(v_smem, 1, K::kSbo, K::kLayout));
+      const uint64_t dv_ = fresh(smem_desc(v_smem, 1, V::kSbo, V::kLayout));
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t c = (16 * kk) / Q::W, in = (16 * kk) % Q::W * 2;
-        const uint32_t at_q = (c * Q::kChunk + in) >> 4;
-        const uint32_t at_k = (c * K::kChunk + in) >> 4;
-        wgmma_ss32(s, dq_ + at_q, dk_ + at_k, kk > 0);
-        wgmma_ss32(dp, ddo + at_q, dv_ + at_k, kk > 0);
+      for (int kk = 0; kk < kSteps; ++kk) {
+        // S over D's k-steps, dP over DV's
+        if (kk < Q::kPad / 16) {
+          const uint32_t c = (16 * kk) / Q::W, in = (16 * kk) % Q::W * 2;
+          wgmma_ss32(s, dq_ + ((c * Q::kChunk + in) >> 4),
+                     dk_ + ((c * K::kChunk + in) >> 4), kk > 0);
+        }
+        if (kk < O::kPad / 16) {
+          const uint32_t c = (16 * kk) / O::W, in = (16 * kk) % O::W * 2;
+          wgmma_ss32(dp, ddo + ((c * O::kChunk + in) >> 4),
+                     dv_ + ((c * V::kChunk + in) >> 4), kk > 0);
+        }
       }
       wg_commit();
       wg_wait_all();
@@ -523,14 +571,14 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
       const int qpos0 = row0 + p.off, kpos0 = k0 + col0;
       if (mask) {
         if (p.has_softcap)
-          ds_frags<D, true, true>(s, dp, a, p, l2, dl, qpos0, kpos0);
+          ds_frags<true, true>(s, dp, a, p, l2, dl, qpos0, kpos0);
         else
-          ds_frags<D, true, false>(s, dp, a, p, l2, dl, qpos0, kpos0);
+          ds_frags<true, false>(s, dp, a, p, l2, dl, qpos0, kpos0);
       } else {
         if (p.has_softcap)
-          ds_frags<D, false, true>(s, dp, a, p, l2, dl, qpos0, kpos0);
+          ds_frags<false, true>(s, dp, a, p, l2, dl, qpos0, kpos0);
         else
-          ds_frags<D, false, false>(s, dp, a, p, l2, dl, qpos0, kpos0);
+          ds_frags<false, false>(s, dp, a, p, l2, dl, qpos0, kpos0);
       }
       // dQ += dS.K: K rows 16 kk.. (keys) in every chunk, chunks kChunk
       // apart
@@ -540,7 +588,7 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
-        wgmma_pv<D>(acc, a[kk], dkt + ((16 * kk * K::kRow) >> 4));
+        wgmma_pv<K::kPad>(acc, a[kk], dkt + ((16 * kk * K::kRow) >> 4));
       wg_commit();
       wg_wait_all();
       pin(acc);
@@ -560,16 +608,18 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dq(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tdo,
            const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv,
            __nv_bfloat16* __restrict__ dq, const Params p) {
-  using L = Plan<D>;
+  using L = Plan<D, DV>;
   using Q = typename L::Q;
+  using O = typename L::O;
   using K = typename L::K;
+  using V = typename L::V;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar = base + L::kBar;
@@ -594,87 +644,88 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 128 * kConsumers) {
-      mbar_expect_tx(bar, 2 * Q::kBytes);
-      for (int c = 0; c < Q::kChunks; ++c)
-        for (int half = 0; half < kRows / kRowTile; ++half) {
-          const uint32_t at = c * Q::kChunk + half * kRowTile * Q::kRow;
-          const int i0 = q0 + half * kRowTile;
-          tma_load(base + L::kQ + at, &tq, bar, c * Q::W, i0, h, b);
-          tma_load(base + L::kDO + at, &tdo, bar, c * Q::W, i0, h, b);
-        }
+      mbar_expect_tx(bar, Q::kBytes + O::kBytes);
+      for (int half = 0; half < kRows / kRowTile; ++half) {
+        const int i0 = q0 + half * kRowTile;
+        for (int c = 0; c < Q::kChunks; ++c)
+          tma_load(base + L::kQ + c * Q::kChunk + half * kRowTile * Q::kRow,
+                   &tq, bar, c * Q::W, i0, h, b);
+        for (int c = 0; c < O::kChunks; ++c)
+          tma_load(base + L::kDO + c * O::kChunk + half * kRowTile * O::kRow,
+                   &tdo, bar, c * O::W, i0, h, b);
+      }
       for (int t = 0; t < kt.y; ++t) {
         const int stage = t % kStages;
         const uint32_t full = bar + 8 * (1 + stage);
         mbar_wait(bar + 8 * (1 + kStages + stage), ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * K::kBytes);
+        mbar_expect_tx(full, K::kBytes + V::kBytes);
         const int k0 = kt.x + t * kKeys;
         const uint32_t k_smem = base + L::kK + stage * K::kBytes;
-        const uint32_t v_smem = base + L::kV + stage * K::kBytes;
-        for (int c = 0; c < K::kChunks; ++c) {
+        const uint32_t v_smem = base + L::kV + stage * V::kBytes;
+        for (int c = 0; c < K::kChunks; ++c)
           tma_load(k_smem + c * K::kChunk, &tk, full, c * K::W, k0, hk, b);
-          tma_load(v_smem + c * K::kChunk, &tv, full, c * K::W, k0, hk, b);
-        }
+        for (int c = 0; c < V::kChunks; ++c)
+          tma_load(v_smem + c * V::kChunk, &tv, full, c * V::W, k0, hk, b);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume<D>(base, p, dq, wg, b, h, q0, kt.x, kt.y);
+    consume<D, DV>(base, p, dq, wg, b, h, q0, kt.x, kt.y);
   }
 }
 
 }  // namespace dq
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq_, void* dk, void* dv,
            const long long* dims, const Params& p, cudaStream_t stream) {
-  using KV64 = Tile<D, dkdv::kKeys>;
-  using KV32 = Tile<D, dq::kKeys>;
+  constexpr int kW = Cols<D>::W, kWV = Cols<DV>::W;  // box widths
   // q and dO in boxes of 64 rows (the dq pass loads two a chunk); with no
-  // query row nothing reads them, and k's map stands in (a map of an
-  // empty tensor is refused)
+  // query row nothing reads them, and k's and v's maps stand in (a map of
+  // an empty tensor is refused)
   const bool rows = p.sq > 0;
   CUtensorMap tq, tdo, tk64, tv64, tk32, tv32;
   if (!encode(&tq, rows ? q : k, D, rows ? p.sq : p.skv,
-              rows ? p.hq : p.hkv, p.batch, dims + (rows ? 6 : 9), KV64::W,
+              rows ? p.hq : p.hkv, p.batch, dims + (rows ? 6 : 9), kW,
               kRowTile) ||
-      !encode(&tdo, rows ? dout : k, D, rows ? p.sq : p.skv,
-              rows ? p.hq : p.hkv, p.batch, dims + (rows ? 18 : 9), KV64::W,
+      !encode(&tdo, rows ? dout : v, DV, rows ? p.sq : p.skv,
+              rows ? p.hq : p.hkv, p.batch, dims + (rows ? 18 : 12), kWV,
               kRowTile) ||
-      !encode(&tk64, k, D, p.skv, p.hkv, p.batch, dims + 9, KV64::W,
+      !encode(&tk64, k, D, p.skv, p.hkv, p.batch, dims + 9, kW,
               dkdv::kKeys) ||
-      !encode(&tv64, v, D, p.skv, p.hkv, p.batch, dims + 12, KV64::W,
+      !encode(&tv64, v, DV, p.skv, p.hkv, p.batch, dims + 12, kWV,
               dkdv::kKeys) ||
-      !encode(&tk32, k, D, p.skv, p.hkv, p.batch, dims + 9, KV32::W,
+      !encode(&tk32, k, D, p.skv, p.hkv, p.batch, dims + 9, kW,
               dq::kKeys) ||
-      !encode(&tv32, v, D, p.skv, p.hkv, p.batch, dims + 12, KV32::W,
+      !encode(&tv32, v, DV, p.skv, p.hkv, p.batch, dims + 12, kWV,
               dq::kKeys))
     return -2;
   const int64_t padded = (int64_t)p.batch * p.hq * p.sq_pad;
   if (padded > 0) {
     bwd_delta<<<(unsigned)((padded + 7) / 8), 256, 0, stream>>>(
-        (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, p, D);
+        (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, p, DV);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
   const int64_t kv_blocks = p.dkdv_blocks;
   if (kv_blocks > 0) {
-    constexpr uint32_t bytes = dkdv::Plan<D>::kBytes;
-    cudaFuncSetAttribute(dkdv::bwd_dkdv<D>,
+    constexpr uint32_t bytes = dkdv::Plan<D, DV>::kBytes;
+    cudaFuncSetAttribute(dkdv::bwd_dkdv<D, DV>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
-    dkdv::bwd_dkdv<D><<<(unsigned)kv_blocks, kThreads, bytes, stream>>>(
+    dkdv::bwd_dkdv<D, DV><<<(unsigned)kv_blocks, kThreads, bytes, stream>>>(
         tq, tdo, tk64, tv64, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, p);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
   const int64_t q_blocks = p.dq_blocks;
   if (q_blocks > 0) {
-    constexpr uint32_t bytes = dq::Plan<D>::kBytes;
-    cudaFuncSetAttribute(dq::bwd_dq<D>,
+    constexpr uint32_t bytes = dq::Plan<D, DV>::kBytes;
+    cudaFuncSetAttribute(dq::bwd_dq<D, DV>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
-    dq::bwd_dq<D><<<(unsigned)q_blocks, kThreads, bytes, stream>>>(
+    dq::bwd_dq<D, DV><<<(unsigned)q_blocks, kThreads, bytes, stream>>>(
         tq, tdo, tk32, tv32, (__nv_bfloat16*)dq_, p);
     return (int)cudaGetLastError();
   }
@@ -683,15 +734,16 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// dims: batch, hq, hkv, sq, skv, head_dim, then the (batch, head, seq)
-// element strides of q, k, v, o, do, dq, dk and dv.  q, k, v, do: bf16,
+// dims: batch, hq, hkv, sq, skv, head_dim (of q and k), then the (batch,
+// head, seq) element strides of q, k, v, o, do, dq, dk and dv, then v's
+// head_dim.  q, k, v, do: bf16,
 // 16-byte aligned, strides multiples of 8 elements (TMA's 16 bytes),
 // head_dim contiguous; o, dq, dk, dv: bf16, head_dim contiguous.  lse: f32
 // [batch, hq, sq], contiguous.  scratch: f32 [2][batch * hq][sq_pad].
 // blocks: the plan's block table, int32 [dkdv_blocks + dq_blocks][4] on
 // the card.  plan (`bwd_launch_plan`): dkdv_blocks, dq_blocks, sq_pad,
 // window (clamped), q_offset.
-extern "C" int flash_attention_bwd_sm90(
+extern "C" int FA_ENTRY(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
     void* scratch, const void* blocks, const long long* dims,
@@ -704,7 +756,7 @@ extern "C" int flash_attention_bwd_sm90(
   p.hkv = (int)dims[2];
   p.sq = (int)dims[3];
   p.skv = (int)dims[4];
-  const int head_dim = (int)dims[5];
+  const int head_dim = (int)dims[5], v_dim = (int)dims[30];
   if (p.batch * p.hq <= 0) return 0;
   p.group = p.hq / p.hkv;
   int64_t* strides[5] = {p.os, p.dos, p.dqs, p.dks, p.dvs};
@@ -729,12 +781,10 @@ extern "C" int flash_attention_bwd_sm90(
   p.delta = p.lse2 + (int64_t)p.batch * p.hq * p.sq_pad;
   if (p.sq_pad % kPadRows) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (head_dim) {
-    case 16: return launch<16>(q, k, v, o, dout, dq, dk, dv, dims, p, s);
-    case 32: return launch<32>(q, k, v, o, dout, dq, dk, dv, dims, p, s);
-    case 64: return launch<64>(q, k, v, o, dout, dq, dk, dv, dims, p, s);
-    case 128: return launch<128>(q, k, v, o, dout, dq, dk, dv, dims, p, s);
-    case 256: return launch<256>(q, k, v, o, dout, dq, dk, dv, dims, p, s);
-    default: return -1;
-  }
+#define FA_CASE(D, DV)              \
+  if (head_dim == D && v_dim == DV) \
+    return launch<D, DV>(q, k, v, o, dout, dq, dk, dv, dims, p, s);
+  FA_PAIRS(FA_CASE)
+#undef FA_CASE
+  return -1;
 }

@@ -43,10 +43,12 @@
 // - Tiles that the causal or window mask empties for a warpgroup are
 //   skipped; the mask is built only on tiles that cross the diagonal, the
 //   window's edge or Skv.
-// - Tiles sit in shared memory as TMA writes them: rows of min(D, 64) bf16
-//   (128, 64 or 32 bytes) with the matching 128/64/32-byte swizzle, so a
-//   D = 256 tile is four column chunks and a k-step's descriptor steps
-//   across them.  Rows past Sq or Skv are zero-filled by TMA.
+// - Tiles sit in shared memory as TMA writes them (`Cols`): rows of at
+//   most 64 bf16 (128, 64 or 32 bytes) with the matching 128/64/32-byte
+//   swizzle, so a D = 256 tile is four column chunks and a k-step's
+//   descriptor steps across them.  Rows past Sq or Skv are zero-filled by
+//   TMA.  A block takes 65.0 KB of shared memory at (D, DV) = (96, 64),
+//   21.0 KB at (24, 16).
 // - Registers: setmaxnreg gives the consumers 240 and the producer 24
 //   (2 * 128 * 240 + 128 * 24 = 64,512 of the SM's 65,536); a consumer at
 //   D = 256 holds O (128 f32), S (32 f32) and P (16 bf16 pairs), 199
@@ -57,15 +59,30 @@
 //   in place of tanhf's long sequence, absolute error ~1e-7 (so ~1e-5 in a
 //   logit capped at 50).
 //
+// - q and k have head_dim D, v (and so o) head_dim DV (MLA: 96 / 64): S
+//   runs over D's k-steps, P.V is m64n{DV}k16.  A head_dim that is not a
+//   multiple of 16 is padded to one in shared memory (24 -> 32): its TMA
+//   box is wider than the tensor, TMA fills the columns past D with
+//   zeros, which add nothing to Q.K^T.  At D = 96 a row is three 32-wide
+//   chunks in the 64-byte swizzle (`Cols`).
+//
 // Plain-C entry point, loaded with ctypes; the tensor maps are encoded on
 // the host through cuTensorMapEncodeTiled, looked up at run time with
 // cudaGetDriverEntryPoint (nothing links -lcuda).  It returns
 // cudaGetLastError() so a refused launch reaches the caller, -1 for a
-// head_dim it was not built for and -2 when a tensor map is refused.
+// (D, DV) pair it was not built for and -2 when a tensor map is refused.
 
 #include <float.h>
 
 #include "sm90_common.cuh"
+
+// The (q/k head_dim, v head_dim) pairs this library is built for and its
+// entry point's name.  flash_attention_sm90_mla.cu includes this file with
+// its own pairs, so each set compiles in a translation unit of its own.
+#ifndef FA_PAIRS
+#define FA_PAIRS(X) X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(256, 256)
+#define FA_ENTRY flash_attention_fwd_sm90
+#endif
 
 namespace {
 
@@ -89,24 +106,23 @@ struct Params {
   float cap_out;     // softcap * log2 e
 };
 
-// Shared-memory plan of one block, in bytes from a 1024-aligned base.
-template <int D>
+// Shared-memory plan of one block, in bytes from a 1024-aligned base: Q
+// and K in the columns of D (`Cols<D>`), V in those of DV.
+template <int D, int DV>
 struct Plan {
-  static constexpr int W = D < 64 ? D : 64;  // bf16 columns of a smem row
-  static constexpr int kChunks = D / W;
-  static constexpr uint32_t kRow = W * 2;
-  static constexpr uint32_t kQChunk = kTileQ * kRow;
-  static constexpr uint32_t kKVChunk = kTileK * kRow;
-  static constexpr uint32_t kQBytes = kQChunk * kChunks;
-  static constexpr uint32_t kKVBytes = kKVChunk * kChunks;  // one of K, V
-  static constexpr uint32_t kK = kQBytes;                   // + stage * kKVBytes
-  static constexpr uint32_t kV = kK + kStages * kKVBytes;   // + stage * kKVBytes
-  static constexpr uint32_t kBar = kV + kStages * kKVBytes;
+  using QK = Cols<D>;
+  using V = Cols<DV>;
+  static constexpr uint32_t kQChunk = kTileQ * QK::kRow;
+  static constexpr uint32_t kKChunk = kTileK * QK::kRow;
+  static constexpr uint32_t kVChunk = kTileK * V::kRow;
+  static constexpr uint32_t kQBytes = kQChunk * QK::kChunks;
+  static constexpr uint32_t kKBytes = kKChunk * QK::kChunks;
+  static constexpr uint32_t kVBytes = kVChunk * V::kChunks;
+  static constexpr uint32_t kK = kQBytes;                   // + stage * kKBytes
+  static constexpr uint32_t kV = kK + kStages * kKBytes;    // + stage * kVBytes
+  static constexpr uint32_t kBar = kV + kStages * kVBytes;
   // q, full[kStages], empty[kStages]; + 1024 to align the base
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
-  // wgmma layout type: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
-  static constexpr uint64_t kLayout = W == 64 ? 1 : W == 32 ? 2 : 3;
-  static constexpr uint32_t kSbo = 8 * kRow / 16;  // 8 rows, 16-byte units
 };
 
 // The accumulator layout of m64nN: register 4j + 2h + c of thread (warp w,
@@ -161,12 +177,15 @@ __device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2],
   for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + sum[h];
 }
 
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void consume(uint32_t base, const Params& p,
                                         __nv_bfloat16* __restrict__ o, int wg,
                                         int b, int h, int q0, int k_begin,
                                         int n_tiles) {
-  using L = Plan<D>;
+  using L = Plan<D, DV>;
+  using QK = typename L::QK;
+  using V = typename L::V;
+  constexpr int kAcc = V::kPad / 2;  // O: m64n{DV} accumulator registers
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int off = p.off;
   const int r_lo = q0 + kRowsWG * wg;
@@ -174,11 +193,11 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
   const int row0 = r_lo + 16 * warp + lane / 4;  // and row0 + 8
   const int col0 = 2 * (lane % 4);
   const uint32_t bar_q = base + L::kBar;
-  const uint32_t q_smem = base + wg * kRowsWG * L::kRow;
+  const uint32_t q_smem = base + wg * kRowsWG * QK::kRow;
 
-  float acc[D / 2];
+  float acc[kAcc];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 
   mbar_wait(bar_q, 0);
@@ -203,21 +222,21 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
     mbar_wait(full, (t / kStages) & 1);
     __syncwarp();
     if (!skip) {
-      const uint32_t k_smem = base + L::kK + stage * L::kKVBytes;
-      const uint32_t v_smem = base + L::kV + stage * L::kKVBytes;
+      const uint32_t k_smem = base + L::kK + stage * L::kKBytes;
+      const uint32_t v_smem = base + L::kV + stage * L::kVBytes;
       float s[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = 0.f;
-      const uint64_t dq = fresh(smem_desc(q_smem, 1, L::kSbo, L::kLayout));
-      const uint64_t dk = fresh(smem_desc(k_smem, 1, L::kSbo, L::kLayout));
+      const uint64_t dq = fresh(smem_desc(q_smem, 1, QK::kSbo, QK::kLayout));
+      const uint64_t dk = fresh(smem_desc(k_smem, 1, QK::kSbo, QK::kLayout));
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < QK::kPad / 16; ++kk) {
         // k-step kk: columns 16 kk of chunk (16 kk) / W, 32 bytes a step;
         // descriptor addresses count 16-byte units
-        const uint32_t c = (16 * kk) / L::W, in = (16 * kk) % L::W * 2;
+        const uint32_t c = (16 * kk) / QK::W, in = (16 * kk) % QK::W * 2;
         wgmma_qk(s, dq + ((c * L::kQChunk + in) >> 4),
-                 dk + ((c * L::kKVChunk + in) >> 4), kk > 0);
+                 dk + ((c * L::kKChunk + in) >> 4), kk > 0);
       }
       wg_commit();
       wg_wait_all();
@@ -237,7 +256,7 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
           softmax<false, false>(s, m, l, alpha, p, row0 + off, kpos0);
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < kAcc; ++i) acc[i] *= alpha[(i >> 1) & 1];
       // P as the A fragments of four k-steps of 16 keys
       uint32_t a[4][4];
 #pragma unroll
@@ -246,14 +265,14 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
         for (int r = 0; r < 4; ++r)
           a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 
-      // V rows 16 kk.. (keys) in every chunk; chunks lie kKVChunk apart
+      // V rows 16 kk.. (keys) in every chunk; chunks lie kVChunk apart
       const uint64_t dv =
-          fresh(smem_desc(v_smem, L::kKVChunk / 16, L::kSbo, L::kLayout));
+          fresh(smem_desc(v_smem, L::kVChunk / 16, V::kSbo, V::kLayout));
       pin(acc);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<D>(acc, a[kk], dv + ((16 * kk * L::kRow) >> 4));
+        wgmma_pv<V::kPad>(acc, a[kk], dv + ((16 * kk * V::kRow) >> 4));
       wg_commit();
       wg_wait_all();
       pin(acc);
@@ -274,20 +293,22 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
           sum > 0.f ? (m[hh] + log2f(sum)) * kLn2 : -kNeg;
     __nv_bfloat16* orow = o + b * p.os[0] + h * p.os[1] + row * p.os[2];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
           __floats2bfloat162_rn(acc[4 * j + 2 * hh] * inv,
                                 acc[4 * j + 2 * hh + 1] * inv);
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    __nv_bfloat16* __restrict__ o, const Params p) {
-  using L = Plan<D>;
+  using L = Plan<D, DV>;
+  using QK = typename L::QK;
+  using V = typename L::V;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + L::kBar;
@@ -325,54 +346,56 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 128 * kConsumers) {
       mbar_expect_tx(bar_q, L::kQBytes);
-      for (int c = 0; c < L::kChunks; ++c)
-        tma_load(base + c * L::kQChunk, &tq, bar_q, c * L::W, q0, h, b);
+      for (int c = 0; c < QK::kChunks; ++c)
+        tma_load(base + c * L::kQChunk, &tq, bar_q, c * QK::W, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int stage = t % kStages;
         const uint32_t full = bar_q + 8 * (1 + stage);
         // the consumers freed this stage (passes at once on the first lap)
         mbar_wait(bar_q + 8 * (1 + kStages + stage), ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * L::kKVBytes);
+        mbar_expect_tx(full, L::kKBytes + L::kVBytes);
         const int k0 = k_begin + t * kTileK;
-        const uint32_t k_smem = base + L::kK + stage * L::kKVBytes;
-        const uint32_t v_smem = base + L::kV + stage * L::kKVBytes;
-        for (int c = 0; c < L::kChunks; ++c) {
-          tma_load(k_smem + c * L::kKVChunk, &tk, full, c * L::W, k0, hk, b);
-          tma_load(v_smem + c * L::kKVChunk, &tv, full, c * L::W, k0, hk, b);
-        }
+        const uint32_t k_smem = base + L::kK + stage * L::kKBytes;
+        const uint32_t v_smem = base + L::kV + stage * L::kVBytes;
+        for (int c = 0; c < QK::kChunks; ++c)
+          tma_load(k_smem + c * L::kKChunk, &tk, full, c * QK::W, k0, hk, b);
+        for (int c = 0; c < V::kChunks; ++c)
+          tma_load(v_smem + c * L::kVChunk, &tv, full, c * V::W, k0, hk, b);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume<D>(base, p, o, wg, b, h, q0, k_begin, n_tiles);
+    consume<D, DV>(base, p, o, wg, b, h, q0, k_begin, n_tiles);
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o,
            const long long* dims, const Params& p, cudaStream_t stream) {
-  using L = Plan<D>;
+  using L = Plan<D, DV>;
+  using QK = typename L::QK;
+  using V = typename L::V;
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, D, p.sq, p.hq, p.batch, dims + 6, L::W, kTileQ) ||
-      !encode(&tk, k, D, p.skv, p.hkv, p.batch, dims + 9, L::W, kTileK) ||
-      !encode(&tv, v, D, p.skv, p.hkv, p.batch, dims + 12, L::W, kTileK))
+  if (!encode(&tq, q, D, p.sq, p.hq, p.batch, dims + 6, QK::W, kTileQ) ||
+      !encode(&tk, k, D, p.skv, p.hkv, p.batch, dims + 9, QK::W, kTileK) ||
+      !encode(&tv, v, DV, p.skv, p.hkv, p.batch, dims + 12, V::W, kTileK))
     return -2;
-  cudaFuncSetAttribute(flash_fwd_sm90<D>,
+  cudaFuncSetAttribute(flash_fwd_sm90<D, DV>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)L::kBytes);
   const dim3 grid((unsigned)p.q_tiles, (unsigned)(p.batch * p.hq));
-  flash_fwd_sm90<D><<<grid, kThreads, L::kBytes, stream>>>(
+  flash_fwd_sm90<D, DV><<<grid, kThreads, L::kBytes, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dims: batch, hq, hkv, sq, skv, head_dim, then the (batch, head, seq)
-// element strides of q, k, v and o.  q, k, v: bf16, 16-byte aligned, strides
-// multiples of 8 elements (TMA's 16 bytes), head_dim contiguous.  lse: f32
-// [batch, hq, sq], contiguous, or null.
-extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
+// dims: batch, hq, hkv, sq, skv, head_dim (of q and k), then the (batch,
+// head, seq) element strides of q, k, v and o, then v's head_dim.  q, k, v:
+// bf16, 16-byte aligned, strides multiples of 8 elements (TMA's 16 bytes),
+// head_dim contiguous.  lse: f32 [batch, hq, sq], contiguous, or null.
+extern "C" int FA_ENTRY(const void* q, const void* k,
                                         const void* v, void* o,
                                         const long long* dims, int causal,
                                         int has_window, long long window,
@@ -385,7 +408,7 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
   p.hkv = (int)dims[2];
   p.sq = (int)dims[3];
   p.skv = (int)dims[4];
-  const int head_dim = (int)dims[5];
+  const int head_dim = (int)dims[5], v_dim = (int)dims[18];
   for (int i = 0; i < 3; ++i) p.os[i] = dims[15 + i];
   p.q_tiles = (p.sq + kTileQ - 1) / kTileQ;
   p.causal = causal;
@@ -403,12 +426,9 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
   p.cap_out = has_softcap ? softcap * kLog2e : 0.f;
   if (p.sq <= 0 || p.batch * p.hq <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (head_dim) {
-    case 16: return launch<16>(q, k, v, o, dims, p, s);
-    case 32: return launch<32>(q, k, v, o, dims, p, s);
-    case 64: return launch<64>(q, k, v, o, dims, p, s);
-    case 128: return launch<128>(q, k, v, o, dims, p, s);
-    case 256: return launch<256>(q, k, v, o, dims, p, s);
-    default: return -1;
-  }
+#define FA_CASE(D, DV) \
+  if (head_dim == D && v_dim == DV) return launch<D, DV>(q, k, v, o, dims, p, s);
+  FA_PAIRS(FA_CASE)
+#undef FA_CASE
+  return -1;
 }

@@ -18,6 +18,23 @@ namespace {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// The shared-memory columns of a head_dim D, as TMA writes a tile: rows of
+// W bf16 (128, 64 or 32 bytes) with the matching 128/64/32-byte swizzle,
+// kChunks of them side by side.  D is padded to kPad, a multiple of
+// wgmma's k-step of 16 (24 -> 32): the TMA box is then wider than the
+// tensor, and TMA fills the columns past D with zeros.  D = 96 is three
+// 32-wide chunks.
+template <int D>
+struct Cols {
+  static constexpr int kPad = (D + 15) / 16 * 16;
+  static constexpr int W = kPad % 64 == 0 ? 64 : kPad % 32 == 0 ? 32 : 16;
+  static constexpr int kChunks = kPad / W;
+  static constexpr uint32_t kRow = W * 2;
+  // wgmma layout type: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
+  static constexpr uint64_t kLayout = W == 64 ? 1 : W == 32 ? 2 : 3;
+  static constexpr uint32_t kSbo = 8 * kRow / 16;  // 8 rows, 16-byte units
+};
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -165,6 +182,23 @@ __device__ __forceinline__ void wgmma_pv<64>(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// m64n96: the dK and dQ products of MLA's q/k head_dim 96
+template <>
+__device__ __forceinline__ void wgmma_pv<96>(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : ACC32(d, 0), ACC8(d, 32), ACC8(d, 40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
                                               const uint32_t (&a)[4],
@@ -290,6 +324,21 @@ __device__ __forceinline__ void wgmma_ss_tb<64>(float (&d)[32],
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
       : ACC32(d, 0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<96>(float (&d)[48],
+                                               uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 1;\n}\n"
+      : ACC32(d, 0), ACC8(d, 32), ACC8(d, 40)
       : "l"(da), "l"(db), "r"(1));
 }
 

@@ -8,7 +8,11 @@ right-aligned queries (Sq <= Skv), in f32 and bf16, accumulating in f32
 (the plain version also takes f64 and then computes in f64: the CPU
 route's float64 evaluation, a numerical reference).
 Unlike the Pallas wrapper it takes any Sq and Skv, not only multiples of
-the tiles: prompts come in every length.
+the tiles: prompts come in every length.  v may have a head_dim of its own
+(Dv, as the reference's XLA attention carries it): multi-head latent
+attention's q and k are nope + rope wide, its v narrower.  The kernels are
+built for the (D, Dv) pairs of `HEAD_DIMS`: the square ones in
+``csrc/<name>.cu``, MLA's in ``csrc/<name>_mla.cu`` (`library`).
 
 The kernels read q, k and v through their strides (the last dim must be
 contiguous), so the model hands them ``[B, S, H, D]`` activations viewed as
@@ -59,7 +63,13 @@ from torch.utils.flop_counter import register_flop_formula
 from .ref import attention_mask
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)
-HEAD_DIMS = (16, 32, 64, 128, 256)  # head_dims the kernels are built for
+# the (q/k head_dim, v head_dim) pairs the kernels are built for: the
+# square ones, and MLA's (minicpm3-4b's 96 = 64 nope + 32 rope over a v of
+# 64, and its smoke configuration's 24 over 16), whose kernels build into
+# the libraries' ``_mla`` twins
+SQUARE_DIMS = (16, 32, 64, 128, 256)
+MLA_DIMS = ((96, 64), (24, 16))
+HEAD_DIMS = tuple((d, d) for d in SQUARE_DIMS) + MLA_DIMS
 MAX_TILE = 64  # the f32 kernel's largest query and kv tiles
 # the CUDA library (and its entry point) that each dtype launches
 ROUTES = {torch.bfloat16: ("flash_attention_sm90", "flash_attention_fwd_sm90"),
@@ -83,7 +93,7 @@ def _check(q, k, v, causal, window, softcap, block_q, block_k):
         raise ValueError("flash_attention: q, k, v must be [B, H, S, D]")
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
     if hkv == 0 or hq % hkv:
@@ -110,8 +120,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
                           softcap=None, scale=None, block_q: int = 128,
                           block_k: int = 128, q_offset=None):
     """The kernel's function in plain PyTorch ops, logits materialized:
-    same arguments, same masking and empty-row rule (output 0).  Used by
-    the CPU route and as the card's comparison."""
+    same arguments, same masking and empty-row rule (output 0), an output
+    of v's head_dim.  Used by the CPU route and as the card's
+    comparison."""
     _check(q, k, v, causal, window, softcap, block_q, block_k)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -157,7 +168,8 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True, window=None,
     (online softmax over kv chunks), in the kernel's [B, H, S, D] layout.
     lse is [B, Hq, Sq] in the accumulation type (f32, or f64 for f64
     inputs), +BIG for a row with no key.  Used by the CPU route of
-    ``return_lse`` and as the card's comparison of the kernels' lse."""
+    ``return_lse`` and as the card's comparison of the kernels' lse.  o
+    has v's head_dim."""
     _check(q, k, v, causal, window, softcap, 1, 1)
     b, hq, sq, _ = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -198,7 +210,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     0 in a row whose lse is +BIG), dv = p^T dO, dp = dO v^T, ds = p (dp -
     delta), times (1 - t^2) under a softcap, times the scale; dq the sum
     over chunks of ds k, dk = ds^T q; dk and dv summed over the g q heads
-    of a kv head.  The kernel's comparison on the card, and its CPU
+    of a kv head.  o and dO have v's head_dim; dq, dk and dv take q's, k's
+    and v's shapes.  The kernel's comparison on the card, and its CPU
     route."""
     _check(q, k, v, causal, window, softcap, 1, 1)
     b, hq, sq, d = q.shape
@@ -238,13 +251,43 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-def kernel_route(dtype) -> str:
+def kernel_route(dtype, d=None, dv=None) -> str:
     """The CUDA library that a call in ``dtype`` launches: bf16 the wgmma
     kernel (``flash_attention_sm90``), f32 the CUDA-core kernel
-    (``flash_attention``).  Any other dtype has no kernel and raises."""
+    (``flash_attention``); with a (``d``, ``dv``) head_dim pair, the
+    library that pair is built in (`library`).  Any other dtype has no
+    kernel and raises."""
     if dtype not in ROUTES:
         raise ValueError(f"flash_attention: no kernel for {dtype}")
-    return ROUTES[dtype][0]
+    if d is None:
+        return ROUTES[dtype][0]
+    return library(ROUTES[dtype], d, dv)[0]
+
+
+def library(route, d: int, dv: int) -> tuple:
+    """(library, entry point) of ``route`` (an entry of `ROUTES` or
+    `BWD_ROUTES`) for q/k head_dim ``d`` and v head_dim ``dv``: MLA's
+    pairs are built in the ``_mla`` twin of each library.  A pair that is
+    not in `HEAD_DIMS` raises ValueError naming the built pairs."""
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: no kernel is built for q/k "
+                         f"head_dim {d} with v head_dim {dv}; built (D, Dv) "
+                         f"pairs: {list(HEAD_DIMS)}")
+    if (d, dv) in MLA_DIMS:
+        return tuple(f"{name}_mla" for name in route)
+    return tuple(route)
+
+
+def _empty_as(t, last: int):
+    """An empty tensor of ``t``'s shape with ``last`` in its last dim, its
+    dims laid out in ``t``'s order (``t``'s layout when ``t`` is dense and
+    ``last`` its own last dim)."""
+    if t.shape[-1] == last:
+        return torch.empty_like(t)
+    n = t.dim() - 1
+    order = sorted(range(n), key=lambda i: -t.stride(i)) + [n]
+    out = t.new_empty([t.shape[i] for i in order[:n]] + [last])
+    return out.permute([order.index(i) for i in range(n + 1)])
 
 
 def _strides(t) -> list:
@@ -319,9 +362,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
                     softcap: float = None, scale: float = None,
                     block_q: int = 128, block_k: int = 128, q_offset=None,
                     return_lse: bool = False):
-    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D]; Hq % Hkv == 0, Sq <= Skv.
+    """q, k: [B, Hq, Sq, D], [B, Hkv, Skv, D]; v: [B, Hkv, Skv, Dv];
+    Hq % Hkv == 0, Sq <= Skv.
 
-    Returns [B, Hq, Sq, D] in q's dtype and layout, and with
+    Returns [B, Hq, Sq, Dv] in q's dtype and layout, and with
     ``return_lse`` also the rows' log-sum-exp (f32 [B, Hq, Sq], +BIG for
     a row with no key).  ``scale`` defaults to 1/sqrt(D); ``q_offset``
     (default Skv - Sq) is the position of query row 0.
@@ -329,13 +373,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
     f32 route they bound the kernel's query and kv tiles, which are at most
     `MAX_TILE` (the tile sizes change only the order of the f32 sums); the
     bf16 kernel uses its own tiles, 128 query rows (two wgmma tiles of 64)
-    by 64 keys.  D must be one of `HEAD_DIMS`, and B * Hq at most 65535
-    (the grid's second axis): a launch the card refuses raises.
+    by 64 keys.  (D, Dv) must be one of `HEAD_DIMS` (on a CUDA tensor
+    another pair raises ValueError), and B * Hq at most 65535 (the grid's
+    second axis): a launch the card refuses raises.  ``scale`` defaults to
+    1/sqrt(D), of q and k, as the reference's.
 
     The call goes through the custom op ``repro_torch::flash_attention``
     (`torch.library.Library`; CPU: the plain version, CUDA: the
-    kernel), whose fake implementation and FLOP formula (4 D a visible
-    pair and head) let the dry-run trace it.
+    kernel), whose fake implementation and FLOP formula (2 (D + Dv) a
+    visible pair and head) let the dry-run trace it.
     """
     _check(q, k, v, causal, window, softcap, block_q, block_k)
     if q.device.type not in ("cpu", "cuda"):
@@ -366,7 +412,7 @@ def _fwd_fake(q, k, v, causal, window, softcap, scale, block_q, block_k,
         o = q.new_empty((b, hq, sq, v.shape[3]))
         lse_dtype = torch.promote_types(q.dtype, torch.float32)
     else:
-        o, lse_dtype = torch.empty_like(q), torch.float32
+        o, lse_dtype = _empty_as(q, v.shape[3]), torch.float32
     return o, q.new_empty((b, hq, sq) if return_lse else (0,),
                           dtype=lse_dtype)
 
@@ -376,28 +422,27 @@ def _fwd_on_card(q, k, v, causal, window, softcap, scale, block_q,
     """One launch of the forward kernel that ``q``'s dtype routes to;
     returns (out, lse), lse empty without ``return_lse``."""
     b, hq, sq, d = q.shape
-    route = kernel_route(q.dtype)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} is not one of "
-                         f"{HEAD_DIMS}")
+    dv = v.shape[3]
+    kernel_route(q.dtype)  # raises for a dtype with no kernel
+    lib, entry = library(ROUTES[q.dtype], d, dv)
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head_dim axis of q, k and v "
                          "must be contiguous")
-    check = tma_strides if route == "flash_attention_sm90" else _strides
+    check = tma_strides if q.dtype == torch.bfloat16 else _strides
     dims = [b, hq, k.shape[1], sq, k.shape[2], d]
     for t in (q, k, v):
         dims += check(t)
-    out = torch.empty_like(q)  # q's layout when q is dense, else row-major
-    dims += _strides(out)
+    out = _empty_as(q, dv)  # q's layout when q is dense, else row-major
+    dims += _strides(out) + [dv]
     lse = (torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
            if return_lse else None)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     args = _window_args(causal, window, softcap, scale)
-    if route == "flash_attention":
+    if q.dtype == torch.float32:
         args += [min(int(block_q), MAX_TILE), min(int(block_k), MAX_TILE)]
     args += [k.shape[2] - sq if q_offset is None else int(q_offset),
              _ptr(lse)]
-    err = _call(route, ROUTES[q.dtype][1], q.device,
+    err = _call(lib, entry, q.device,
                 *(_ptr(t) for t in (q, k, v, out)),
                 (ctypes.c_longlong * len(dims))(*dims), *args)
     if err == -2:
@@ -414,13 +459,16 @@ def _fwd_on_card(q, k, v, causal, window, softcap, scale, block_q,
 flash_attention.launches = 0  # kernel launches made through the wrapper
 
 
-def bwd_kernel_route(dtype) -> str:
+def bwd_kernel_route(dtype, d=None, dv=None) -> str:
     """The CUDA library that a backward call in ``dtype`` launches: bf16
     the wgmma kernel (``flash_attention_bwd_sm90``), f32 the CUDA-core
-    kernel (``flash_attention_bwd``).  Any other dtype raises."""
+    kernel (``flash_attention_bwd``); with a (``d``, ``dv``) pair, the
+    library that pair is built in.  Any other dtype raises."""
     if dtype not in BWD_ROUTES:
         raise ValueError(f"flash_attention_bwd: no kernel for {dtype}")
-    return BWD_ROUTES[dtype][0]
+    if d is None:
+        return BWD_ROUTES[dtype][0]
+    return library(BWD_ROUTES[dtype], d, dv)[0]
 
 
 def _tiles(lo, hi, tile: int):
@@ -502,7 +550,9 @@ def bwd_launch_plan(b: int, hq: int, hkv: int, sq: int, skv: int, *,
     window i + off - j < window (off = q_offset, default Skv - Sq), so a
     key range [k0, k1) sees rows i >= k0 - off and i < k1 + window - 1 -
     off, and a row range [i0, i1) keys j < i1 + off and j >= i0 + off -
-    window + 1."""
+    window + 1.  The tiles do not depend on the head dims: MLA's (D, Dv)
+    pairs take the square ones' (their rings are narrower, see
+    ``csrc/flash_attention_bwd_sm90.cu``)."""
     off = skv - sq if q_offset is None else int(q_offset)
     # qpos - kpos lies in [off - skv + 1, off + sq - 1]: a window outside
     # [off - skv, off + sq] masks as that bound does
@@ -531,9 +581,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     and dtypes of q, k and v, from the forward's inputs, its output ``o``
     and ``lse`` (f32 [B, Hq, Sq]) and the output's gradient ``do``, all
     [B, H, S, D] as the forward takes them (any strides with a
-    contiguous head_dim).
+    contiguous head_dim; o and do of v's head_dim Dv).
 
-    On a CUDA tensor (D one of `HEAD_DIMS`) it launches, by dtype
+    On a CUDA tensor ((D, Dv) one of `HEAD_DIMS`, else ValueError) it
+    launches, by dtype
     (`bwd_kernel_route`), ``csrc/flash_attention_bwd_sm90.cu`` for bf16
     or ``csrc/flash_attention_bwd.cu`` for f32 (one call: the delta pass,
     the dk/dv pass and the dq pass), or raises; a bf16 q, k, v or do that
@@ -542,8 +593,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
     The call goes through the custom op ``repro_torch::flash_attention_bwd``
     (CPU: the plain version, CUDA: the kernel), whose fake implementation
-    and FLOP formula (10 D a visible pair and head) let the dry-run trace
-    it.
+    and FLOP formula (2 (3 D + 2 Dv) a visible pair and head) let the
+    dry-run trace it.
     """
     _check(q, k, v, causal, window, softcap, 1, 1)
     if q.device.type not in ("cpu", "cuda"):
@@ -576,10 +627,10 @@ def _bwd_on_card(q, k, v, o, lse, do, causal, window, softcap, scale,
                  q_offset):
     """One call of the backward kernel that ``q``'s dtype routes to."""
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    if o.shape != q.shape or do.shape != q.shape:
+    hkv, skv, dv_ = k.shape[1], k.shape[2], v.shape[3]
+    if o.shape != (b, hq, sq, dv_) or do.shape != o.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
-                         f"{tuple(do.shape)} must have q's shape")
+                         f"{tuple(do.shape)} must be {(b, hq, sq, dv_)}")
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be a contiguous f32 "
@@ -591,14 +642,11 @@ def _bwd_on_card(q, k, v, o, lse, do, causal, window, softcap, scale,
             or q.device.type != "cuda":
         raise ValueError("flash_attention_bwd: every tensor must lie on the "
                          "card that holds q")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head_dim {d} is not one of "
-                         f"{HEAD_DIMS}")
+    route, entry = library(BWD_ROUTES[q.dtype], d, dv_)
     if any(t.stride(3) != 1 for t in (q, k, v, o, do)):
         raise ValueError("flash_attention_bwd: the head_dim axis of every "
                          "input must be contiguous")
-    route, entry = BWD_ROUTES[q.dtype]
-    sm90 = route == "flash_attention_bwd_sm90"
+    sm90 = q.dtype == torch.bfloat16
     check = tma_strides if sm90 else _strides
     dims = [b, hq, hkv, sq, skv, d]
     for t in (q, k, v):
@@ -607,6 +655,7 @@ def _bwd_on_card(q, k, v, o, lse, do, causal, window, softcap, scale,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     for t in (dq, dk, dv):
         dims += _strides(t)
+    dims.append(dv_)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if sm90:  # the plan carries the clamped window and the offset
         plan = bwd_launch_plan(b, hq, hkv, sq, skv, causal=causal,
@@ -666,19 +715,30 @@ for _name, _cpu, _cuda, _fake in (
 
 # the custom ops' FLOPs for `torch.utils.flop_counter` (and the dry-run's
 # counter): the products over the visible pairs that row 4's and row 5's
-# bounds count, 2 D flops a pair each (forward: QK^T and PV; backward:
-# S, dP, dV, dQ and dK)
+# bounds count, 2 flops a pair per column of the product's k-extent
+# (forward: QK^T over D and PV over Dv; backward: S, dQ and dK over D, dP
+# and dV over Dv)
+def fwd_flops(d: int, dv: int, pairs: int) -> int:
+    """FLOPs of the forward over ``pairs`` visible (query, key) pairs."""
+    return 2 * (d + dv) * pairs
+
+
+def bwd_flops(d: int, dv: int, pairs: int) -> int:
+    """FLOPs of the backward over ``pairs`` visible (query, key) pairs."""
+    return 2 * (3 * d + 2 * dv) * pairs
+
+
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
 def _fwd_flops(q, k, v, causal, window, softcap, scale, block_q, block_k,
                q_offset, return_lse, *, out_shape=None, **kwargs):
     b, hq, sq, d = q
-    return 4 * d * b * hq * visible_pairs(
-        sq, k[2], causal=causal, window=window, q_offset=q_offset)
+    return fwd_flops(d, v[3], b * hq * visible_pairs(
+        sq, k[2], causal=causal, window=window, q_offset=q_offset))
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
 def _bwd_flops(q, k, v, o, lse, do, causal, window, softcap, scale,
                q_offset, *, out_shape=None, **kwargs):
     b, hq, sq, d = q
-    return 10 * d * b * hq * visible_pairs(
-        sq, k[2], causal=causal, window=window, q_offset=q_offset)
+    return bwd_flops(d, v[3], b * hq * visible_pairs(
+        sq, k[2], causal=causal, window=window, q_offset=q_offset))

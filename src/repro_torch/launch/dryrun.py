@@ -134,18 +134,19 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
             lower_s, counter, mem = _trace(step_fn, (model.params, opt,
                                                      batch))
         elif shape.kind == "prefill":
-            def prefill_step(tokens):
+            def prefill_step(tokens, patch_embeds=None):
                 # the last position's logits, as the reference's
                 # logits[:, -1] (which XLA computes alone): the head runs
                 # on that position's hidden state only
                 with meshlib.sharding_context(mesh, rules):
                     hidden, cache = lm.lm_forward(
                         model.params, cfg, tokens, kind="prefill",
-                        return_hidden=True)
+                        patch_embeds=patch_embeds, return_hidden=True)
                     return lm._logits(model.params, cfg,
                                       hidden[:, -1:])[:, 0], cache
-            lower_s, counter, mem = _trace(prefill_step, (batch["tokens"],),
-                                           model.params)
+            lower_s, counter, mem = _trace(
+                prefill_step, (batch["tokens"], batch.get("patch_embeds")),
+                model.params)
         else:  # decode
             assert index is not None
 

@@ -265,6 +265,25 @@ def split_last(x, heads: int, head_dim: int):
     return x.reshape(*x.shape[:-1], heads, head_dim)
 
 
+def merge_last(x, heads: int, head_dim: int):
+    """``x`` [..., heads, head_dim] viewed as [..., heads * head_dim]: the
+    inverse of `split_last`.  On a DTensor whose heads no mesh axis splits
+    (they were gathered because the axis does not divide them, as 56 or
+    40 heads over 16), the merge is made on the local tensor and its
+    gradient is first brought back to ``x``'s placements: the row-parallel
+    projection's gradient splits the merged dim into pieces that are not
+    whole heads, which no view takes back."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor, Shard
+        n = x.ndim
+        if not any(p in (Shard(n - 1), Shard(n - 2)) for p in x.placements):
+            local = x.to_local()
+            return DTensor.from_local(
+                local.reshape(*local.shape[:-2], heads * head_dim),
+                x.device_mesh, x.placements)
+    return x.reshape(*x.shape[:-2], heads * head_dim)
+
+
 def gather_weight(w):
     """A DTensor weight gathered over the mesh axes of its FSDP dim (the
     axes the rules give ``embed``), its tensor-parallel shards kept: the

@@ -8,7 +8,10 @@ ServeEngine, on the card unless ``--device cpu`` is given.
 Flags, defaults and the output line are those of `repro.launch.serve`,
 plus ``--device`` and ``--dtype`` (the parameters' and the cache's type;
 f32 with ``--smoke`` and bf16 without, as the reference initializes).
-Parameters are random, from seed 0.
+Parameters are random, from seed 0.  A vlm (llava-next-34b) prefills
+each wave behind its stub patch embeddings (the configuration's
+``num_patch_tokens`` a row, normal, from seed 0; ``max_seq`` grows by
+that many positions), which the reference's launcher does not supply.
 """
 from __future__ import annotations
 
@@ -47,8 +50,10 @@ def make_engine(args):
         args.arch)
     dtype = DTYPES[args.dtype or ("float32" if args.smoke else "bfloat16")]
     model = Model(cfg).init(0, dtype, resolve_device(args.device))
+    # a vlm's cache keeps room for its patch positions
+    patches = cfg.num_patch_tokens if cfg.family == "vlm" else 0
     return ServeEngine(model, max_batch=args.max_batch,
-                       max_seq=args.max_seq, dtype=dtype)
+                       max_seq=args.max_seq + patches, dtype=dtype)
 
 
 def make_requests(cfg, n: int):
@@ -58,11 +63,37 @@ def make_requests(cfg, n: int):
             for _ in range(n)]
 
 
+def patch_embeds(cfg, rows: int, dtype, device, seed: int = 0):
+    """Stub patch embeddings of a vlm wave: [rows, num_patch_tokens,
+    d_model], normal, from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(rows, cfg.num_patch_tokens, cfg.d_model,
+                       generator=gen, device=device).to(dtype)
+
+
 def run_serve(args, eng, reqs):
     """Serve ``reqs``; returns (outputs, wall seconds to the last token,
-    which the engine has read back to the host)."""
+    which the engine has read back to the host).  A vlm's requests are
+    served a wave at a time (the engine's waves: by length, up to
+    ``max_batch`` rows), each with its rows' patch embeddings."""
+    cfg = eng.model.cfg
     t0 = time.perf_counter()
-    outs = eng.serve(reqs, max_new=args.max_new)
+    if cfg.family != "vlm":
+        outs = eng.serve(reqs, max_new=args.max_new)
+        return outs, time.perf_counter() - t0
+    outs = [None] * len(reqs)
+    by_len = {}
+    for i, r in enumerate(reqs):
+        by_len.setdefault(len(r), []).append(i)
+    for _, idx in sorted(by_len.items()):
+        for w in range(0, len(idx), eng.max_batch):
+            wave = idx[w:w + eng.max_batch]
+            extra = {"patch_embeds": patch_embeds(
+                cfg, len(wave), eng.dtype, eng.model.device)}
+            for i, g in zip(wave, eng.serve([reqs[i] for i in wave],
+                                            max_new=args.max_new,
+                                            extra=extra)):
+                outs[i] = g
     return outs, time.perf_counter() - t0
 
 

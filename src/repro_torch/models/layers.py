@@ -1,5 +1,5 @@
 """Layers of the port's decoder LM (the port of `repro.models.layers`, its
-dense GQA part).
+dense GQA and MLA parts).
 
 Attention paths:
   * prefill: the hand-written Hopper flash attention kernel
@@ -12,12 +12,19 @@ Attention paths:
   * decode: single-token attention over the cache, in plain PyTorch (the
     JAX package has no kernel there either).
 
+MLA (multi-head latent attention, minicpm3) takes the same paths in its
+expanded form for train and prefill, k and v of every head materialized
+from the latent: q and k are nope + rope wide, v narrower, and the
+kernels take that (D, Dv) pair.  Its decode runs the absorbed form over
+the compressed cache (c_kv and the shared rope key), in plain PyTorch as
+the reference's plain jnp.
+
 Norms, rope and attention compute in f32 (in f64 for f64 activations, the
 CPU route's float64 evaluation).  Sharding constraints use logical names
 resolved by `repro_torch.launch.mesh.shard`: no-ops on one device, DTensor
 redistributions under a mesh (there the attention kernels run on each
-rank's local heads, `flash_xla.local_heads`).  MLA and cross-attention
-wait for their architectures.
+rank's local heads, `flash_xla.local_heads`).  Cross-attention waits for
+its architecture.
 """
 from __future__ import annotations
 
@@ -168,6 +175,17 @@ def _write_rows(cache, new, index: int) -> None:
         local[:, lo - s0:hi - s0] = rows[:, lo - index:hi - index]
 
 
+def _prefill_attention(q, k, v, *, window=None, softcap=None):
+    """Causal prefill attention through the forward kernel (no lse) on
+    [B, S, H, D] activations viewed as [B, H, S, D], on each rank's local
+    heads under a mesh; v may be narrower than q and k (MLA)."""
+    def attend(q, k, v):
+        return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True, window=window,
+                               softcap=softcap).transpose(1, 2)
+    return local_heads(attend, q, k, v)
+
+
 # ------------------------------------------------------------------ GQA
 def gqa_specs(cfg):
     h, hkv, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
@@ -201,12 +219,8 @@ def apply_gqa(p, x, cfg, *, kind, layer_kind, positions, cache=None,
                           softcap=cfg.attn_softcap, index=index)
         new_cache = {"k": k_cache, "v": v_cache}
     elif kind == "prefill":
-        def prefill_attention(q, k, v):
-            return flash_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=True, window=window,
-                softcap=cfg.attn_softcap).transpose(1, 2)
-        o = local_heads(prefill_attention, q, k, v)
+        o = _prefill_attention(q, k, v, window=window,
+                               softcap=cfg.attn_softcap)
         new_cache = {"k": k, "v": v}
     elif kind == "train":
         o = attend_flash(q, k, v, causal=True, window=window,
@@ -216,4 +230,110 @@ def apply_gqa(p, x, cfg, *, kind, layer_kind, positions, cache=None,
         raise ValueError(f"kind must be train, prefill or decode, got "
                          f"{kind!r}")
     o = shard(o, "act_batch", "act_seq", "act_heads", None)
-    return linear(p["wo"], o.reshape(b, s, h * hd)), new_cache
+    return linear(p["wo"], meshlib.merge_last(o, h, hd)), new_cache
+
+
+# ------------------------------------------------------------------ MLA
+def mla_specs(cfg):
+    d = cfg.d_model
+    h = cfg.num_heads
+    r, nd, vd = cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+    s = {"wkv_a": linear_spec(d, cfg.kv_lora_rank + r, "embed", "kv"),
+         "kv_norm": norm_spec(cfg.kv_lora_rank),
+         "wkv_b": linear_spec(cfg.kv_lora_rank, h * (nd + vd), "kv", "qkv"),
+         "wo": linear_spec(h * vd, d, "qkv", "embed")}
+    if cfg.q_lora_rank:
+        s["wq_a"] = linear_spec(d, cfg.q_lora_rank, "embed", None)
+        s["q_norm"] = norm_spec(cfg.q_lora_rank)
+        s["wq_b"] = linear_spec(cfg.q_lora_rank, h * (nd + r), None, "qkv")
+    else:
+        s["wq"] = linear_spec(d, h * (nd + r), "embed", "qkv")
+    return s
+
+
+def _mla_q(p, x, cfg, positions):
+    b, s, _ = x.shape
+    h, r, nd = cfg.num_heads, cfg.rope_head_dim, cfg.nope_head_dim
+    if cfg.q_lora_rank:
+        qa = rms_norm(linear(p["wq_a"], x), p["q_norm"], cfg.norm_eps)
+        q = linear(p["wq_b"], qa)
+    else:
+        q = linear(p["wq"], x)
+    q = meshlib.split_last(q, h, nd + r)
+    return q[..., :nd], rope(q[..., nd:], positions, cfg.rope_theta)
+
+
+def apply_mla(p, x, cfg, *, kind, positions, cache=None, index=None):
+    """DeepSeek-style multi-head latent attention (the reference's
+    `apply_mla`).  kind: train|prefill|decode; returns (out, new_cache).
+
+    The cache holds the compressed kv (``c_kv`` [B, S, kv_lora]) and the
+    rope key shared by the heads (``k_rope`` [B, S, r]).  Train and
+    prefill materialize each head's k = (k_nope, k_rope) and v from the
+    latent and attend through the kernels at (D, Dv) = (nd + r, vd);
+    decode writes this token's latent and rope key into ``cache`` in
+    place at ``index`` and scores the absorbed way, q_nope W_uk against
+    the latent, with logits scaled by 1/sqrt(nd + r)."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    r, nd, vd = cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+    lora = cfg.kv_lora_rank
+
+    kv_a = linear(p["wkv_a"], x)                      # [b, s, lora + r]
+    c_kv = rms_norm(kv_a[..., :lora], p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(kv_a[..., None, lora:], positions, cfg.rope_theta)[:, :, 0]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+
+    wkv_b = meshlib.split_last(meshlib.gather_weight(p["wkv_b"]["w"]), h,
+                               nd + vd)
+    w_uk = wkv_b[..., :nd]                            # [lora, h, nd]
+    w_uv = wkv_b[..., nd:]                            # [lora, h, vd]
+
+    if kind == "decode":
+        c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+        _write_rows(c_cache, c_kv, index)
+        _write_rows(r_cache, k_rope, index)
+        acc = _acc(x.dtype)
+        # absorbed: score = (q_nope W_uk) . c  +  q_rope . k_rope
+        q_abs = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].to(acc),
+                             w_uk.to(acc))
+        s_nope = torch.einsum("bhl,bsl->bhs", q_abs, c_cache.to(acc))
+        s_rope = torch.einsum("bhr,bsr->bhs", q_rope[:, 0].to(acc),
+                              r_cache.to(acc))
+        logits = (s_nope + s_rope) / math.sqrt(nd + r)
+        kp = torch.arange(c_cache.shape[1], device=x.device)
+        logits = torch.where(kp <= index, logits, _NEG)
+        pr = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bhs,bsl->bhl", pr, c_cache.to(acc))
+        o = torch.einsum("bhl,lhv->bhv", ctx, w_uv.to(acc))
+        if meshlib.is_dtensor(o):
+            # the one token's heads whole and summed on every rank (its
+            # batch split kept), as GQA's decode gathers them
+            from torch.distributed.tensor import Replicate
+            o = o.redistribute(o.device_mesh, [
+                q if q.is_shard(0) else Replicate() for q in o.placements])
+        o = o.reshape(b, 1, h * vd).to(x.dtype)
+        new_cache = {"c_kv": c_cache, "k_rope": r_cache}
+    else:
+        # expanded: each head's k_nope and v materialized from the latent
+        # (as products of [B, S, lora] by [lora, H * width]: dense [B, S, H,
+        # width] results, which the kernels read through their strides)
+        split = meshlib.split_last
+        k_nope = split(c_kv @ w_uk.reshape(lora, h * nd).to(c_kv.dtype), h,
+                       nd)
+        v = split(c_kv @ w_uv.reshape(lora, h * vd).to(c_kv.dtype), h, vd)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, r)],
+                      dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        q = shard(q, "act_batch", "act_seq", "act_heads", None)
+        if kind == "prefill":
+            o = _prefill_attention(q, k, v)
+            new_cache = {"c_kv": c_kv, "k_rope": k_rope}
+        elif kind == "train":
+            o = attend_flash(q, k, v, causal=True, window=None, softcap=None)
+            new_cache = None
+        else:
+            raise ValueError(f"kind must be train, prefill or decode, got "
+                             f"{kind!r}")
+        o = meshlib.merge_last(o, h, vd)
+    return linear(p["wo"], o), new_cache

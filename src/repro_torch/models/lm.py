@@ -138,12 +138,16 @@ def _run_train(params, cfg, x, positions):
     return x
 
 
-def lm_forward(params, cfg, tokens, *, kind="prefill",
+def lm_forward(params, cfg, tokens, *, kind="prefill", patch_embeds=None,
                return_hidden: bool = False):
     """Full-sequence forward (train or prefill). Returns (logits, cache),
     or (final-normed hidden, cache) with ``return_hidden`` (the chunked
-    cross-entropy's input)."""
+    cross-entropy's input).  ``patch_embeds`` ([B, P, d_model], a vlm's
+    stub image embeddings) are prepended to the token embeddings, so
+    positions count them first."""
     x = _embed(params, cfg, tokens)
+    if patch_embeds is not None:  # vlm: prepend stub patch embeddings
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     # one row of positions, broadcast over the batch by rope
     positions = torch.arange(x.shape[1], device=x.device)
     x, cache = _run_groups(params, cfg, x, kind=kind, positions=positions)
@@ -186,11 +190,15 @@ def cache_shapes(cfg, batch: int, seq: int, dtype=torch.bfloat16):
 
 def cache_axes(cfg):
     """Logical axes tree matching `init_cache`'s structure."""
-    kv = ("layers", "act_batch", "act_kv_seq", "act_kv_heads", None)
     for k in cfg.layer_pattern:
         blocks._check_kind(cfg, k)
-    return {str(i): {"attn": {"k": kv, "v": kv}}
-            for i, _ in enumerate(cfg.layer_pattern)}
+    if cfg.attention == "mla":
+        latent = ("layers", "act_batch", "act_kv_seq", None)
+        attn = {"c_kv": latent, "k_rope": latent}
+    else:
+        kv = ("layers", "act_batch", "act_kv_seq", "act_kv_heads", None)
+        attn = {"k": kv, "v": kv}
+    return {str(i): {"attn": attn} for i, _ in enumerate(cfg.layer_pattern)}
 
 
 def _nll_sum(logits, labels, vocab_size: int):

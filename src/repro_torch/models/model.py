@@ -1,7 +1,7 @@
 """Top-level model of the port: config -> specs, parameters, the train
 loss, prefill and decode, and the dry-run's input specs (meta tensors +
 logical axes) (the port of `repro.models.model.Model` for the dense
-decoder LMs)."""
+decoder LMs, a vlm's stub patch embeddings included)."""
 from __future__ import annotations
 
 import torch
@@ -80,15 +80,25 @@ class Model(nn.Module):
         """Train loss of a dense LM through the chunked cross-entropy
         ([B, S, V] logits never materialize; each chunk's logits are
         recomputed in the backward).  batch: {"tokens", "labels"}, [B, S]
-        integer tensors on the parameters' device."""
+        integer tensors on the parameters' device; a vlm's also
+        "patch_embeds" [B, P, d_model], ahead of P fewer tokens."""
         hidden, _ = lm.lm_forward(params, self.cfg, batch["tokens"],
-                                  kind="train", return_hidden=True)
+                                  kind="train",
+                                  patch_embeds=self._patches(batch),
+                                  return_hidden=True)
         return lm.chunked_ce(lambda xc: lm._logits(params, self.cfg, xc),
                              hidden, batch["labels"], self.cfg.vocab_size)
 
-    def prefill(self, tokens):
-        """tokens: [B, S] integer. Returns (logits [B, S, V], cache)."""
-        return lm.lm_forward(self.params, self.cfg, tokens)
+    def _patches(self, batch):
+        """A vlm batch's patch embeddings (the reference reads them for
+        every vlm batch); None for any other family."""
+        return batch["patch_embeds"] if self.cfg.family == "vlm" else None
+
+    def prefill(self, tokens, patch_embeds=None):
+        """tokens: [B, S] integer; ``patch_embeds`` [B, P, d_model] (a
+        vlm's) go first.  Returns (logits [B, P + S, V], cache)."""
+        return lm.lm_forward(self.params, self.cfg, tokens,
+                             patch_embeds=patch_embeds)
 
     def decode_step(self, cache, token, index: int):
         return lm.lm_decode_step(self.params, self.cfg, cache, token, index)
@@ -114,18 +124,19 @@ class Model(nn.Module):
     def input_specs(self, shape: ShapeConfig, dtype=torch.bfloat16):
         """Meta-tensor stand-ins + logical axes for every model input.
 
-        train:  {tokens, labels}
-        prefill:{tokens}
+        train:  {tokens, labels[, patch_embeds]}
+        prefill:{tokens[, patch_embeds]}
         decode: {token, index, cache}
 
-        The vlm and encoder-decoder inputs (patch embeddings, frames) wait
-        for their architectures (ROADMAP.md, queue 1 item 8).
+        A vlm's batch holds P = ``num_patch_tokens`` patch embeddings
+        [b, P, d_model] and s - P text tokens.  The encoder-decoder inputs
+        (frames) wait for their architecture (ROADMAP.md, queue 1 item 8).
         """
         cfg = self.cfg
-        if cfg.family == "vlm" or cfg.is_encoder_decoder:
+        if cfg.is_encoder_decoder:
             raise NotImplementedError(
-                f"{cfg.name}: vlm and encoder-decoder inputs are not ported "
-                "yet (ROADMAP.md, queue 1 item 8: the other architectures)")
+                f"{cfg.name}: encoder-decoder inputs are not ported yet "
+                "(ROADMAP.md, queue 1 item 8: the other architectures)")
         b, s = shape.global_batch, shape.seq_len
         i32 = torch.int32
         tok_ax = ("act_batch", "act_seq")
@@ -133,7 +144,13 @@ class Model(nn.Module):
             size, dtype=dt, device="meta")
         specs, axes = {}, {}
         if shape.kind in ("train", "prefill"):
-            specs["tokens"], axes["tokens"] = meta(b, s), tok_ax
+            text = s
+            if cfg.family == "vlm":
+                p = cfg.num_patch_tokens
+                text = s - p
+                specs["patch_embeds"] = meta(b, p, cfg.d_model, dt=dtype)
+                axes["patch_embeds"] = ("act_batch", "act_seq", "act_embed")
+            specs["tokens"], axes["tokens"] = meta(b, text), tok_ax
             if shape.kind == "train":
                 specs["labels"], axes["labels"] = meta(b, s), tok_ax
         else:  # decode

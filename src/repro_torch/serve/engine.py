@@ -35,7 +35,8 @@ class ServeEngine:
         self.eos_id = eos_id
         self.stats = ServeStats()
 
-    def _generate_wave(self, prompts: List[List[int]], max_new: int):
+    def _generate_wave(self, prompts: List[List[int]], max_new: int,
+                       extra: Optional[dict] = None):
         b = len(prompts)
         plen = max(len(p) for p in prompts)
         toks = np.zeros((b, plen), dtype=np.int64)
@@ -45,11 +46,16 @@ class ServeEngine:
         if toks.size and not (0 <= toks.min() and toks.max() < vocab):
             raise ValueError(f"prompt tokens must lie in [0, {vocab})")
         model = self.model
-        logits, cache = model.prefill(torch.from_numpy(toks).to(model.device))
+        logits, cache = model.prefill(torch.from_numpy(toks).to(model.device),
+                                      **(extra or {}))
         self.stats.prefill_tokens += b * plen
-        cache = model.pad_cache(cache, b, min(plen + max_new, self.max_seq),
-                                self.dtype)
+        # the prefill's positions (a vlm's patches and the prompt) and the
+        # new tokens: the reference counts only the prompt here, so its
+        # cache is short of the patches and a vlm wave fails to pad
         offset = logits.shape[1] - 1  # position of last prompt token
+        cache = model.pad_cache(cache, b,
+                                min(offset + 1 + max_new, self.max_seq),
+                                self.dtype)
         tok = torch.argmax(logits[:, -1], dim=-1)
         outs = [tok.cpu().numpy()]
         done = np.zeros(b, dtype=bool)
@@ -68,13 +74,16 @@ class ServeEngine:
         self.stats.waves += 1
         return [g.tolist() for g in gen]
 
-    def serve(self, requests: List[List[int]],
-              max_new: int = 32) -> List[List[int]]:
+    def serve(self, requests: List[List[int]], max_new: int = 32,
+              extra: Optional[dict] = None) -> List[List[int]]:
         """Wave-based batching over a request queue.
 
         Waves are bucketed by prompt length so no row needs padding —
         results are independent of batch composition (pad tokens would
-        otherwise be attended; production engines mask, we bucket)."""
+        otherwise be attended; production engines mask, we bucket).
+        ``extra`` (a vlm's ``{"patch_embeds": [B, P, d_model]}``) goes to
+        every wave's prefill unchanged, as the reference passes it: its
+        batch dim must be the wave's."""
         results: List[Optional[List[int]]] = [None] * len(requests)
         by_len: dict = {}
         for i, r in enumerate(requests):
@@ -83,7 +92,8 @@ class ServeEngine:
             while queue:
                 wave = queue[: self.max_batch]
                 queue = queue[self.max_batch:]
-                gens = self._generate_wave([r for _, r in wave], max_new)
+                gens = self._generate_wave([r for _, r in wave], max_new,
+                                           extra)
                 for (i, _), g in zip(wave, gens):
                     results[i] = g
         return results  # type: ignore

@@ -343,3 +343,93 @@ def test_library_digest_covers_included_headers(monkeypatch, tmp_path):
     assert after["flash_attention_bwd_sm90"] != \
         before["flash_attention_bwd_sm90"]
     assert after["flash_attention_bwd"] == before["flash_attention_bwd"]
+
+
+# multi-head latent attention's (q/k, v) head_dim pairs: minicpm3-4b's
+# (96, 64) and its smoke configuration's (24, 16), causal and not
+MLA_CASES = [  # b, hq, hkv, sq, skv, d, dv, causal, window, softcap
+    (1, 4, 4, 37, 37, 24, 16, True, None, None),
+    (2, 4, 2, 40, 64, 24, 16, False, 16, 20.0),
+    (1, 4, 4, 37, 37, 96, 64, True, None, None),
+    (1, 2, 1, 30, 50, 96, 64, False, None, None),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,dv,causal,window,softcap",
+                         MLA_CASES)
+def test_mla_plain_matches_reference(b, hq, hkv, sq, skv, d, dv, causal,
+                                     window, softcap):
+    """A v head_dim of its own on the CPU route: the output has v's width
+    and equals the reference's oracle and its XLA attention (which carry
+    v's width) within 2e-5."""
+    rng = np.random.default_rng(sq + d)
+    arrs = [rng.normal(size=(b, h, s, w)).astype(np.float32)
+            for h, s, w in ((hq, sq, d), (hkv, skv, d), (hkv, skv, dv))]
+    jx, tx = [jnp.asarray(a) for a in arrs], [torch.from_numpy(a)
+                                              for a in arrs]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(*tx, **kw)
+    assert tfa.flash_attention.launches == before  # CPU: no kernel
+    assert got.shape == (b, hq, sq, dv)
+    if sq == skv:
+        assert _err(got, jref.attention_ref(*jx, **kw)) < 2e-5
+    q, k, v = (a.transpose(0, 2, 1, 3) for a in jx)
+    xla = attend_flash(q, k, v, q_offset=skv - sq, **kw)
+    assert _err(got.transpose(1, 2), xla) < 2e-5
+
+
+def test_mla_pairs_build_in_their_own_libraries():
+    """Every built (D, Dv) pair maps to a library the build knows: the
+    square ones to the four attention sources, MLA's to their ``_mla``
+    twins (which include those sources, so an edit there rebuilds both);
+    a pair not built raises naming the built pairs."""
+    from repro_torch.kernels import _build
+    assert (96, 64) in tfa.HEAD_DIMS and (24, 16) in tfa.HEAD_DIMS
+    for routes in (tfa.ROUTES, tfa.BWD_ROUTES):
+        for dtype, route in routes.items():
+            for d, dv in tfa.HEAD_DIMS:
+                lib, entry = tfa.library(route, d, dv)
+                assert entry in _build.SIGNATURES[lib]
+                assert lib.endswith("_mla") == ((d, dv) in tfa.MLA_DIMS)
+    assert tfa.kernel_route(torch.bfloat16, 96, 64) == \
+        "flash_attention_sm90_mla"
+    assert tfa.bwd_kernel_route(torch.float32, 24, 16) == \
+        "flash_attention_bwd_mla"
+    assert tfa.kernel_route(torch.float32, 64, 64) == "flash_attention"
+    assert [p.name for p in _build.sources("flash_attention_sm90_mla")] == [
+        "flash_attention_sm90_mla.cu", "flash_attention_sm90.cu",
+        "sm90_common.cuh"]
+    for d, dv in ((96, 32), (24, 24), (112, 112), (192, 128)):
+        with pytest.raises(ValueError, match=r"built \(D, Dv\) pairs"):
+            tfa.library(tfa.ROUTES[torch.bfloat16], d, dv)
+
+
+def test_mla_fake_kernels_and_flops():
+    """The ops' fake CUDA implementations give o and dv v's width, o in
+    q's layout (no card is needed to fake one), and the FLOP formulas
+    count 2 (D + Dv) a visible pair forward and 2 (3 D + 2 Dv) backward."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    with FakeTensorMode():
+        q = torch.empty(1, 10, 4, 96, device="cuda",
+                        dtype=torch.bfloat16).transpose(1, 2)
+        k = torch.empty(1, 2, 12, 96, device="cuda", dtype=torch.bfloat16)
+        v = torch.empty(1, 2, 12, 64, device="cuda", dtype=torch.bfloat16)
+        o, lse = torch.ops.repro_torch.flash_attention(
+            q, k, v, True, None, None, None, 128, 128, None, True)
+        assert o.shape == (1, 4, 10, 64) and o.stride() == (2560, 64, 256, 1)
+        grads = torch.ops.repro_torch.flash_attention_bwd(
+            q, k, v, o, lse, o, True, None, None, None, None)
+        assert [tuple(g.shape) for g in grads] == [
+            (1, 4, 10, 96), (1, 2, 12, 96), (1, 2, 12, 64)]
+    g = torch.Generator().manual_seed(0)
+    q, k = (torch.randn(1, 4, n, 24, generator=g) for n in (20, 24))
+    v = torch.randn(1, 4, 24, 16, generator=g)
+    pairs = tfa.visible_pairs(20, 24, causal=True)
+    with FlopCounterMode(display=False) as fc:
+        o, lse = tfa.flash_attention(q, k, v, return_lse=True)
+    assert fc.get_total_flops() == 2 * (24 + 16) * 4 * pairs
+    with FlopCounterMode(display=False) as fc:
+        tfa.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o))
+    assert fc.get_total_flops() == 2 * (3 * 24 + 2 * 16) * 4 * pairs

@@ -162,3 +162,68 @@ def test_train_kind_matches_reference_layer():
     assert cache is None
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_g), **TOL)
+
+
+# multi-head latent attention's (q/k, v) head_dim pairs: minicpm3-4b's
+# (96, 64) and its smoke configuration's (24, 16), causal and not, with a
+# window, a softcap, GQA and shifted queries
+# b, h, hkv, sq, skv, (d, dv), causal, window, softcap, q_offset, chunk
+MLA_CASES = [(c[:5] + (pair,) + c[5:]) for pair in ((24, 16), (96, 64))
+             for c in ((1, 4, 4, 32, 32, True, None, None, 0, 8),
+                       (2, 2, 2, 24, 40, False, None, None, 16, 8),
+                       (1, 4, 2, 32, 32, True, 8, 20.0, 0, 16),
+                       (1, 2, 1, 24, 24, False, 4, None, -3, 24))]
+
+
+def _mla_inputs(case):
+    b, h, hkv, sq, skv, (d, dv), *_ = case
+    rng = np.random.default_rng(sq + skv + d)
+    return [rng.normal(size=sh).astype(np.float32) for sh in
+            ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, dv),
+             (b, sq, h, dv))]
+
+
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_mla_fwd_bwd_match_reference(case):
+    """A v head_dim of its own: the port's output (v's width) and its
+    gradients (each of its input's width) against the reference's custom
+    VJP, which carries v's width ``dv`` through `_fwd_impl` and
+    `_bwd_rule`."""
+    _, _, _, _, _, _, causal, window, softcap, off, chunk = case
+    q, k, v, w = _mla_inputs(case)
+
+    def ref(q, k, v):
+        o = flash_attention_xla(q, k, v, causal, window, softcap, off, chunk)
+        return jnp.sum(jnp.tanh(o) * w), o
+
+    (_, want_o), want = jax.value_and_grad(ref, argnums=(0, 1, 2),
+                                           has_aux=True)(q, k, v)
+    o, got = _port_grads(q, k, v, w, causal=causal, window=window,
+                         softcap=softcap, q_offset=off, chunk=chunk)
+    assert o.shape == w.shape
+    np.testing.assert_allclose(o, np.asarray(want_o), **TOL)
+    for g, r, x in zip(got, want, (q, k, v)):
+        assert g.shape == x.shape
+        np.testing.assert_allclose(g, np.asarray(r), **TOL)
+
+
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_mla_lse_matches_reference(case):
+    """`flash_attention_fwd_plain` at a v head_dim of its own gives
+    `_fwd_impl`'s (o, lse); the scale is 1/sqrt(D) of q and k."""
+    b, h, _, sq, _, (d, dv), causal, window, softcap, off, chunk = case
+    q, k, v, _ = _mla_inputs(case)
+    want_o, want_lse = _fwd_impl(q, k, v, causal, window, softcap, off,
+                                 chunk)
+    heads = [torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)]
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    o, lse = tfa.flash_attention_fwd_plain(*heads, chunk=chunk, **kw)
+    assert o.shape == (b, h, sq, dv)
+    want_lse = np.asarray(want_lse).reshape(b, h, sq)
+    np.testing.assert_allclose(lse.numpy(), want_lse, **TOL)
+    assert np.array_equal(lse.numpy() == tfa.BIG, want_lse == tfa.BIG)
+    np.testing.assert_allclose(o.transpose(1, 2).numpy(), np.asarray(want_o),
+                               **TOL)
+    o2, lse2 = tfa.flash_attention(*heads, return_lse=True, **kw)
+    np.testing.assert_allclose(lse2.numpy(), want_lse, **TOL)
+    np.testing.assert_allclose(o2.numpy(), o.numpy(), **TOL)

@@ -13,7 +13,7 @@ from repro_torch.core import build_bisim  # noqa: E402
 from repro_torch.exmem import build_bisim_oocore  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.kernels import sig_fold as tfold  # noqa: E402
-from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
+from repro_torch.kernels.flash_attention import SQUARE_DIMS  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -323,8 +323,8 @@ FLASH_CASES = [
     (2, 4, 2, 37, 300, 64, True, 64, 50.0, torch.float32),
     (2, 16, 8, 300, 300, 256, True, 128, 50.0, torch.float32),
     (2, 16, 8, 300, 300, 256, True, 128, 50.0, BF16),
-] + [(1, 4, 2, 200, 200, d, True, None, None, BF16) for d in HEAD_DIMS] + [
-    (1, 4, 4, 256, 256, d, False, None, 30.0, BF16) for d in HEAD_DIMS
+] + [(1, 4, 2, 200, 200, d, True, None, None, BF16) for d in SQUARE_DIMS] + [
+    (1, 4, 4, 256, 256, d, False, None, 30.0, BF16) for d in SQUARE_DIMS
 ] + [(2, 4, 2, sq, skv, 64, True, 16, 50.0, BF16)
      for sq, skv in ((1, 300), (37, 37), (37, 300), (300, 300))] + [
     (1, hq, hkv, 150, 250, 128, True, None, None, BF16)
@@ -335,10 +335,11 @@ FLASH_CASES = [
 ]
 
 
-def _qkv(cuda, seed, b, hq, hkv, sq, skv, d, dtype):
+def _qkv(cuda, seed, b, hq, hkv, sq, skv, d, dtype, dv=None):
+    """q, k of head_dim ``d`` and v of ``dv`` (default ``d``)."""
     g = torch.Generator(device=cuda).manual_seed(seed)
-    return [torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype)
-            for h, s in ((hq, sq), (hkv, skv), (hkv, skv))]
+    return [torch.randn(b, h, s, w, generator=g, device=cuda).to(dtype)
+            for h, s, w in ((hq, sq, d), (hkv, skv, d), (hkv, skv, dv or d))]
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,softcap,dtype",
@@ -438,11 +439,12 @@ BWD_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset
 ]
 
 
-def _bwd_inputs(cuda, case, dtype):
-    """q, k, v, the plain forward's o and lse, and dO, on the card."""
+def _bwd_inputs(cuda, case, dtype, dv=None):
+    """q, k, v (of head_dim ``dv``, default q's), the plain forward's o
+    and lse, and dO, on the card."""
     from repro_torch.kernels import flash_attention as tfa
     b, hq, hkv, sq, skv, d, causal, window, softcap, off = case
-    q, k, v = _qkv(cuda, sq + d, b, hq, hkv, sq, skv, d, dtype)
+    q, k, v = _qkv(cuda, sq + d, b, hq, hkv, sq, skv, d, dtype, dv)
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
     o, lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -606,6 +608,180 @@ def test_card_serve_equals_cpu_serve(cuda):
     from repro_torch.models.params import tree_map
     from repro_torch.serve import ServeEngine
     cfg = get_smoke_config("gemma2_9b")
+    cpu = Model(cfg).init(0, device="cpu")
+    card = Model(cfg).load(tree_map(lambda t: t.to(cuda), cpu.params))
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in (21, 5, 21, 40, 21)]
+    before = tfa.flash_attention.launches
+    eng = ServeEngine(card, max_batch=2, max_seq=64)
+    got = eng.serve(reqs, max_new=8)
+    assert tfa.flash_attention.launches - before == (cfg.num_layers
+                                                     * eng.stats.waves)
+    assert got == ServeEngine(cpu, max_batch=2, max_seq=64).serve(
+        reqs, max_new=8)
+
+
+# multi-head latent attention's pairs, (q/k head_dim, v head_dim):
+# minicpm3-4b's (96, 64) and its smoke configuration's (24, 16), each in
+# both dtypes; causal and not, GQA, windows, softcaps that the logits
+# reach, shifted queries and rows with no key, and minicpm3's 40 heads at
+# 1,000 tokens
+MLA_CASES = [  # b, hq, hkv, sq, skv, (d, dv), causal, window, softcap, off
+    (c[:5] + (pair,) + c[5:]) for pair in ((96, 64), (24, 16)) for c in (
+        (1, 4, 4, 100, 100, True, None, None, 0),
+        (2, 4, 4, 64, 64, False, None, None, 0),
+        (1, 8, 2, 70, 70, True, None, 2.0, 0),
+        (1, 4, 1, 40, 64, True, 16, None, 24),
+        (2, 4, 2, 33, 33, False, 8, 3.0, -5),
+        (1, 40, 40, 1000, 1000, True, None, None, 0))]
+
+
+def _mla_args(cuda, case, dtype):
+    """A `MLA_CASES` case as `_bwd_inputs` gives it: (q, k, v, o, lse, dO)
+    and the mask's keywords."""
+    b, hq, hkv, sq, skv, (d, dv), causal, window, softcap, off = case
+    return _bwd_inputs(cuda, (b, hq, hkv, sq, skv, d, causal, window,
+                              softcap, off), dtype, dv)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (BF16, 2e-2)])
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_flash_attention_mla_matches_plain(cuda, monkeypatch, case, dtype,
+                                           tol):
+    """The forward at a v head_dim of its own, against the plain version:
+    one launch of the pair's library, an output of v's width, the lse."""
+    from repro_torch.kernels import flash_attention as tfa
+    (q, k, v, _, want_lse, _), kw = _mla_args(cuda, case, dtype)
+    d, dv = case[5]
+    called = _routes_called(monkeypatch)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert called == [tfa.kernel_route(dtype, d, dv)]
+    assert called[0].endswith("_mla")
+    want = tfa.flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape == (
+        *q.shape[:3], dv)
+    assert float((got.float() - want.float()).abs().max()) < tol
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, got)
+    big = want_lse == tfa.BIG
+    assert torch.equal(lse == tfa.BIG, big)
+    scale = max(1.0, float(want_lse.masked_fill(big, 0.0).abs().max()))
+    lse_tol = 1e-3 if dtype == BF16 else 1e-4
+    assert float((lse - want_lse).abs().masked_fill(big, 0.0).max()) \
+        <= lse_tol * scale
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (BF16, 2e-2)])
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_flash_attention_mla_bwd_matches_plain(cuda, monkeypatch, case,
+                                               dtype, tol):
+    """dq, dk (q/k's width) and dv (v's) of the backward at MLA's pairs
+    against `_bwd_rule`'s port, each within ``tol`` of its largest |x|."""
+    from repro_torch.kernels import flash_attention as tfa
+    args, kw = _mla_args(cuda, case, dtype)
+    called = _routes_called(monkeypatch)
+    before = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == before + 1
+    assert called == [tfa.bwd_kernel_route(dtype, *case[5])]
+    _bwd_close(got, tfa.flash_attention_bwd_plain(*args, **kw), dtype, tol)
+
+
+@pytest.mark.parametrize("pair", [(96, 64), (24, 16)])
+@pytest.mark.parametrize("dtype,tol,bwd_tol", [(torch.float32, 2e-5, 1e-4),
+                                               (BF16, 2e-2, 2e-2)])
+def test_flash_attention_mla_strided_views(cuda, pair, dtype, tol, bwd_tol):
+    """[B, S, H, D] q, k and [B, S, H, Dv] v viewed as [B, H, S, D], as
+    the MLA layer hands them over: the output takes q's layout at v's
+    width, each gradient its input's layout."""
+    from repro_torch.kernels import flash_attention as tfa
+    d, dv = pair
+    args, kw = _bwd_inputs(cuda, (2, 8, 8, 100, 100, d, True, None, None,
+                                  0), dtype, dv)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             if t.dim() == 4 else t for t in args]
+    q, k, v = views[:3]
+    out = tfa.flash_attention(q, k, v, **kw)
+    assert out.shape == (2, 8, 100, dv)
+    assert out.stride() == (100 * 8 * dv, dv, 8 * dv, 1)
+    want = tfa.flash_attention_plain(*args[:3], **kw)
+    assert float((out.float() - want.float()).abs().max()) < tol
+    got = tfa.flash_attention_bwd(*views, **kw)
+    for g, t in zip(got, views):
+        assert g.stride() == t.stride()
+    _bwd_close(got, tfa.flash_attention_bwd_plain(*args, **kw), dtype,
+               bwd_tol)
+
+
+@pytest.mark.parametrize("pair", [(96, 64), (24, 16)])
+def test_flash_attention_mla_bwd_is_deterministic(cuda, pair):
+    """The bf16 backward at MLA's pairs: two calls give the same bits."""
+    from repro_torch.kernels import flash_attention as tfa
+    d, dv = pair
+    args, kw = _bwd_inputs(cuda, (1, 8, 4, 300, 300, d, True, 128, None,
+                                  0), BF16, dv)
+    first = tfa.flash_attention_bwd(*args, **kw)
+    second = tfa.flash_attention_bwd(*args, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("pair", [(96, 32), (24, 24), (64, 16), (112, 112)])
+def test_flash_attention_unbuilt_pair_raises(cuda, dtype, pair):
+    """A (q/k, v) head_dim pair that no library is built for raises
+    ValueError naming the built pairs, forward and backward, and nothing
+    is launched: no padded copy, no SDPA, no plain version."""
+    from repro_torch.kernels import flash_attention as tfa
+    d, dv = pair
+    args, kw = _bwd_inputs(cuda, (1, 2, 2, 16, 16, d, True, None, None, 0),
+                           dtype, dv)
+    before = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches)
+    with pytest.raises(ValueError, match=r"built \(D, Dv\) pairs.*\(96, 64\)"):
+        tfa.flash_attention(*args[:3], **kw)
+    with pytest.raises(ValueError, match=r"built \(D, Dv\) pairs"):
+        tfa.flash_attention_bwd(*args, **kw)
+    assert (tfa.flash_attention.launches,
+            tfa.flash_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_custom_ops_pass_opcheck(cuda, dtype):
+    """The attention ops at minicpm3-4b's pair: the fake implementations
+    give o and dv v's width, and each call launches its kernel."""
+    from repro_torch.kernels import flash_attention as tfa
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(cuda, 0, 1, 4, 4, 64, 64, 96, dt, 64)
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True)
+    for op, args in ((torch.ops.repro_torch.flash_attention,
+                      (q, k, v, True, None, None, None, 128, 128, None,
+                       True)),
+                     (torch.ops.repro_torch.flash_attention_bwd,
+                      (q, k, v, o, lse, torch.randn_like(o), True, None,
+                       None, None, None))):
+        before = (tfa.flash_attention.launches,
+                  tfa.flash_attention_bwd.launches)
+        res = torch.library.opcheck(op, args)
+        assert set(res.values()) == {"SUCCESS"}, (op, res)
+        assert (tfa.flash_attention.launches,
+                tfa.flash_attention_bwd.launches) != before
+
+
+def test_card_mla_serve_equals_cpu_serve(cuda):
+    """minicpm3-4b's smoke configuration served on the card (the MLA
+    prefill through the (24, 16) kernel, the absorbed decode in plain
+    PyTorch) gives the CPU's tokens, one launch a layer a wave."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import Model
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import ServeEngine
+    cfg = get_smoke_config("minicpm3_4b")
     cpu = Model(cfg).init(0, device="cpu")
     card = Model(cfg).load(tree_map(lambda t: t.to(cuda), cpu.params))
     rng = np.random.default_rng(0)

@@ -155,8 +155,10 @@ def test_shard_is_a_no_op_outside_a_context():
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_input_specs_refuse_inputs_not_ported(arch):
+    """The encoder-decoder inputs (frames) wait for their architecture;
+    a vlm's patch embeddings are ported (`tests/test_torch_zoo.py`)."""
     import dataclasses
-    cfg = dataclasses.replace(get_config(arch), family="vlm")
+    cfg = dataclasses.replace(get_config(arch), is_encoder_decoder=True)
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         Model(cfg).input_specs(cfgmod.SHAPES["train_4k"])
     np.testing.assert_equal(len(Model(get_config(arch)).input_specs(
