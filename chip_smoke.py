@@ -147,6 +147,12 @@ Phases, each printing one JSON line:
              placements; then the same step over a 2x4 mesh (2 kv heads
              over a 4-way model axis: one kv head a rank, dk/dv a Partial
              sum), its gradients, grad norm and loss held the same way;
+             then an MoE layer (`MOE_A2A`: the reference test's, 4
+             experts, top-2) over a (2, 2, 2) pod x data x model mesh
+             through `moe._apply_moe_a2a` (its all-to-alls c10d calls on
+             CUDA tensors, DTensor's collectives staged) against the
+             dense dispatch on the card: values within 2e-4, gradients
+             within 2e-3;
 7k. dryrun — `launch.dryrun` in a worker process (host work, fake
              tensors over a fake group of 256 ranks): gemma2-9b x
              ``train_4k`` and x ``decode_32k`` and the paper's bisim
@@ -168,11 +174,12 @@ Phases, each printing one JSON line:
              `torch.profiler`, the time of 20 calls in a row by CUDA
              events and the host's time a call; then minicpm3-4b's MLA
              prefill (bf16, 40/40 heads, q/k head_dim 96 = 64 nope + 32
-             rope, v head_dim 64, 8192 tokens, causal) the same way, its
-             bound at 2 (D + Dv) flops a visible pair and SDPA on the
-             backends that take a v head_dim of its own, and both MLA
-             pairs (96/64, 24/16) in both dtypes against the plain
-             version; prints the attention libraries' ``-Xptxas -v``
+             rope, v head_dim 64, 8192 tokens, causal) and
+             deepseek-v2-lite's (16/16 heads, q/k 192 = 128 nope + 64
+             rope, v 128) the same way, each bound at 2 (D + Dv) flops a
+             visible pair and SDPA on the backends that take a v head_dim
+             of its own, and the three MLA pairs (96/64, 24/16, 192/128)
+             in both dtypes against the plain version; prints the attention libraries' ``-Xptxas -v``
              lines, a register/spill/wgmma count of each kernel's SASS and
              the route each dtype takes;
 8a. attention_bwd — ``flash_attention_bwd`` against its plain version
@@ -188,8 +195,9 @@ Phases, each printing one JSON line:
              minus fwd, no softcap); the f32 routes (forward and
              backward) timed the same way at the train-parity shape and
              at gemma2's train shape, bounds on the f32 peak; then the
-             MLA pairs' cases in both dtypes and minicpm3-4b's heads at the
-             train shape (4096 tokens) in both dtypes, timed the same way
+             MLA pairs' cases in both dtypes and minicpm3-4b's and
+             deepseek-v2-lite's heads at the train shape (4096 tokens) in
+             both dtypes, timed the same way
              beside the bound at 2 (3 D + 2 Dv) flops a visible pair and
              SDPA's backward where a backend takes the shapes; prints the
              route each dtype takes and the backward libraries'
@@ -203,24 +211,36 @@ Phases, each printing one JSON line:
              4-layer, d_model-512 minicpm3 at its own head widths (MLA:
              kv_lora 256, q_lora 768, rope 32, nope 64, v 64; weight
              matrices at std 1/sqrt(d_in), as train_parity's), one line
-             each;
-10. serve  — the serving launcher's defaults on gemma2-9b at full width
-             (42 layers, bf16, random weights from seed 0): 16 requests
-             of 4..63 tokens, 32 new tokens each, waves of up to 8, with
-             the ``flash_attention`` count set to 0 just before and read
-             just after (it must be 42 x waves);
+             each; then ``serve_parity_moe`` the same way for llama4-scout
+             and deepseek-v2-lite cut to 4 layers at d_model 512 with
+             their own heads and experts (`PARITY_LLAMA4`,
+             `PARITY_DEEPSEEK`; fewer, shorter requests), every launch
+             through the library of the config's (D, Dv) (deepseek: the
+             f32 (192, 128) kernel), the assignments dropped for capacity,
+             and for deepseek one train step's gradients on the card
+             within 1e-4 of each leaf's max |g| of float64 (the f32
+             backward at (192, 128));
+10. serve  — the serving launcher's defaults on gemma2-9b at full width,
+             cut to 22 of its 42 layers (bf16, random weights from seed
+             0): 16 requests of 4..63 tokens, 32 new tokens each, waves
+             of up to 8, with the ``flash_attention`` count set to 0 just
+             before and read just after (it must be 22 x waves);
 11. serve_profile — device time by kernel and the device's idle share
              for one wave of that server, under `torch.profiler`;
-11a. serve_zoo — the other dense architectures served in bf16 from
+11a. serve_zoo — the other architectures served in bf16 from
              seed 0, one line each: minicpm3-4b at full width and depth
              (62 layers; the serving launcher with ``--requests 4
              --max-new 16``), qwen1.5-110b at full width cut to 8 of its
              80 layers (4 requests, 16 new tokens) and llava-next-34b at
              full width cut to 20 of its 60 layers (one wave of 4 rows:
              2,880 stub patch embeddings and 48 text tokens a row, 16 new
-             tokens, through ``ServeEngine.serve(..., extra=)``): init s,
-             prefill ms, decode ms, tokens/s, peak bytes and share of the
-             card, ``flash_attention`` launches against layers x waves,
+             tokens, through ``ServeEngine.serve(..., extra=)``), then the
+             MoEs: deepseek-v2-lite at full width and depth through the
+             launcher and llama4-scout at full width cut to 8 of its 48
+             layers (4 requests, 16 new tokens): init s, prefill ms,
+             decode ms, tokens/s, peak bytes and share of the card,
+             ``flash_attention`` launches against layers x waves, an
+             MoE's assignments dropped for capacity in its prefills,
              finite logits and well-formed outputs;
 12. train_parity — a 4-layer, d_model-512 gemma2 in f32 (weight matrices
              at std 1/sqrt(d_in)) trained on the card and on the CPU from
@@ -251,6 +271,7 @@ nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -2751,18 +2772,20 @@ GEMMA_ATTN = dict(b=1, hq=16, hkv=8, s=8192, d=256, softcap=50.0,
 PARITY_LM = dict(num_layers=4, d_model=512, num_heads=8, num_kv_heads=4,
                  head_dim=64, d_ff=2048, vocab_size=32768, local_window=32)
 # multi-head latent attention: the (q/k, v) head_dim pairs built for it,
-# minicpm3-4b's and its smoke configuration's; the pairs' cases against the
-# plain version in both dtypes (b, hq, hkv, sq, skv, (d, dv), causal,
-# window, softcap, dtype); minicpm3-4b's MLA prefill attention (40 q over
-# 40 kv heads, q/k of 64 nope + 32 rope, v of 64, one sequence of 8192
-# tokens in bf16) and, smaller, in f32
-MLA_PAIRS = ((96, 64), (24, 16))
+# minicpm3-4b's, its smoke configuration's and deepseek-v2-lite's; the
+# pairs' cases against the plain version in both dtypes (b, hq, hkv, sq,
+# skv, (d, dv), causal, window, softcap, dtype); minicpm3-4b's MLA prefill
+# attention (40 q over 40 kv heads, q/k of 64 nope + 32 rope, v of 64, one
+# sequence of 8192 tokens in bf16) and, smaller, in f32; deepseek-v2-lite's
+# the same way (16 over 16 heads, q/k of 128 nope + 64 rope, v of 128)
+MLA_PAIRS = ((96, 64), (24, 16), (192, 128))
 MLA_ATTN_CASES = [(c[:5] + (pair,) + c[5:] + (dtype,))
                   for pair in MLA_PAIRS for dtype in ("float32", "bfloat16")
                   for c in ((1, 4, 4, 200, 200, True, None, None),
                             (2, 8, 2, 37, 300, False, 64, 2.0),
                             (1, 4, 1, 150, 250, True, None, None))]
 MLA_ATTN = dict(b=1, hq=40, hkv=40, s=8192, d=96, dv=64)
+DEEPSEEK_ATTN = dict(b=1, hq=16, hkv=16, s=8192, d=192, dv=128)
 MLA_F32_TOKENS = 1024
 # the MLA serve-parity model: minicpm3-4b cut to 4 layers at d_model 512,
 # its own head widths
@@ -2770,6 +2793,25 @@ PARITY_MLA = dict(num_layers=4, d_model=512, num_heads=8, num_kv_heads=8,
                   kv_lora_rank=256, q_lora_rank=768, rope_head_dim=32,
                   nope_head_dim=64, v_head_dim=64, head_dim=64, d_ff=2048,
                   vocab_size=32768)
+# the MoE serve-parity models, each cut to 4 layers at d_model 512 with its
+# own head widths and experts: llama4-scout (GQA 8/2 heads of 128; 16
+# experts, top-1, one shared) and deepseek-v2-lite (MLA over 8 heads, q/k
+# 128 nope + 64 rope, v 128, kv_lora 512, no q_lora; 64 experts, top-6,
+# two shared); both serve fewer, shorter requests than the dense parities
+# (`PARITY_MOE_TRAFFIC`): the dense dispatch multiplies the 128 slots of
+# every expert at each decode step, which the CPU's side pays for
+PARITY_LLAMA4 = dict(num_layers=4, d_model=512, num_heads=8, num_kv_heads=2,
+                     head_dim=128, num_experts=16, moe_top_k=1,
+                     num_shared_experts=1, d_ff=2048, vocab_size=32768)
+PARITY_DEEPSEEK = dict(num_layers=4, d_model=512, num_heads=8,
+                       num_kv_heads=8, kv_lora_rank=512, q_lora_rank=0,
+                       rope_head_dim=64, nope_head_dim=128, v_head_dim=128,
+                       head_dim=128, num_experts=64, moe_top_k=6,
+                       num_shared_experts=2, d_ff=1408, vocab_size=32768)
+PARITY_MOE_TRAFFIC = dict(lengths=(5, 40, 70), max_new=4)
+# gemma2-9b's full-width serve, cut from 42 to 22 layers (11 local/global
+# pairs: the pattern takes an even count) for the script's time limit
+SERVE_LAYERS = 22
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2952,15 +2994,14 @@ def phase_attention() -> dict:
     cases += [measure(2, 8, 8, 100, 100, d, True, None, None, dtype,
                       bshd=True, dv=dv)
               for d, dv in MLA_PAIRS for dtype in ("float32", "bfloat16")]
-    m = MLA_ATTN
-    mla = {"bfloat16": measure(m["b"], m["hq"], m["hkv"], m["s"], m["s"],
-                               m["d"], True, None, None, "bfloat16",
-                               profile=True, dv=m["dv"],
-                               sdpa_backends=SDPA_DV_BACKENDS),
-           "float32": measure(m["b"], m["hq"], m["hkv"], MLA_F32_TOKENS,
-                              MLA_F32_TOKENS, m["d"], True, None, None,
-                              "float32", profile=True, dv=m["dv"],
-                              sdpa_backends=SDPA_DV_BACKENDS)}
+    def mla_prefill(m):  # an MLA model's heads, bf16 and (shorter) f32
+        return {dtype: measure(m["b"], m["hq"], m["hkv"], s, s, m["d"],
+                               True, None, None, dtype, profile=True,
+                               dv=m["dv"], sdpa_backends=SDPA_DV_BACKENDS)
+                for dtype, s in (("bfloat16", m["s"]),
+                                 ("float32", MLA_F32_TOKENS))}
+    mla = mla_prefill(MLA_ATTN)
+    deepseek = mla_prefill(DEEPSEEK_ATTN)
     g = GEMMA_ATTN
     timing = {name: measure(g["b"], g["hq"], g["hkv"], g["s"], g["s"],
                             g["d"], True, window, softcap, "bfloat16",
@@ -2969,7 +3010,8 @@ def phase_attention() -> dict:
                   ("global", None, g["softcap"]),
                   ("local", g["window"], g["softcap"]),
                   ("global_no_softcap", None, None))}
-    rows = cases + list(timing.values()) + list(mla.values())
+    rows = (cases + list(timing.values()) + list(mla.values())
+            + list(deepseek.values()))
     ptxas = {lib: [ln.strip() for ln in _build.ptxas_report(lib).splitlines()
                    if "Used" in ln or "spill" in ln or "C75" in ln]
              for lib in ("flash_attention", "flash_attention_sm90",
@@ -2996,6 +3038,7 @@ def phase_attention() -> dict:
            "cases": cases, "mismatches": bad,
            "max_abs_err": max(c["max_abs_err"] for c in rows),
            "gemma2_9b_prefill": timing, "minicpm3_4b_prefill": mla,
+           "deepseek_v2_lite_16b_prefill": deepseek,
            "built_pairs": [list(p) for p in tfa.HEAD_DIMS],
            "ptxas": ptxas, "sass": sass}
     emit(out)
@@ -3014,19 +3057,53 @@ def _host_cpu() -> str:
     return f"{platform.machine()} {' / '.join(names)} x{os.cpu_count()}"
 
 
+@contextlib.contextmanager
+def _pairs_called():
+    """A context recording the (library, D, Dv) of each attention kernel
+    call (`kernels.flash_attention.library`, which every launch resolves
+    through) into the Counter it yields."""
+    import collections
+    from repro_torch.kernels import flash_attention as tfa
+    seen, library = collections.Counter(), tfa.library
+
+    def record(route, d, dv):
+        out = library(route, d, dv)
+        seen[_pair_key(out[0], d, dv)] += 1
+        return out
+    tfa.library = record
+    try:
+        yield seen
+    finally:
+        tfa.library = library
+
+
+def _head_dims(cfg) -> tuple:
+    """(q/k, v) head_dims of a config's attention."""
+    if cfg.attention == "mla":
+        return cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim
+    return cfg.head_dim, cfg.head_dim
+
+
 def phase_serve_parity(arch: str = "gemma2_9b", overrides=None,
                        phase: str = "serve_parity",
-                       trained_scale: bool = False) -> dict:
+                       trained_scale: bool = False, traffic=None,
+                       train_grads: bool = False) -> dict:
     """A small ``arch`` (default gemma2 at `PARITY_LM`; minicpm3 at
-    `PARITY_MLA` is the MLA one) served on the card (prefill attention
-    through the kernel) and on the CPU (plain version) from one init
-    (with ``trained_scale``, its weight matrices at std 1/sqrt(d_in):
-    `_trained_scale`): equal tokens,
-    one launch a layer a prefill wave, and the card's prefill logits
-    within 1e-4 of the CPU's plain route evaluated in float64.  (Card and
-    CPU in f32 each lie ~2e-5 from float64 on this model, but their f32
-    gap depends on the host: 3.1e-5 on most machines, 9.2e-4 on one, so
-    it is reported beside the host's CPU and not held to 1e-4.)"""
+    `PARITY_MLA` is the MLA one, llama4 and deepseek at `PARITY_LLAMA4`
+    and `PARITY_DEEPSEEK` the MoE ones) served on the card (prefill
+    attention through the kernel) and on the CPU (plain version) from one
+    init (with ``trained_scale``, its weight matrices at std 1/sqrt(d_in):
+    `_trained_scale`): equal tokens, one launch a layer a prefill wave,
+    every launch through the library built for the config's (D, Dv), and
+    the card's prefill logits within 1e-4 of the CPU's plain route
+    evaluated in float64.  (Card and CPU in f32 each lie ~2e-5 from
+    float64 on this model, but their f32 gap depends on the host: 3.1e-5
+    on most machines, 9.2e-4 on one, so it is reported beside the host's
+    CPU and not held to 1e-4.)  ``traffic`` ({lengths, max_new}) replaces
+    the 11 requests of 16 new tokens; an MoE's line adds the assignments
+    dropped for capacity in the card's prefills.  With ``train_grads``,
+    also one train step's gradients on the card against float64
+    (`_train_grads_vs_f64`)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3048,33 +3125,100 @@ def phase_serve_parity(arch: str = "gemma2_9b", overrides=None,
     logits = {"card": card.prefill(toks.to(DEVICE))[0].cpu().double(),
               "cpu": cpu.prefill(toks)[0].double(),
               "f64": cpu64.prefill(toks)[0]}
+    del cpu64
     err = {f"{a}_vs_{b}": float((logits[a] - logits[b]).abs().max())
            for a, b in (("card", "f64"), ("cpu", "f64"), ("card", "cpu"))}
     # prompts longer than the window of 32, in five length buckets
-    reqs = [rng.integers(1, cfg.vocab_size, n).tolist()
-            for n in (5, 40, 40, 70, 33, 100, 40, 12, 40, 40, 40)]
+    lengths = (traffic["lengths"] if traffic else
+               (5, 40, 40, 70, 33, 100, 40, 12, 40, 40, 40))
+    max_new = traffic["max_new"] if traffic else 16
+    reqs = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lengths]
     kw = dict(max_batch=4, max_seq=160)
     flash_attention.launches = 0
     eng = ServeEngine(card, **kw)
-    got = eng.serve(reqs, max_new=16)
+    dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    card.prefill = _counting_drops(card.prefill, dropped)
+    try:
+        with _pairs_called() as pairs:
+            got = eng.serve(reqs, max_new=max_new)
+    finally:
+        del card.prefill
     launches = flash_attention.launches
     cpu_eng = ServeEngine(cpu, **kw)
-    want = cpu_eng.serve(reqs, max_new=16)
+    want = cpu_eng.serve(reqs, max_new=max_new)
+    from repro_torch.kernels.flash_attention import kernel_route
+    d, dv = _head_dims(cfg)
+    lib = _pair_key(kernel_route(torch.float32, d, dv), d, dv)
     out = {"phase": phase, "arch": arch, "config": overrides,
            "trained_scale": trained_scale, "dtype": "float32",
            "requests": len(reqs), "prompt_lengths": [len(r) for r in reqs],
+           "max_new": max_new,
            "prefill_logit_max_abs_err": err, "host_cpu": _host_cpu(),
            "tokens_equal": got == want, "stats": vars(eng.stats),
            "stats_equal": eng.stats == cpu_eng.stats,
            "flash_attention_launches": launches,
            "layers_x_waves": cfg.num_layers * eng.stats.waves,
-           "seconds": time.perf_counter() - t0}
+           "kernel_calls": dict(pairs), "kernel_expected": lib}
+    if cfg.num_experts:
+        out["moe_dropped_in_prefills"] = int(dropped)
+    ok = (got == want and eng.stats == cpu_eng.stats
+          and err["card_vs_f64"] < 1e-4
+          and launches == cfg.num_layers * eng.stats.waves
+          and set(pairs) == {lib})
+    if train_grads:
+        out["train_step"] = _train_grads_vs_f64(card, cpu)
+        ok = ok and out["train_step"]["ok"]
+    out["seconds"] = time.perf_counter() - t0
     emit(out)
-    if not (got == want and eng.stats == cpu_eng.stats
-            and err["card_vs_f64"] < 1e-4
-            and launches == cfg.num_layers * eng.stats.waves):
+    if not ok:
         raise SystemExit(f"{phase}: card serving differs from the CPU's")
     return out
+
+
+def _pair_key(library: str, d: int, dv: int) -> str:
+    """The key `_pairs_called` records for a call of ``library`` at
+    (d, dv)."""
+    return f"{library} D={d}/{dv}"
+
+
+def _train_grads_vs_f64(card, cpu) -> dict:
+    """One train step's loss and gradients of ``card``'s model (f32, on the
+    card: the attention forward and backward through their f32 kernels)
+    against the same parameters' float64 evaluation on the CPU (the plain
+    versions): each leaf within 1e-4 of its max |g|, the loss within 1e-4
+    relative; the backward's launches (one a layer) and the libraries it
+    resolved."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import Model
+    from repro_torch.models.params import tree_map
+    cfg = card.cfg
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64)))
+             for k in ("tokens", "labels")}
+    train = Model(cfg).load(tree_map(lambda t: t.detach().clone(),
+                                     card.params), trainable=True)
+    f64 = Model(cfg).load(tree_map(lambda t: t.detach().double(),
+                                   cpu.params), trainable=True)
+    bwd = tfa.flash_attention_bwd.launches
+    with _pairs_called() as pairs:
+        loss, g_card = _grads(train, {k: v.to(DEVICE)
+                                      for k, v in batch.items()})
+        torch.cuda.synchronize()
+    bwd = tfa.flash_attention_bwd.launches - bwd
+    loss64, g64 = _grads(f64, batch)
+    errs = _leaf_errors(g_card, g64)
+    worst = max(errs, key=errs.get)
+    d, dv = _head_dims(cfg)
+    want = {_pair_key(tfa.kernel_route(torch.float32, d, dv), d, dv),
+            _pair_key(tfa.bwd_kernel_route(torch.float32, d, dv), d, dv)}
+    return {"batch": [1, 64], "loss": loss, "loss_f64": loss64,
+            "grad_err_of_max": errs[worst], "worst_leaf": worst,
+            "bwd_launches": bwd, "kernel_calls": dict(pairs),
+            "ok": (errs[worst] <= 1e-4 and bwd == cfg.num_layers
+                   and abs(loss - loss64) <= 1e-4 * abs(loss64)
+                   and set(pairs) == want)}
 
 
 def _timed_host(fn, log: list, finite: list):
@@ -3094,17 +3238,26 @@ def _timed_host(fn, log: list, finite: list):
 
 
 def phase_serve():
-    """The serving launcher's defaults on gemma2-9b at full width."""
+    """The serving launcher's defaults on gemma2-9b at full width, cut to
+    `SERVE_LAYERS` layers."""
     import numpy as np
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import serve as launcher
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
     args = launcher.build_parser().parse_args(["--arch", "gemma2_9b",
                                                "--device", DEVICE])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = launcher.make_engine(args)
+    # `launcher.make_engine` on the cut config: random bf16 weights from
+    # seed 0, the launcher's max_batch and max_seq
+    cfg = get_config(args.arch).scaled(num_layers=SERVE_LAYERS)
+    eng = ServeEngine(Model(cfg).init(0, torch.bfloat16, DEVICE),
+                      max_batch=args.max_batch, max_seq=args.max_seq,
+                      dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     model, cfg = eng.model, eng.model.cfg
@@ -3126,7 +3279,8 @@ def phase_serve():
                  and all(0 <= t < cfg.padded_vocab for o in outs for t in o))
     out = {"phase": "serve", "arch": cfg.name,
            "dtype": str(eng.dtype).removeprefix("torch."),
-           "layers": cfg.num_layers, "params": model.num_params(),
+           "layers": cfg.num_layers, "layers_of": 42,
+           "params": model.num_params(),
            "requests": len(reqs), "prompt_lengths": [len(r) for r in reqs],
            "max_new": args.max_new, "max_batch": args.max_batch,
            "max_seq": args.max_seq, "init_s": init_s, "wall_s": wall,
@@ -3149,6 +3303,20 @@ def phase_serve():
     if not (all(finite) and shapes_ok):
         raise SystemExit("serve: non-finite logits or malformed outputs")
     return out, eng, reqs
+
+
+def _counting_drops(prefill, dropped):
+    """``prefill`` with `models.moe`'s drop count on (into ``dropped``)
+    for the length of each call."""
+    from repro_torch.models import moe
+
+    def counted(*args, **kwargs):
+        moe.dropped = dropped
+        try:
+            return prefill(*args, **kwargs)
+        finally:
+            moe.dropped = None
+    return counted
 
 
 def _device_top(prof, wall_s: float, n: int = 12) -> dict:
@@ -3193,22 +3361,30 @@ def phase_serve_profile(eng, reqs) -> dict:
     return out
 
 
-# the other dense architectures served at full width in bf16 from seed 0
-# (arch, layers kept or None for full depth, traffic): minicpm3-4b at full
-# depth (4,263,336,448 parameters, 8.5 GB) through the serving launcher;
+# the other architectures served at full width in bf16 from seed 0 (arch,
+# layers kept or None for full depth, traffic): minicpm3-4b at full depth
+# (4,263,336,448 parameters, 8.5 GB) through the serving launcher;
 # qwen1.5-110b cut to 8 of 80 layers (111.2e9 parameters, 222 GB, do not
 # fit: 8 layers are 13,388,439,552, 26.8 GB) and llava-next-34b cut to 20
-# of 60 (68.8 GB before its cache; 20 layers are 12,096,666,624, 24.2 GB)
+# of 60 (68.8 GB before its cache; 20 layers are 12,096,666,624, 24.2 GB);
+# the MoEs: deepseek-v2-lite at full depth (27 layers, 16,210,324,992
+# parameters, 32.4 GB) through the launcher, llama4-scout cut to 8 of 48
+# layers (107.8e9 parameters, 215.6 GB; 8 layers are 19,692,999,680, 39.4
+# GB)
 ZOO = (("minicpm3_4b", None, "launcher"), ("qwen1p5_110b", 8, "requests"),
-       ("llava_next_34b", 20, "vlm_wave"))
+       ("llava_next_34b", 20, "vlm_wave"),
+       ("deepseek_v2_lite_16b", None, "launcher"),
+       ("llama4_scout_17b_16e", 8, "requests"))
 ZOO_TRAFFIC = dict(requests=4, max_new=16, vlm_rows=4, vlm_text=48)
 
 
 def phase_serve_zoo() -> dict:
-    """minicpm3-4b, qwen1.5-110b and llava-next-34b served on the card
-    (`ZOO`), each model freed before the next; one line each, with the
-    ``flash_attention`` count set to 0 just before each model serves and
-    read just after (it must be its layers x waves)."""
+    """minicpm3-4b, qwen1.5-110b, llava-next-34b, deepseek-v2-lite and
+    llama4-scout served on the card (`ZOO`), each model freed before the
+    next; one line each, with the ``flash_attention`` count set to 0 just
+    before each model serves and read just after (it must be its layers x
+    waves), and an MoE's assignments dropped for capacity in its
+    prefills."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3251,7 +3427,9 @@ def phase_serve_zoo() -> dict:
         init_s = time.perf_counter() - t0
         model = eng.model
         prefill_ms, decode_ms, finite = [], [], []
-        model.prefill = _timed_host(model.prefill, prefill_ms, finite)
+        dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        model.prefill = _timed_host(_counting_drops(model.prefill, dropped),
+                                    prefill_ms, finite)
         model.decode_step = _timed_host(model.decode_step, decode_ms, finite)
         try:
             flash_attention.launches = 0
@@ -3285,6 +3463,13 @@ def phase_serve_zoo() -> dict:
                "logits_finite": all(finite),
                "outputs_well_formed": shapes_ok, "peak_bytes": peak,
                "peak_share": peak / card, "first_output": outs[0][:8]}
+        if cfg.num_experts:
+            # decode cannot drop: a step's rows x top_k assignments (at
+            # most 8 x 6) stay under an expert's 128 slots
+            out.update(experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                       moe_dropped_in_prefills=int(dropped),
+                       prefill_assignments=(st.prefill_tokens * cfg.moe_top_k
+                                            * cfg.num_layers))
         emit(out)
         lines[arch] = out
         del eng, model, outs, extra
@@ -3332,7 +3517,8 @@ MLA_BWD_CASES = [c + (pair[1],) for pair in MLA_PAIRS for c in (
     (1, 8, 2, 70, 70, pair[0], True, None, 2.0, 0),
     (1, 4, 1, 40, 64, pair[0], True, 16, None, 24),
     (2, 4, 2, 33, 33, pair[0], False, 8, 3.0, -5))]
-# minicpm3-4b's train attention: its MLA heads at train_4k's 4096 tokens
+# the MLA models' train attention (minicpm3-4b's and deepseek-v2-lite's
+# heads) at train_4k's 4096 tokens
 MLA_TRAIN_TOKENS = 4096
 # gemma2-9b's train attention: one sequence of train_4k's 4096 tokens, bf16
 GEMMA_TRAIN_ATTN = dict(b=1, hq=16, hkv=8, s=4096, d=256, softcap=50.0,
@@ -3508,12 +3694,15 @@ def phase_attention_bwd() -> dict:
     # main path, train_parity's global layers, and at gemma2's train shape
     f32 = {"train_parity": timed("float32", parity, None, g["softcap"]),
            "gemma2_9b_train": timed("float32", train, None, g["softcap"])}
-    # minicpm3-4b's MLA heads at the train shape, both dtypes
-    m = MLA_ATTN
-    mla_shape = (m["b"], m["hq"], m["hkv"], MLA_TRAIN_TOKENS, m["d"])
-    mla = {dtype: timed(dtype, mla_shape, None, None, dv=m["dv"],
-                        sdpa_backends=SDPA_DV_BACKENDS)
-           for dtype in ("bfloat16", "float32")}
+    # the MLA models' heads (minicpm3-4b's, deepseek-v2-lite's) at the
+    # train shape, both dtypes
+    def mla_train(m):
+        shape = (m["b"], m["hq"], m["hkv"], MLA_TRAIN_TOKENS, m["d"])
+        return {dtype: timed(dtype, shape, None, None, dv=m["dv"],
+                             sdpa_backends=SDPA_DV_BACKENDS)
+                for dtype in ("bfloat16", "float32")}
+    mla = mla_train(MLA_ATTN)
+    deepseek = mla_train(DEEPSEEK_ATTN)
     tfa._call = call
     routes = {"bfloat16": tfa.bwd_kernel_route(torch.bfloat16)
               + " (wgmma, TMA)",
@@ -3535,7 +3724,7 @@ def phase_attention_bwd() -> dict:
         for kernel, counts in kernels.items():
             print(f"sass {lib} {kernel}: {json.dumps(counts)}", flush=True)
     bad = [c for c in cases + list(timing.values()) + list(f32.values())
-           + list(mla.values()) if not c["ok"]]
+           + list(mla.values()) + list(deepseek.values()) if not c["ok"]]
     out = {"phase": "attention_bwd", "kernel": "flash_attention_bwd",
            "replaces": "none: the JAX package differentiates in XLA "
                        "(src/repro/models/flash_xla.py:100, _bwd_rule)",
@@ -3546,7 +3735,8 @@ def phase_attention_bwd() -> dict:
            "max_abs_err": max(max(c["max_abs_err"].values())
                               for c in cases),
            "gemma2_9b_train": timing, "f32_routes": f32,
-           "minicpm3_4b_train": mla, "ptxas": ptxas, "sass": sass}
+           "minicpm3_4b_train": mla, "deepseek_v2_lite_16b_train": deepseek,
+           "ptxas": ptxas, "sass": sass}
     emit(out)
     if bad:
         raise SystemExit("flash_attention_bwd or an lse disagrees with its "
@@ -3554,17 +3744,22 @@ def phase_attention_bwd() -> dict:
     return out
 
 
+# the weight matrices of a parameter tree: linear layers' ``w``, and an
+# MoE block's router and stacked experts ([G, E, d_in, d_out])
+WEIGHT_KEYS = ("w", "router", "w_gate", "w_up", "w_down")
+
+
 def _trained_scale(params) -> None:
-    """Each weight matrix ``w`` (stacked [G, d_in, d_out] or [d_in, d_out])
-    rescaled in place from the init's std 1/sqrt(shape[0]) to
-    1/sqrt(d_in), as a trained model keeps its activations O(1)."""
+    """Each weight matrix (`WEIGHT_KEYS`: stacked [G, ..., d_in, d_out] or
+    [d_in, d_out]) rescaled in place from the init's std 1/sqrt(shape[0])
+    to 1/sqrt(d_in), as a trained model keeps its activations O(1)."""
     import torch
 
     def walk(tree):
         for key, val in tree.items():
             if isinstance(val, dict):
                 walk(val)
-            elif key == "w":
+            elif key in WEIGHT_KEYS:
                 with torch.no_grad():
                     val.mul_((val.shape[0] / val.shape[-2]) ** 0.5)
     walk(params)
@@ -3808,6 +4003,16 @@ def phase_train() -> dict:
 # the sharded step: gemma2's smoke config in f32 over a 4x2 (data, model)
 # mesh of 8 gloo ranks sharing the card, against the one-rank step
 SHARDED = dict(ranks=8, mesh=(4, 2), batch=8, seq=32, seed=0, tol=1e-4)
+# the MoE's all-to-all dispatch on the same 8 ranks: the reference test's
+# layer (`tests/test_distributed.py::test_moe_a2a_matches_dense_dispatch`:
+# 4 experts, top-2, capacity factor 8) over a (2, 2, 2) pod x data x model
+# mesh against the dense dispatch, x [8, 8, 16]: values within 2e-4,
+# gradients within 2e-3, the reference's bar
+MOE_A2A = dict(mesh=(2, 2, 2), x=(8, 8, 16), tol=2e-4, grad_tol=2e-3,
+               layer=dict(name="t", family="moe", num_layers=1, d_model=16,
+                          num_heads=2, num_kv_heads=2, d_ff=24,
+                          vocab_size=32, num_experts=4, moe_top_k=2,
+                          capacity_factor=8.0))
 SHARDED_DIR = ROOT / "build" / "sharded-smoke"  # rank logs; removed at exit
 # the dry-run's cells on the single-pod mesh (host work: a worker process
 # beside the card phases), their JSON under DRYRUN_DIR (removed at exit)
@@ -3924,7 +4129,6 @@ def staged_collectives(mesh, devices=("cuda",)):
     two ranks on one card.  So the harness's 8 ranks sharing one card
     enter this around the step; a deployment (NCCL, a card a rank) does
     not.  The tensors stay where they are; nothing else changes."""
-    import contextlib
     import torch
     import torch.distributed as dist
     if (mesh is None or mesh.device_type not in devices
@@ -4110,6 +4314,7 @@ def sharded_train_worker(out_dir: str) -> int:
                 gqa_kernel_inputs=sorted(gqa_heads),
                 gqa_grads_in_weight_placements=all(
                     g == w for g, w in placed24))
+    info["moe_a2a"] = _moe_a2a_check()
     if rank == 0:
         def worst(got, want, rel):
             errs = {path: float((got[path] - want[path]).abs().max()
@@ -4124,6 +4329,57 @@ def sharded_train_worker(out_dir: str) -> int:
     dist.destroy_process_group()
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(info))
     return 0
+
+
+def _moe_a2a_check() -> dict:
+    """`MOE_A2A` on this rank: the layer through `moe.apply_moe` over the
+    (2, 2, 2) mesh (the a2a route, inside `staged_collectives`; its
+    all-to-alls are c10d calls on CUDA tensors, which gloo takes) and
+    through the dense route on whole tensors on the card, from one seeded
+    init; the gradients of sum(tanh(y)) by every weight and by x."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import moe
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.params import (init_params, param_axes,
+                                           tree_leaves)
+    cfg = ModelConfig(**MOE_A2A["layer"])
+    specs = moe.moe_specs(cfg)
+    full = init_params(specs, torch.Generator(device=DEVICE).manual_seed(0),
+                       torch.float32)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=MOE_A2A["x"]).astype(np.float32)).to(DEVICE)
+
+    def run(params, xin):
+        leaves = tree_leaves(params)
+        for t in leaves + [xin]:
+            t.requires_grad_()
+        y = moe.apply_moe(params, xin, cfg)
+        y = y.full_tensor() if meshlib.is_dtensor(y) else y
+        grads = torch.autograd.grad(torch.tanh(y).sum(), leaves + [xin])
+        return y.detach(), [g.full_tensor() if meshlib.is_dtensor(g) else g
+                            for g in grads]
+    y_dense, g_dense = run({k: t.clone() for k, t in full.items()},
+                           x.clone())
+    mesh = meshlib.make_mesh(MOE_A2A["mesh"], ("pod", "data", "model"),
+                             device_type=DEVICE)
+    rules = meshlib.DEFAULT_RULES
+    params = meshlib.distribute_tree(full, param_axes(specs), mesh, rules)
+    xd = meshlib.distribute(x, mesh, meshlib.sharding_for(
+        ("act_batch", "act_seq", "act_embed"), MOE_A2A["x"], mesh, rules))
+    routes, a2a = [], moe._apply_moe_a2a
+    moe._apply_moe_a2a = lambda *a: routes.append("a2a") or a2a(*a)
+    try:
+        with staged_collectives(mesh), meshlib.sharding_context(mesh, rules):
+            y, grads = run(params, xd)
+    finally:
+        moe._apply_moe_a2a = a2a
+    return {"routes": routes,
+            "max_abs_err": float((y - y_dense).abs().max()),
+            "grad_max_abs_err": max(float((g - w).abs().max())
+                                    for g, w in zip(grads, g_dense)),
+            "device": y.device.type}
 
 
 def start_sharded() -> tuple:
@@ -4184,7 +4440,13 @@ def phase_sharded_train_parity(procs: list, logs: list) -> dict:
            "grads_in_weight_placements": [r["grads_in_weight_placements"]
                                           for r in ranks],
            "placements": head["placements"],
-           "step_s_by_rank": [r["seconds"] for r in ranks]}
+           "step_s_by_rank": [r["seconds"] for r in ranks],
+           "moe_a2a": {"mesh": dict(zip(("pod", "data", "model"),
+                                        MOE_A2A["mesh"])),
+                       "layer": MOE_A2A["layer"], "x": MOE_A2A["x"],
+                       "tol": MOE_A2A["tol"],
+                       "grad_tol": MOE_A2A["grad_tol"],
+                       "by_rank": [r["moe_a2a"] for r in ranks]}}
     emit(out)
     for r in ranks:
         print(f"sharded_train_parity: rank {r['rank']} launched "
@@ -4210,8 +4472,16 @@ def phase_sharded_train_parity(procs: list, logs: list) -> dict:
           and all(r["grads_in_weight_placements"] for r in ranks)
           and all(k[2] == "Tensor" and k[3] == "cuda"
                   for r in ranks for k in r["kernel_inputs"]))
+    moe_ok = all(r["moe_a2a"]["routes"] == ["a2a"]
+                 and r["moe_a2a"]["device"] == "cuda"
+                 and r["moe_a2a"]["max_abs_err"] <= MOE_A2A["tol"]
+                 and r["moe_a2a"]["grad_max_abs_err"] <= MOE_A2A["grad_tol"]
+                 for r in ranks)
     if not ok:
         raise SystemExit("sharded_train_parity: the sharded step differs")
+    if not moe_ok:
+        raise SystemExit("sharded_train_parity: the MoE's all-to-all "
+                         "dispatch differs from the dense one")
     return out
 
 
@@ -4399,6 +4669,13 @@ def main() -> int:
     # ~9e-6 at the trained scale
     phase_serve_parity("minicpm3_4b", PARITY_MLA, "serve_parity_mla",
                        trained_scale=True)
+    # the MoEs at 1/sqrt(d_in) as well; deepseek's line adds a train
+    # step's gradients (the f32 backward at (192, 128) on a model path)
+    moe_parity = {arch: phase_serve_parity(
+        arch, cut, "serve_parity_moe", trained_scale=True,
+        traffic=PARITY_MOE_TRAFFIC, train_grads=arch.startswith("deepseek"))
+        for arch, cut in (("llama4_scout_17b_16e", PARITY_LLAMA4),
+                          ("deepseek_v2_lite_16b", PARITY_DEEPSEEK))}
     serve, eng, reqs = phase_serve()
     phase_serve_profile(eng, reqs)
     del eng
@@ -4430,7 +4707,8 @@ def main() -> int:
     emit({"phase": "op_dispatch", "host_us_a_call": dispatch,
           "inputs": "sig_fold 4,096 lanes / 256 rows; attention bf16 "
           "1 x 4/2 heads x 128 tokens x 64"})
-    # MLA's (96, 64) pair at minicpm3-4b's shapes, the serve_zoo's
+    # MLA's (96, 64) pair at minicpm3-4b's shapes and (192, 128) at
+    # deepseek-v2-lite's, the serve_zoo's and the MoE serve parities'
     # launches and the (D, Dv) pairs the libraries are built for
     mla_keys = (*times, "bound_by", "library_ms", "library_note",
                 "kernel_ms_source", "back_to_back_ms", "max_abs_err",
@@ -4497,7 +4775,14 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/flash_attention_sm90_mla.cu",
         "built_pairs": pairs, "serve_zoo_launches": zoo_launches,
         "mla": {dtype: {k: row[k] for k in mla_keys} for dtype, row in
-                attn["minicpm3_4b_prefill"].items()}}, {
+                attn["minicpm3_4b_prefill"].items()},
+        "deepseek_mla": {dtype: {k: row[k] for k in mla_keys}
+                         for dtype, row in
+                         attn["deepseek_v2_lite_16b_prefill"].items()},
+        "serve_parity_moe_launches": {
+            arch: {"launches": line["flash_attention_launches"],
+                   "kernel_calls": line["kernel_calls"]}
+            for arch, line in moe_parity.items()}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "f32_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4519,7 +4804,13 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90_mla.cu",
         "built_pairs": pairs,
         "mla": {dtype: {k: row[k] for k in mla_bwd_keys} for dtype, row in
-                attn_bwd["minicpm3_4b_train"].items()}}]})
+                attn_bwd["minicpm3_4b_train"].items()},
+        "deepseek_mla": {dtype: {k: row[k] for k in mla_bwd_keys}
+                         for dtype, row in
+                         attn_bwd["deepseek_v2_lite_16b_train"].items()},
+        "serve_parity_moe_train_launches": {
+            "deepseek_v2_lite_16b": moe_parity["deepseek_v2_lite_16b"][
+                "train_step"]["bwd_launches"]}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

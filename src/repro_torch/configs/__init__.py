@@ -18,7 +18,7 @@ ARCH_IDS = [
 ]
 # the architectures whose block kinds are ported
 PORTED = ["gemma2_9b", "phi4_mini_3p8b", "qwen1p5_110b", "llava_next_34b",
-          "minicpm3_4b"]
+          "minicpm3_4b", "llama4_scout_17b_16e", "deepseek_v2_lite_16b"]
 
 
 def _module(arch: str):

@@ -69,8 +69,10 @@
 // In the dk/dv pass the two warpgroups' products then differ in width
 // (dV m64n{DV}, dK m64n{D}), so each warpgroup runs a consumer of its own
 // width.  Shared memory a block (dk/dv pass, dq pass): 226.0 and 193.0 KB
-// at (256, 256), 94.0 and 61.0 KB at (96, 64), 52.0 and 19.0 KB at (24,
-// 16), with the same tiles and ring depth at every pair.
+// at (256, 256), 154.0 and 121.0 KB at (192, 128), 94.0 and 61.0 KB at
+// (96, 64), 52.0 and 19.0 KB at (24, 16), with the same tiles and ring
+// depth at every pair.  At D = 192 a row is three 64-wide chunks of the
+// 128-byte swizzle, and dK and dQ are m64n192k16.
 // Registers: setmaxnreg gives the consumers 240 and the producer 24; no
 // trap lies on the consumers' path (a trap made ptxas ignore setmaxnreg in
 // the forward).

@@ -48,7 +48,7 @@
 //   swizzle, so a D = 256 tile is four column chunks and a k-step's
 //   descriptor steps across them.  Rows past Sq or Skv are zero-filled by
 //   TMA.  A block takes 65.0 KB of shared memory at (D, DV) = (96, 64),
-//   21.0 KB at (24, 16).
+//   21.0 KB at (24, 16), 129.0 KB at (192, 128).
 // - Registers: setmaxnreg gives the consumers 240 and the producer 24
 //   (2 * 128 * 240 + 128 * 24 = 64,512 of the SM's 65,536); a consumer at
 //   D = 256 holds O (128 f32), S (32 f32) and P (16 bf16 pairs), 199

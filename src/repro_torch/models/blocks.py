@@ -1,13 +1,13 @@
 """Per-layer blocks of the port (the port of `repro.models.blocks`, for
-the block kinds of the ported architectures: dense/local/global with GQA
-or MLA attention)."""
+the block kinds of the ported architectures: dense/local/global, and moe,
+each with GQA or MLA attention; an moe block's MLP is `models.moe`)."""
 from __future__ import annotations
 
 import torch
 
-from . import layers
+from . import layers, moe
 
-ATTN_KINDS = ("dense", "local", "global")
+ATTN_KINDS = ("dense", "local", "global", "moe")
 ATTENTIONS = ("gqa", "mla")
 
 
@@ -24,6 +24,9 @@ def block_specs(cfg, kind):
     d = cfg.d_model
     attn = layers.mla_specs(cfg) if cfg.attention == "mla" \
         else layers.gqa_specs(cfg)
+    if kind == "moe":
+        return {"ln_attn": layers.norm_spec(d), "attn": attn,
+                "ln_mlp": layers.norm_spec(d), "moe": moe.moe_specs(cfg)}
     return {"ln_attn": layers.norm_spec(d), "attn": attn,
             "ln_mlp": layers.norm_spec(d), "mlp": layers.mlp_specs(cfg)}
 
@@ -45,8 +48,11 @@ def apply_block(p, x, cfg, block_kind, *, kind, positions, cache=None,
     # row-parallel projection's partial sums are then reduce-scattered,
     # not all-reduced
     x = x + layers.shard(a, "act_batch", "act_seq", "act_embed")
-    x = x + layers.apply_mlp(p["mlp"],
-                             layers.rms_norm(x, p["ln_mlp"], cfg.norm_eps))
+    h = layers.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    if block_kind == "moe":
+        x = x + moe.apply_moe(p["moe"], h, cfg)
+    else:
+        x = x + layers.apply_mlp(p["mlp"], h)
     return x, {"attn": c}
 
 

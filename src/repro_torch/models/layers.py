@@ -90,10 +90,12 @@ def linear_spec(d_in, d_out, in_ax, out_ax, *, bias=False):
 
 
 # ------------------------------------------------------------------ MLP
-def mlp_specs(cfg):
-    return {"gate_up": linear_spec(cfg.d_model, 2 * cfg.d_ff, "embed",
-                                   "mlp"),
-            "down": linear_spec(cfg.d_ff, cfg.d_model, "mlp", "embed")}
+def mlp_specs(cfg, d_ff=None):
+    """A gated MLP of width ``d_ff`` (default the config's; an MoE's shared
+    experts take d_ff times their count)."""
+    d_ff = d_ff or cfg.d_ff
+    return {"gate_up": linear_spec(cfg.d_model, 2 * d_ff, "embed", "mlp"),
+            "down": linear_spec(d_ff, cfg.d_model, "mlp", "embed")}
 
 
 def _gate_up(p, x):

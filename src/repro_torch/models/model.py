@@ -1,7 +1,7 @@
 """Top-level model of the port: config -> specs, parameters, the train
 loss, prefill and decode, and the dry-run's input specs (meta tensors +
-logical axes) (the port of `repro.models.model.Model` for the dense
-decoder LMs, a vlm's stub patch embeddings included)."""
+logical axes) (the port of `repro.models.model.Model` for the decoder
+LMs, dense and MoE, a vlm's stub patch embeddings included)."""
 from __future__ import annotations
 
 import torch
@@ -77,7 +77,7 @@ class Model(nn.Module):
         return self.params["embed"].device
 
     def loss_fn(self, params, batch):
-        """Train loss of a dense LM through the chunked cross-entropy
+        """Train loss of a decoder LM through the chunked cross-entropy
         ([B, S, V] logits never materialize; each chunk's logits are
         recomputed in the backward).  batch: {"tokens", "labels"}, [B, S]
         integer tensors on the parameters' device; a vlm's also
@@ -163,9 +163,15 @@ class Model(nn.Module):
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     """MODEL_FLOPS: 6·N·D train (3 fwd+bwd passes worth of 2·N·D), 2·N·D
-    decode/prefill; N = the parameters (the dense LMs of the port have no
-    inactive experts; an MoE config raises in `lm_specs`)."""
+    decode/prefill; N = the active parameters (an MoE counts top_k routed
+    experts and the shared ones: the inactive routed experts' 3·d·d_ff a
+    layer are subtracted)."""
     n_active = P.count_params(lm.lm_specs(cfg))
+    if cfg.num_experts:
+        moe_layers = sum(k == "moe" for k in cfg.layer_pattern) \
+            * cfg.pattern_groups
+        n_active -= ((cfg.num_experts - cfg.moe_top_k) * 3 * cfg.d_model
+                     * cfg.d_ff * moe_layers)
     if shape.kind == "train":
         return 6.0 * n_active * shape.global_batch * shape.seq_len
     if shape.kind == "prefill":

@@ -346,12 +346,15 @@ def test_library_digest_covers_included_headers(monkeypatch, tmp_path):
 
 
 # multi-head latent attention's (q/k, v) head_dim pairs: minicpm3-4b's
-# (96, 64) and its smoke configuration's (24, 16), causal and not
+# (96, 64), its smoke configuration's (24, 16) and deepseek-v2-lite's
+# (192, 128), causal and not
 MLA_CASES = [  # b, hq, hkv, sq, skv, d, dv, causal, window, softcap
     (1, 4, 4, 37, 37, 24, 16, True, None, None),
     (2, 4, 2, 40, 64, 24, 16, False, 16, 20.0),
     (1, 4, 4, 37, 37, 96, 64, True, None, None),
     (1, 2, 1, 30, 50, 96, 64, False, None, None),
+    (1, 4, 4, 37, 37, 192, 128, True, None, None),
+    (1, 2, 1, 30, 50, 192, 128, False, 16, 20.0),
 ]
 
 
@@ -385,7 +388,7 @@ def test_mla_pairs_build_in_their_own_libraries():
     twins (which include those sources, so an edit there rebuilds both);
     a pair not built raises naming the built pairs."""
     from repro_torch.kernels import _build
-    assert (96, 64) in tfa.HEAD_DIMS and (24, 16) in tfa.HEAD_DIMS
+    assert {(96, 64), (24, 16), (192, 128)} <= set(tfa.HEAD_DIMS)
     for routes in (tfa.ROUTES, tfa.BWD_ROUTES):
         for dtype, route in routes.items():
             for d, dv in tfa.HEAD_DIMS:
@@ -400,7 +403,7 @@ def test_mla_pairs_build_in_their_own_libraries():
     assert [p.name for p in _build.sources("flash_attention_sm90_mla")] == [
         "flash_attention_sm90_mla.cu", "flash_attention_sm90.cu",
         "sm90_common.cuh"]
-    for d, dv in ((96, 32), (24, 24), (112, 112), (192, 128)):
+    for d, dv in ((96, 32), (24, 24), (112, 112), (192, 96)):
         with pytest.raises(ValueError, match=r"built \(D, Dv\) pairs"):
             tfa.library(tfa.ROUTES[torch.bfloat16], d, dv)
 

@@ -165,10 +165,12 @@ def test_train_kind_matches_reference_layer():
 
 
 # multi-head latent attention's (q/k, v) head_dim pairs: minicpm3-4b's
-# (96, 64) and its smoke configuration's (24, 16), causal and not, with a
-# window, a softcap, GQA and shifted queries
+# (96, 64), its smoke configuration's (24, 16) and deepseek-v2-lite's
+# (192, 128), causal and not, with a window, a softcap, GQA and shifted
+# queries
 # b, h, hkv, sq, skv, (d, dv), causal, window, softcap, q_offset, chunk
-MLA_CASES = [(c[:5] + (pair,) + c[5:]) for pair in ((24, 16), (96, 64))
+MLA_CASES = [(c[:5] + (pair,) + c[5:])
+             for pair in ((24, 16), (96, 64), (192, 128))
              for c in ((1, 4, 4, 32, 32, True, None, None, 0, 8),
                        (2, 2, 2, 24, 40, False, None, None, 16, 8),
                        (1, 4, 2, 32, 32, True, 8, 20.0, 0, 16),

@@ -34,21 +34,15 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not banned, f"{path.name} imports {sorted(banned)}"
 
 
-TRAINING_MODULES = ["train/trainer.py", "optim/adamw.py",
-                    "optim/compression.py", "checkpoint/manager.py",
-                    "data/pipeline.py", "models/flash_xla.py",
-                    "launch/train.py"]
-
-
-def test_training_slice_is_guarded():
-    """The training slice's modules are among the scanned files, and
-    importing them pulls in neither JAX nor the JAX package, however
-    indirectly (a fresh interpreter in which both are unimportable)."""
+def _slice_is_guarded(modules) -> None:
+    """``modules`` (paths under ``src/repro_torch``) are among the scanned
+    files, and importing them pulls in neither JAX nor the JAX package,
+    however indirectly (a fresh interpreter in which both are
+    unimportable)."""
     port = ROOT / "src" / "repro_torch"
-    for rel in TRAINING_MODULES:
+    for rel in modules:
         assert port / rel in PORT_FILES, rel
-    names = ["repro_torch." + rel[:-3].replace("/", ".")
-             for rel in TRAINING_MODULES]
+    names = ["repro_torch." + rel[:-3].replace("/", ".") for rel in modules]
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"
@@ -57,6 +51,16 @@ def test_training_slice_is_guarded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+TRAINING_MODULES = ["train/trainer.py", "optim/adamw.py",
+                    "optim/compression.py", "checkpoint/manager.py",
+                    "data/pipeline.py", "models/flash_xla.py",
+                    "launch/train.py"]
+
+
+def test_training_slice_is_guarded():
+    _slice_is_guarded(TRAINING_MODULES)
 
 
 MESH_MODULES = ["launch/mesh.py", "launch/roofline.py", "launch/hlo_stats.py",
@@ -65,22 +69,21 @@ MESH_MODULES = ["launch/mesh.py", "launch/roofline.py", "launch/hlo_stats.py",
 
 
 def test_mesh_slice_is_guarded():
-    """The mesh and dry-run slice's modules are among the scanned files,
-    and importing them pulls in neither JAX nor the JAX package (a fresh
-    interpreter in which both are unimportable)."""
-    port = ROOT / "src" / "repro_torch"
-    for rel in MESH_MODULES:
-        assert port / rel in PORT_FILES, rel
-    names = ["repro_torch." + rel[:-3].replace("/", ".")
-             for rel in MESH_MODULES]
-    code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'repro'):\n"
-            "    sys.modules[name] = None\n"
-            + "".join(f"import {n}\n" for n in names))
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
+    _slice_is_guarded(MESH_MODULES)
+
+
+MOE_MODULES = ["models/moe.py", "models/blocks.py", "models/layers.py",
+               "configs/llama4_scout_17b_16e.py",
+               "configs/deepseek_v2_lite_16b.py"]
+
+
+def test_moe_slice_is_guarded():
+    """The MoE slice's modules, as the training and mesh slices'; both
+    MoE architectures resolve through the registry."""
+    _slice_is_guarded(MOE_MODULES)
+    from repro_torch.configs import PORTED, get_config
+    for arch in ("llama4_scout_17b_16e", "deepseek_v2_lite_16b"):
+        assert arch in PORTED and get_config(arch).family == "moe"
 
 
 def test_resolve_device_never_falls_back(monkeypatch):

@@ -623,18 +623,20 @@ def test_card_serve_equals_cpu_serve(cuda):
 
 
 # multi-head latent attention's pairs, (q/k head_dim, v head_dim):
-# minicpm3-4b's (96, 64) and its smoke configuration's (24, 16), each in
-# both dtypes; causal and not, GQA, windows, softcaps that the logits
-# reach, shifted queries and rows with no key, and minicpm3's 40 heads at
-# 1,000 tokens
+# minicpm3-4b's (96, 64), its smoke configuration's (24, 16) and
+# deepseek-v2-lite's (192, 128), each in both dtypes; causal and not, GQA,
+# windows, softcaps that the logits reach, shifted queries and rows with no
+# key, and the model's heads (minicpm3's 40, deepseek's 16) at 1,000 tokens
+MLA_PAIRS = ((96, 64), (24, 16), (192, 128))
 MLA_CASES = [  # b, hq, hkv, sq, skv, (d, dv), causal, window, softcap, off
-    (c[:5] + (pair,) + c[5:]) for pair in ((96, 64), (24, 16)) for c in (
+    (c[:5] + (pair,) + c[5:]) for pair in MLA_PAIRS for c in (
         (1, 4, 4, 100, 100, True, None, None, 0),
         (2, 4, 4, 64, 64, False, None, None, 0),
         (1, 8, 2, 70, 70, True, None, 2.0, 0),
         (1, 4, 1, 40, 64, True, 16, None, 24),
         (2, 4, 2, 33, 33, False, 8, 3.0, -5),
-        (1, 40, 40, 1000, 1000, True, None, None, 0))]
+        (1, 16 if pair == (192, 128) else 40, 16 if pair == (192, 128)
+         else 40, 1000, 1000, True, None, None, 0))]
 
 
 def _mla_args(cuda, case, dtype):
@@ -692,7 +694,7 @@ def test_flash_attention_mla_bwd_matches_plain(cuda, monkeypatch, case,
     _bwd_close(got, tfa.flash_attention_bwd_plain(*args, **kw), dtype, tol)
 
 
-@pytest.mark.parametrize("pair", [(96, 64), (24, 16)])
+@pytest.mark.parametrize("pair", MLA_PAIRS)
 @pytest.mark.parametrize("dtype,tol,bwd_tol", [(torch.float32, 2e-5, 1e-4),
                                                (BF16, 2e-2, 2e-2)])
 def test_flash_attention_mla_strided_views(cuda, pair, dtype, tol, bwd_tol):
@@ -718,7 +720,7 @@ def test_flash_attention_mla_strided_views(cuda, pair, dtype, tol, bwd_tol):
                bwd_tol)
 
 
-@pytest.mark.parametrize("pair", [(96, 64), (24, 16)])
+@pytest.mark.parametrize("pair", MLA_PAIRS)
 def test_flash_attention_mla_bwd_is_deterministic(cuda, pair):
     """The bf16 backward at MLA's pairs: two calls give the same bits."""
     from repro_torch.kernels import flash_attention as tfa
@@ -782,6 +784,33 @@ def test_card_mla_serve_equals_cpu_serve(cuda):
     from repro_torch.models.params import tree_map
     from repro_torch.serve import ServeEngine
     cfg = get_smoke_config("minicpm3_4b")
+    cpu = Model(cfg).init(0, device="cpu")
+    card = Model(cfg).load(tree_map(lambda t: t.to(cuda), cpu.params))
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in (21, 5, 21, 40, 21)]
+    before = tfa.flash_attention.launches
+    eng = ServeEngine(card, max_batch=2, max_seq=64)
+    got = eng.serve(reqs, max_new=8)
+    assert tfa.flash_attention.launches - before == (cfg.num_layers
+                                                     * eng.stats.waves)
+    assert got == ServeEngine(cpu, max_batch=2, max_seq=64).serve(
+        reqs, max_new=8)
+
+
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_16e",
+                                  "deepseek_v2_lite_16b"])
+def test_card_moe_serve_equals_cpu_serve(cuda, arch):
+    """The MoE smoke configurations served on the card (the dense
+    dispatch's sort, scatter and expert products on the card; deepseek's
+    MLA prefill through the (24, 16) kernel) give the CPU's tokens, one
+    attention launch a layer a wave."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import Model
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import ServeEngine
+    cfg = get_smoke_config(arch)
     cpu = Model(cfg).init(0, device="cpu")
     card = Model(cfg).load(tree_map(lambda t: t.to(cuda), cpu.params))
     rng = np.random.default_rng(0)

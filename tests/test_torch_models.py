@@ -54,8 +54,7 @@ def test_configs_are_the_references():
     assert configs.get_config("gemma2-9b") == configs.get_config(ARCH)
 
 
-@pytest.mark.parametrize("arch,match", [("llama4_scout_17b_16e",
-                                         "ROADMAP.md"),
+@pytest.mark.parametrize("arch,match", [("zamba2_7b", "ROADMAP.md"),
                                         ("no_such_arch", "unknown")])
 def test_unported_arch_raises(arch, match):
     for get in (configs.get_config, configs.get_smoke_config):
@@ -64,11 +63,12 @@ def test_unported_arch_raises(arch, match):
 
 
 def test_unported_block_kind_raises():
-    """MoE and SSM blocks wait for their architectures; MLA attention is
-    ported (minicpm3-4b, `tests/test_torch_zoo.py`)."""
+    """SSM and encoder-decoder blocks wait for their architectures; MLA
+    attention (minicpm3-4b, `tests/test_torch_zoo.py`) and the MoE block
+    (`tests/test_torch_moe.py`) are ported."""
     cfg = configs.get_smoke_config(ARCH)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.block_specs(cfg, "moe")
+        blocks.block_specs(cfg, "xdec")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         blocks.block_specs(cfg, "ssm")
     mla = blocks.block_specs(configs.get_smoke_config("minicpm3_4b"),

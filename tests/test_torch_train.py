@@ -69,12 +69,17 @@ def _ref_params(arch, seed=0):
         jax.random.PRNGKey(seed), jnp.float32))
 
 
+# the weight matrices of a parameter tree: linear layers' ``w``, and an
+# MoE block's router and stacked experts ([G, E, d_in, d_out])
+WEIGHT_KEYS = ("w", "router", "w_gate", "w_up", "w_down")
+
+
 def _trained_scale(tree):
-    """Each weight matrix ``w`` (stacked [G, d_in, d_out] or [d_in,
-    d_out]) rescaled from the init's std 1/sqrt(shape[0]) to
+    """Each weight matrix (`WEIGHT_KEYS`: stacked [G, ..., d_in, d_out]
+    or [d_in, d_out]) rescaled from the init's std 1/sqrt(shape[0]) to
     1/sqrt(d_in)."""
     def fix(path, a):
-        if path[-1].key == "w":
+        if path[-1].key in WEIGHT_KEYS:
             return a * np.float32(np.sqrt(a.shape[0] / a.shape[-2]))
         return a
     return jax.tree_util.tree_map_with_path(fix, tree)
