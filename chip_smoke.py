@@ -155,11 +155,13 @@ Phases, each printing one JSON line:
              within 2e-3;
 7k. dryrun — `launch.dryrun` in a worker process (host work, fake
              tensors over a fake group of 256 ranks): gemma2-9b x
-             ``train_4k`` and x ``decode_32k`` and the paper's bisim
-             iteration (``sorted``, both rankings) on the single-pod
-             mesh; per cell ``DRY-RUN PASS``, per-rank peak bytes, the
-             H100 roofline's three terms, the dominant one and the trace
-             seconds;
+             ``train_4k`` and x ``decode_32k``, mamba2-780m and zamba2-7b
+             x ``long_500k`` (the decode at 524,288 positions that only
+             the sub-quadratic architectures trace) and the paper's
+             bisim iteration (``sorted``, both rankings) on the
+             single-pod mesh; per cell ``DRY-RUN PASS``, per-rank peak
+             bytes, the H100 roofline's three terms, the dominant one and
+             the trace seconds;
 8. attention — ``flash_attention`` against its plain PyTorch version on
              the card (2e-5 in f32, 2e-2 in bf16) on the JAX package's
              attention test cases, odd lengths, and the bf16 (wgmma)
@@ -179,7 +181,11 @@ Phases, each printing one JSON line:
              rope, v 128) the same way, each bound at 2 (D + Dv) flops a
              visible pair and SDPA on the backends that take a v head_dim
              of its own, and the three MLA pairs (96/64, 24/16, 192/128)
-             in both dtypes against the plain version; prints the attention libraries' ``-Xptxas -v``
+             in both dtypes against the plain version; zamba2-7b's shared
+             block's prefill the same way (32/32 heads of 112, padded to
+             128 columns in the bf16 kernel; SDPA as it picks its
+             backend) and the (112, 112) cases; prints the attention
+             libraries' ``-Xptxas -v``
              lines, a register/spill/wgmma count of each kernel's SASS and
              the route each dtype takes;
 8a. attention_bwd — ``flash_attention_bwd`` against its plain version
@@ -195,9 +201,10 @@ Phases, each printing one JSON line:
              minus fwd, no softcap); the f32 routes (forward and
              backward) timed the same way at the train-parity shape and
              at gemma2's train shape, bounds on the f32 peak; then the
-             MLA pairs' cases in both dtypes and minicpm3-4b's and
-             deepseek-v2-lite's heads at the train shape (4096 tokens) in
-             both dtypes, timed the same way
+             MLA pairs' and (112, 112)'s cases in both dtypes and
+             minicpm3-4b's, deepseek-v2-lite's and zamba2-7b's heads at
+             the train shape (4096 tokens) in both dtypes, timed the same
+             way
              beside the bound at 2 (3 D + 2 Dv) flops a visible pair and
              SDPA's backward where a backend takes the shapes; prints the
              route each dtype takes and the backward libraries'
@@ -217,9 +224,17 @@ Phases, each printing one JSON line:
              `PARITY_DEEPSEEK`; fewer, shorter requests), every launch
              through the library of the config's (D, Dv) (deepseek: the
              f32 (192, 128) kernel), the assignments dropped for capacity,
-             and for deepseek one train step's gradients on the card
-             within 1e-4 of each leaf's max |g| of float64 (the f32
-             backward at (192, 128));
+             and for deepseek one train step, cut to 2 of the 4 layers,
+             its gradients on the card within 1e-4 of each leaf's max
+             |g| of float64 (the f32 backward at (192, 128)); then
+             ``serve_parity_ssm`` the same way for mamba2 cut to 4
+             layers and zamba2 to 6 (2 groups) at d_model 512
+             (`PARITY_MAMBA2`, `PARITY_ZAMBA2`: zamba2's shared block at
+             4/4 heads of 112), ``flash_attention`` launched once an
+             attention layer a wave (zamba2's 2 ssm_attn layers; none for
+             mamba2), and for zamba2 one train step's gradients (the f32
+             backward at (112, 112); the shared block's summed over its
+             2 layers);
 10. serve  — the serving launcher's defaults on gemma2-9b at full width,
              cut to 22 of its 42 layers (bf16, random weights from seed
              0): 16 requests of 4..63 tokens, 32 new tokens each, waves
@@ -228,18 +243,23 @@ Phases, each printing one JSON line:
 11. serve_profile — device time by kernel and the device's idle share
              for one wave of that server, under `torch.profiler`;
 11a. serve_zoo — the other architectures served in bf16 from
-             seed 0, one line each: minicpm3-4b at full width and depth
-             (62 layers; the serving launcher with ``--requests 4
-             --max-new 16``), qwen1.5-110b at full width cut to 8 of its
-             80 layers (4 requests, 16 new tokens) and llava-next-34b at
+             seed 0, one line each: minicpm3-4b at full width cut to 31
+             of its 62 layers (4 requests, 16 new tokens), qwen1.5-110b
+             at full width cut to 8 of its 80 layers (4 requests, 16 new
+             tokens) and llava-next-34b at
              full width cut to 20 of its 60 layers (one wave of 4 rows:
              2,880 stub patch embeddings and 48 text tokens a row, 16 new
              tokens, through ``ServeEngine.serve(..., extra=)``), then the
              MoEs: deepseek-v2-lite at full width and depth through the
              launcher and llama4-scout at full width cut to 8 of its 48
-             layers (4 requests, 16 new tokens): init s, prefill ms,
-             decode ms, tokens/s, peak bytes and share of the card,
-             ``flash_attention`` launches against layers x waves, an
+             layers (4 requests, 16 new tokens), then the SSMs at full
+             width and depth through the launcher (``--requests 4
+             --max-new 16``): mamba2-780m (48 layers, no attention) and
+             zamba2-7b (81 layers, 27 of them with the shared attention
+             block at head_dim 112): init s, prefill ms, decode ms,
+             tokens/s, peak bytes and share of the card,
+             ``flash_attention`` launches against attention layers x
+             waves, an
              MoE's assignments dropped for capacity in its prefills,
              finite logits and well-formed outputs;
 12. train_parity — a 4-layer, d_model-512 gemma2 in f32 (weight matrices
@@ -2744,7 +2764,7 @@ def phase_distributed(graph_path: Path, inmem) -> dict:
 # `tests/test_torch_kernels_gpu.py`: every head_dim (causal, and
 # non-causal with softcap), ragged lengths, GQA groups 1, 2 and 8, window
 # and softcap each on and off
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 ATTN_CASES = [
     (2, 4, 2, 128, 128, 64, True, None, None, "float32"),
     (1, 8, 1, 256, 256, 32, True, None, 30.0, "float32"),
@@ -2779,13 +2799,19 @@ PARITY_LM = dict(num_layers=4, d_model=512, num_heads=8, num_kv_heads=4,
 # sequence of 8192 tokens in bf16) and, smaller, in f32; deepseek-v2-lite's
 # the same way (16 over 16 heads, q/k of 128 nope + 64 rope, v of 128)
 MLA_PAIRS = ((96, 64), (24, 16), (192, 128))
+# zamba2-7b's head_dim 112 (its shared attention block), built in the
+# square libraries: its cases beside MLA's pairs', and zamba2's prefill
+# attention (32 q over 32 kv heads, one sequence of 8192 tokens in bf16)
+HD112 = (112, 112)
+PAIRS = MLA_PAIRS + (HD112,)
 MLA_ATTN_CASES = [(c[:5] + (pair,) + c[5:] + (dtype,))
-                  for pair in MLA_PAIRS for dtype in ("float32", "bfloat16")
+                  for pair in PAIRS for dtype in ("float32", "bfloat16")
                   for c in ((1, 4, 4, 200, 200, True, None, None),
                             (2, 8, 2, 37, 300, False, 64, 2.0),
                             (1, 4, 1, 150, 250, True, None, None))]
 MLA_ATTN = dict(b=1, hq=40, hkv=40, s=8192, d=96, dv=64)
 DEEPSEEK_ATTN = dict(b=1, hq=16, hkv=16, s=8192, d=192, dv=128)
+ZAMBA_ATTN = dict(b=1, hq=32, hkv=32, s=8192, d=112, dv=112)
 MLA_F32_TOKENS = 1024
 # the MLA serve-parity model: minicpm3-4b cut to 4 layers at d_model 512,
 # its own head widths
@@ -2809,6 +2835,18 @@ PARITY_DEEPSEEK = dict(num_layers=4, d_model=512, num_heads=8,
                        head_dim=128, num_experts=64, moe_top_k=6,
                        num_shared_experts=2, d_ff=1408, vocab_size=32768)
 PARITY_MOE_TRAFFIC = dict(lengths=(5, 40, 70), max_new=4)
+# the SSM serve-parity models at d_model 512 with their own state widths:
+# mamba2 cut to 4 layers, zamba2 to 6 (2 groups of ssm, ssm, ssm_attn) with
+# the shared block's head_dim 112 (4/4 heads), so that the (112, 112) f32
+# kernels run on its path
+PARITY_MAMBA2 = dict(num_layers=4, d_model=512, vocab_size=32768)
+PARITY_ZAMBA2 = dict(num_layers=6, d_model=512, num_heads=4, num_kv_heads=4,
+                     head_dim=112, d_ff=2048, vocab_size=32768)
+# the serve parities that add one train step's gradients, and its layers:
+# deepseek's f32 backward at (192, 128), cut from 4 to 2 layers (its
+# float64 CPU side); zamba2's at (112, 112), its shared block's gradient
+# summed over its 2 ssm_attn layers
+PARITY_TRAIN_LAYERS = {"deepseek_v2_lite_16b": 2, "zamba2_7b": 6}
 # gemma2-9b's full-width serve, cut from 42 to 22 layers (11 local/global
 # pairs: the pattern takes an even count) for the script's time limit
 SERVE_LAYERS = 22
@@ -2993,15 +3031,19 @@ def phase_attention() -> dict:
               for c in MLA_ATTN_CASES]
     cases += [measure(2, 8, 8, 100, 100, d, True, None, None, dtype,
                       bshd=True, dv=dv)
-              for d, dv in MLA_PAIRS for dtype in ("float32", "bfloat16")]
-    def mla_prefill(m):  # an MLA model's heads, bf16 and (shorter) f32
+              for d, dv in PAIRS for dtype in ("float32", "bfloat16")]
+
+    def mla_prefill(m, backends=SDPA_DV_BACKENDS):
+        # a model's heads, bf16 and (shorter) f32; SDPA on the backends
+        # that take Dv != D (zamba2's square pair: SDPA as it picks)
         return {dtype: measure(m["b"], m["hq"], m["hkv"], s, s, m["d"],
                                True, None, None, dtype, profile=True,
-                               dv=m["dv"], sdpa_backends=SDPA_DV_BACKENDS)
+                               dv=m["dv"], sdpa_backends=backends)
                 for dtype, s in (("bfloat16", m["s"]),
                                  ("float32", MLA_F32_TOKENS))}
     mla = mla_prefill(MLA_ATTN)
     deepseek = mla_prefill(DEEPSEEK_ATTN)
+    zamba = mla_prefill(ZAMBA_ATTN, None)
     g = GEMMA_ATTN
     timing = {name: measure(g["b"], g["hq"], g["hkv"], g["s"], g["s"],
                             g["d"], True, window, softcap, "bfloat16",
@@ -3011,7 +3053,7 @@ def phase_attention() -> dict:
                   ("local", g["window"], g["softcap"]),
                   ("global_no_softcap", None, None))}
     rows = (cases + list(timing.values()) + list(mla.values())
-            + list(deepseek.values()))
+            + list(deepseek.values()) + list(zamba.values()))
     ptxas = {lib: [ln.strip() for ln in _build.ptxas_report(lib).splitlines()
                    if "Used" in ln or "spill" in ln or "C75" in ln]
              for lib in ("flash_attention", "flash_attention_sm90",
@@ -3039,6 +3081,7 @@ def phase_attention() -> dict:
            "max_abs_err": max(c["max_abs_err"] for c in rows),
            "gemma2_9b_prefill": timing, "minicpm3_4b_prefill": mla,
            "deepseek_v2_lite_16b_prefill": deepseek,
+           "zamba2_7b_prefill": zamba,
            "built_pairs": [list(p) for p in tfa.HEAD_DIMS],
            "ptxas": ptxas, "sass": sass}
     emit(out)
@@ -3086,8 +3129,7 @@ def _head_dims(cfg) -> tuple:
 
 def phase_serve_parity(arch: str = "gemma2_9b", overrides=None,
                        phase: str = "serve_parity",
-                       trained_scale: bool = False, traffic=None,
-                       train_grads: bool = False) -> dict:
+                       trained_scale: bool = False, traffic=None) -> dict:
     """A small ``arch`` (default gemma2 at `PARITY_LM`; minicpm3 at
     `PARITY_MLA` is the MLA one, llama4 and deepseek at `PARITY_LLAMA4`
     and `PARITY_DEEPSEEK` the MoE ones) served on the card (prefill
@@ -3101,14 +3143,15 @@ def phase_serve_parity(arch: str = "gemma2_9b", overrides=None,
     on most machines, 9.2e-4 on one, so it is reported beside the host's
     CPU and not held to 1e-4.)  ``traffic`` ({lengths, max_new}) replaces
     the 11 requests of 16 new tokens; an MoE's line adds the assignments
-    dropped for capacity in the card's prefills.  With ``train_grads``,
-    also one train step's gradients on the card against float64
-    (`_train_grads_vs_f64`)."""
+    dropped for capacity in the card's prefills.  An ``arch`` of
+    `PARITY_TRAIN_LAYERS` adds one train step's gradients on the card
+    against float64 (`_train_grads_vs_f64`)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import Model
+    from repro_torch.models.lm import attention_layers
     from repro_torch.models.params import tree_map
     from repro_torch.serve import ServeEngine
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
@@ -3148,7 +3191,10 @@ def phase_serve_parity(arch: str = "gemma2_9b", overrides=None,
     want = cpu_eng.serve(reqs, max_new=max_new)
     from repro_torch.kernels.flash_attention import kernel_route
     d, dv = _head_dims(cfg)
-    lib = _pair_key(kernel_route(torch.float32, d, dv), d, dv)
+    # the library of the config's (D, Dv); none for an attention-free SSM
+    attn = attention_layers(cfg)
+    libs = {_pair_key(kernel_route(torch.float32, d, dv), d, dv)} \
+        if attn else set()
     out = {"phase": phase, "arch": arch, "config": overrides,
            "trained_scale": trained_scale, "dtype": "float32",
            "requests": len(reqs), "prompt_lengths": [len(r) for r in reqs],
@@ -3157,16 +3203,18 @@ def phase_serve_parity(arch: str = "gemma2_9b", overrides=None,
            "tokens_equal": got == want, "stats": vars(eng.stats),
            "stats_equal": eng.stats == cpu_eng.stats,
            "flash_attention_launches": launches,
-           "layers_x_waves": cfg.num_layers * eng.stats.waves,
-           "kernel_calls": dict(pairs), "kernel_expected": lib}
+           "attention_layers": attn,
+           "layers_x_waves": attn * eng.stats.waves,
+           "kernel_calls": dict(pairs), "kernel_expected": sorted(libs)}
     if cfg.num_experts:
         out["moe_dropped_in_prefills"] = int(dropped)
     ok = (got == want and eng.stats == cpu_eng.stats
           and err["card_vs_f64"] < 1e-4
-          and launches == cfg.num_layers * eng.stats.waves
-          and set(pairs) == {lib})
-    if train_grads:
-        out["train_step"] = _train_grads_vs_f64(card, cpu)
+          and launches == attn * eng.stats.waves
+          and set(pairs) == libs)
+    if arch in PARITY_TRAIN_LAYERS:
+        out["train_step"] = _train_grads_vs_f64(
+            cfg.scaled(num_layers=PARITY_TRAIN_LAYERS[arch]))
         ok = ok and out["train_step"]["ok"]
     out["seconds"] = time.perf_counter() - t0
     emit(out)
@@ -3181,26 +3229,28 @@ def _pair_key(library: str, d: int, dv: int) -> str:
     return f"{library} D={d}/{dv}"
 
 
-def _train_grads_vs_f64(card, cpu) -> dict:
-    """One train step's loss and gradients of ``card``'s model (f32, on the
-    card: the attention forward and backward through their f32 kernels)
-    against the same parameters' float64 evaluation on the CPU (the plain
-    versions): each leaf within 1e-4 of its max |g|, the loss within 1e-4
-    relative; the backward's launches (one a layer) and the libraries it
+def _train_grads_vs_f64(cfg) -> dict:
+    """One train step's loss and gradients of ``cfg`` from seed 0 (weights
+    at 1/sqrt(d_in), `_trained_scale`), in f32 on the card (the attention
+    forward and backward through their f32 kernels), against the same
+    parameters' float64 evaluation on the CPU (the plain versions): each
+    leaf within 1e-4 of its max |g|, the loss within 1e-4 relative; the
+    backward's launches (one an attention layer) and the libraries it
     resolved."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.models import Model
+    from repro_torch.models.lm import attention_layers
     from repro_torch.models.params import tree_map
-    cfg = card.cfg
+    params = Model(cfg).init(0, torch.float32, DEVICE).params
+    _trained_scale(params)
     rng = np.random.default_rng(1)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64)))
              for k in ("tokens", "labels")}
-    train = Model(cfg).load(tree_map(lambda t: t.detach().clone(),
-                                     card.params), trainable=True)
-    f64 = Model(cfg).load(tree_map(lambda t: t.detach().double(),
-                                   cpu.params), trainable=True)
+    f64 = Model(cfg).load(tree_map(lambda t: t.detach().cpu().double(),
+                                   params), trainable=True)
+    train = Model(cfg).load(params, trainable=True)
     bwd = tfa.flash_attention_bwd.launches
     with _pairs_called() as pairs:
         loss, g_card = _grads(train, {k: v.to(DEVICE)
@@ -3213,10 +3263,13 @@ def _train_grads_vs_f64(card, cpu) -> dict:
     d, dv = _head_dims(cfg)
     want = {_pair_key(tfa.kernel_route(torch.float32, d, dv), d, dv),
             _pair_key(tfa.bwd_kernel_route(torch.float32, d, dv), d, dv)}
-    return {"batch": [1, 64], "loss": loss, "loss_f64": loss64,
+    return {"batch": [1, 64], "layers": cfg.num_layers, "loss": loss,
+            "loss_f64": loss64,
             "grad_err_of_max": errs[worst], "worst_leaf": worst,
+            "shared_grad_err_of_max": {k: v for k, v in errs.items()
+                                       if k.startswith("shared/")},
             "bwd_launches": bwd, "kernel_calls": dict(pairs),
-            "ok": (errs[worst] <= 1e-4 and bwd == cfg.num_layers
+            "ok": (errs[worst] <= 1e-4 and bwd == attention_layers(cfg)
                    and abs(loss - loss64) <= 1e-4 * abs(loss64)
                    and set(pairs) == want)}
 
@@ -3371,26 +3424,31 @@ def phase_serve_profile(eng, reqs) -> dict:
 # parameters, 32.4 GB) through the launcher, llama4-scout cut to 8 of 48
 # layers (107.8e9 parameters, 215.6 GB; 8 layers are 19,692,999,680, 39.4
 # GB)
-ZOO = (("minicpm3_4b", None, "launcher"), ("qwen1p5_110b", 8, "requests"),
+# (minicpm3-4b cut from 62 to 31 layers for the script's time limit:
+# PERF.md section 7's second cut; the SSMs at full depth)
+ZOO = (("minicpm3_4b", 31, "requests"), ("qwen1p5_110b", 8, "requests"),
        ("llava_next_34b", 20, "vlm_wave"),
        ("deepseek_v2_lite_16b", None, "launcher"),
-       ("llama4_scout_17b_16e", 8, "requests"))
+       ("llama4_scout_17b_16e", 8, "requests"),
+       ("mamba2_780m", None, "launcher"), ("zamba2_7b", None, "launcher"))
 ZOO_TRAFFIC = dict(requests=4, max_new=16, vlm_rows=4, vlm_text=48)
 
 
 def phase_serve_zoo() -> dict:
-    """minicpm3-4b, qwen1.5-110b, llava-next-34b, deepseek-v2-lite and
-    llama4-scout served on the card (`ZOO`), each model freed before the
-    next; one line each, with the ``flash_attention`` count set to 0 just
-    before each model serves and read just after (it must be its layers x
-    waves), and an MoE's assignments dropped for capacity in its
-    prefills."""
+    """minicpm3-4b, qwen1.5-110b, llava-next-34b, deepseek-v2-lite,
+    llama4-scout, mamba2-780m and zamba2-7b served on the card (`ZOO`),
+    each model freed before the next; one line each, with the
+    ``flash_attention`` count set to 0 just before each model serves and
+    read just after (it must be its attention layers x waves: zamba2's
+    27 ssm_attn layers, none of mamba2's), and an MoE's assignments
+    dropped for capacity in its prefills."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import serve as launcher
     from repro_torch.models import Model
+    from repro_torch.models.lm import attention_layers
     from repro_torch.serve import ServeEngine
     tr, bf16 = ZOO_TRAFFIC, torch.bfloat16
     lines = {}
@@ -3442,6 +3500,7 @@ def phase_serve_zoo() -> dict:
         peak = torch.cuda.max_memory_allocated()
         card = torch.cuda.get_device_properties(0).total_memory
         st = eng.stats
+        want = attention_layers(cfg) * st.waves
         shapes_ok = (len(outs) == len(reqs)
                      and all(len(o) == tr["max_new"] for o in outs)
                      and all(0 <= t < cfg.padded_vocab
@@ -3459,7 +3518,8 @@ def phase_serve_zoo() -> dict:
                "prefill_ms": prefill_ms,
                "decode_ms_median": float(np.median(decode_ms)),
                "flash_attention_launches": launches,
-               "layers_x_waves": cfg.num_layers * st.waves,
+               "attention_layers": attention_layers(cfg),
+               "layers_x_waves": want,
                "logits_finite": all(finite),
                "outputs_well_formed": shapes_ok, "peak_bytes": peak,
                "peak_share": peak / card, "first_output": outs[0][:8]}
@@ -3473,10 +3533,10 @@ def phase_serve_zoo() -> dict:
         emit(out)
         lines[arch] = out
         del eng, model, outs, extra
-        if launches != cfg.num_layers * st.waves or launches == 0:
+        if launches != want:
             raise SystemExit(f"serve_zoo {arch}: {launches} flash_attention "
                              f"launches for {st.waves} waves of "
-                             f"{cfg.num_layers} layers")
+                             f"{attention_layers(cfg)} attention layers")
         if not (all(finite) and shapes_ok):
             raise SystemExit(f"serve_zoo {arch}: non-finite logits or "
                              f"malformed outputs")
@@ -3508,10 +3568,10 @@ BWD_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset
     (1, 8, 1, 70, 70, 64, True, None, 3.0, 0),
     (1, 16, 8, 200, 200, 256, True, 64, 2.0, 0),
 ]
-# the MLA pairs' backward cases: causal and not, GQA, window, softcaps that
-# the logits reach, shifted queries with rows that see no key; then the
-# (d, dv) pair as an 11th field
-MLA_BWD_CASES = [c + (pair[1],) for pair in MLA_PAIRS for c in (
+# the MLA pairs' and zamba2's (112, 112) backward cases: causal and not,
+# GQA, window, softcaps that the logits reach, shifted queries with rows
+# that see no key; then the pair's dv as an 11th field
+MLA_BWD_CASES = [c + (pair[1],) for pair in PAIRS for c in (
     (1, 4, 4, 100, 100, pair[0], True, None, None, 0),
     (2, 4, 4, 64, 64, pair[0], False, None, None, 0),
     (1, 8, 2, 70, 70, pair[0], True, None, 2.0, 0),
@@ -3696,13 +3756,14 @@ def phase_attention_bwd() -> dict:
            "gemma2_9b_train": timed("float32", train, None, g["softcap"])}
     # the MLA models' heads (minicpm3-4b's, deepseek-v2-lite's) at the
     # train shape, both dtypes
-    def mla_train(m):
+    def mla_train(m, backends=SDPA_DV_BACKENDS):
         shape = (m["b"], m["hq"], m["hkv"], MLA_TRAIN_TOKENS, m["d"])
         return {dtype: timed(dtype, shape, None, None, dv=m["dv"],
-                             sdpa_backends=SDPA_DV_BACKENDS)
+                             sdpa_backends=backends)
                 for dtype in ("bfloat16", "float32")}
     mla = mla_train(MLA_ATTN)
     deepseek = mla_train(DEEPSEEK_ATTN)
+    zamba = mla_train(ZAMBA_ATTN, None)  # zamba2's heads, (112, 112)
     tfa._call = call
     routes = {"bfloat16": tfa.bwd_kernel_route(torch.bfloat16)
               + " (wgmma, TMA)",
@@ -3724,7 +3785,8 @@ def phase_attention_bwd() -> dict:
         for kernel, counts in kernels.items():
             print(f"sass {lib} {kernel}: {json.dumps(counts)}", flush=True)
     bad = [c for c in cases + list(timing.values()) + list(f32.values())
-           + list(mla.values()) + list(deepseek.values()) if not c["ok"]]
+           + list(mla.values()) + list(deepseek.values())
+           + list(zamba.values()) if not c["ok"]]
     out = {"phase": "attention_bwd", "kernel": "flash_attention_bwd",
            "replaces": "none: the JAX package differentiates in XLA "
                        "(src/repro/models/flash_xla.py:100, _bwd_rule)",
@@ -3736,7 +3798,7 @@ def phase_attention_bwd() -> dict:
                               for c in cases),
            "gemma2_9b_train": timing, "f32_routes": f32,
            "minicpm3_4b_train": mla, "deepseek_v2_lite_16b_train": deepseek,
-           "ptxas": ptxas, "sass": sass}
+           "zamba2_7b_train": zamba, "ptxas": ptxas, "sass": sass}
     emit(out)
     if bad:
         raise SystemExit("flash_attention_bwd or an lse disagrees with its "
@@ -3744,9 +3806,11 @@ def phase_attention_bwd() -> dict:
     return out
 
 
-# the weight matrices of a parameter tree: linear layers' ``w``, and an
-# MoE block's router and stacked experts ([G, E, d_in, d_out])
-WEIGHT_KEYS = ("w", "router", "w_gate", "w_up", "w_down")
+# the weight matrices of a parameter tree: linear layers' ``w``, an MoE
+# block's router and stacked experts ([G, E, d_in, d_out]), and an SSM
+# block's projections
+WEIGHT_KEYS = ("w", "router", "w_gate", "w_up", "w_down", "in_proj",
+               "out_proj")
 
 
 def _trained_scale(params) -> None:
@@ -4018,6 +4082,8 @@ SHARDED_DIR = ROOT / "build" / "sharded-smoke"  # rank logs; removed at exit
 # beside the card phases), their JSON under DRYRUN_DIR (removed at exit)
 DRYRUN_CELLS = (("--arch", "gemma2_9b", "--shape", "train_4k"),
                 ("--arch", "gemma2_9b", "--shape", "decode_32k"),
+                ("--arch", "mamba2_780m", "--shape", "long_500k"),
+                ("--arch", "zamba2_7b", "--shape", "long_500k"),
                 ("--arch", "bisim", "--bisim-mode", "sorted",
                  "--bisim-ranking", "allgather"),
                 ("--arch", "bisim", "--bisim-mode", "sorted",
@@ -4673,9 +4739,16 @@ def main() -> int:
     # step's gradients (the f32 backward at (192, 128) on a model path)
     moe_parity = {arch: phase_serve_parity(
         arch, cut, "serve_parity_moe", trained_scale=True,
-        traffic=PARITY_MOE_TRAFFIC, train_grads=arch.startswith("deepseek"))
+        traffic=PARITY_MOE_TRAFFIC)
         for arch, cut in (("llama4_scout_17b_16e", PARITY_LLAMA4),
                           ("deepseek_v2_lite_16b", PARITY_DEEPSEEK))}
+    # the SSMs at 1/sqrt(d_in); zamba2's line adds a train step's
+    # gradients (the f32 backward at (112, 112), the shared block's
+    # gradient summed over its layers)
+    ssm_parity = {arch: phase_serve_parity(
+        arch, cut, "serve_parity_ssm", trained_scale=True)
+        for arch, cut in (("mamba2_780m", PARITY_MAMBA2),
+                          ("zamba2_7b", PARITY_ZAMBA2))}
     serve, eng, reqs = phase_serve()
     phase_serve_profile(eng, reqs)
     del eng
@@ -4707,9 +4780,10 @@ def main() -> int:
     emit({"phase": "op_dispatch", "host_us_a_call": dispatch,
           "inputs": "sig_fold 4,096 lanes / 256 rows; attention bf16 "
           "1 x 4/2 heads x 128 tokens x 64"})
-    # MLA's (96, 64) pair at minicpm3-4b's shapes and (192, 128) at
-    # deepseek-v2-lite's, the serve_zoo's and the MoE serve parities'
-    # launches and the (D, Dv) pairs the libraries are built for
+    # MLA's (96, 64) pair at minicpm3-4b's shapes, (192, 128) at
+    # deepseek-v2-lite's and (112, 112) at zamba2-7b's, the serve_zoo's
+    # and the MoE and SSM serve parities' launches and the (D, Dv) pairs
+    # the libraries are built for
     mla_keys = (*times, "bound_by", "library_ms", "library_note",
                 "kernel_ms_source", "back_to_back_ms", "max_abs_err",
                 "case")
@@ -4782,7 +4856,14 @@ def main() -> int:
         "serve_parity_moe_launches": {
             arch: {"launches": line["flash_attention_launches"],
                    "kernel_calls": line["kernel_calls"]}
-            for arch, line in moe_parity.items()}}, {
+            for arch, line in moe_parity.items()},
+        "zamba2_hd112": {dtype: {k: row[k] for k in mla_keys}
+                         for dtype, row in
+                         attn["zamba2_7b_prefill"].items()},
+        "serve_parity_ssm_launches": {
+            arch: {"launches": line["flash_attention_launches"],
+                   "kernel_calls": line["kernel_calls"]}
+            for arch, line in ssm_parity.items()}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "f32_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4810,7 +4891,13 @@ def main() -> int:
                          attn_bwd["deepseek_v2_lite_16b_train"].items()},
         "serve_parity_moe_train_launches": {
             "deepseek_v2_lite_16b": moe_parity["deepseek_v2_lite_16b"][
-                "train_step"]["bwd_launches"]}}]})
+                "train_step"]["bwd_launches"]},
+        "zamba2_hd112": {dtype: {k: row[k] for k in mla_bwd_keys}
+                         for dtype, row in
+                         attn_bwd["zamba2_7b_train"].items()},
+        "serve_parity_ssm_train_launches": {
+            "zamba2_7b": ssm_parity["zamba2_7b"]["train_step"][
+                "bwd_launches"]}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -18,7 +18,8 @@ ARCH_IDS = [
 ]
 # the architectures whose block kinds are ported
 PORTED = ["gemma2_9b", "phi4_mini_3p8b", "qwen1p5_110b", "llava_next_34b",
-          "minicpm3_4b", "llama4_scout_17b_16e", "deepseek_v2_lite_16b"]
+          "minicpm3_4b", "llama4_scout_17b_16e", "deepseek_v2_lite_16b",
+          "mamba2_780m", "zamba2_7b"]
 
 
 def _module(arch: str):
@@ -27,7 +28,7 @@ def _module(arch: str):
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if name not in PORTED:
         raise KeyError(f"arch {name!r} is not ported yet (ROADMAP.md, "
-                       f"queue 1 item 8: the other architectures); "
+                       f"queue 1 item 8.5: the encoder-decoder); "
                        f"ported: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

@@ -53,7 +53,8 @@
 // entry point's name.  flash_attention_bwd_mla.cu includes this file with
 // its own pairs, so each set compiles in a translation unit of its own.
 #ifndef FA_PAIRS
-#define FA_PAIRS(X) X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(256, 256)
+#define FA_PAIRS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(112, 112) X(128, 128) X(256, 256)
 #define FA_ENTRY flash_attention_bwd
 #endif
 

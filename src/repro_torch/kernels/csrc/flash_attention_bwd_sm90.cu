@@ -70,9 +70,12 @@
 // (dV m64n{DV}, dK m64n{D}), so each warpgroup runs a consumer of its own
 // width.  Shared memory a block (dk/dv pass, dq pass): 226.0 and 193.0 KB
 // at (256, 256), 154.0 and 121.0 KB at (192, 128), 94.0 and 61.0 KB at
-// (96, 64), 52.0 and 19.0 KB at (24, 16), with the same tiles and ring
-// depth at every pair.  At D = 192 a row is three 64-wide chunks of the
-// 128-byte swizzle, and dK and dQ are m64n192k16.
+// (96, 64), 52.0 and 19.0 KB at (24, 16), 130.0 and 97.0 KB at (112, 112),
+// with the same tiles and ring depth at every pair.  At D = 192 a row is
+// three 64-wide chunks of the 128-byte swizzle, and dK and dQ are
+// m64n192k16.  Zamba2's D = 112 is padded to 128 columns that TMA
+// zero-fills (`Cols`: two 64-wide chunks, not seven 16-wide ones), so its
+// products are those of D = 128 and the epilogues store 112 columns.
 // Registers: setmaxnreg gives the consumers 240 and the producer 24; no
 // trap lies on the consumers' path (a trap made ptxas ignore setmaxnreg in
 // the forward).
@@ -90,7 +93,8 @@
 // with its own pairs, so each set compiles in a translation unit of its
 // own.
 #ifndef FA_PAIRS
-#define FA_PAIRS(X) X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(256, 256)
+#define FA_PAIRS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(112, 112) X(128, 128) X(256, 256)
 #define FA_ENTRY flash_attention_bwd_sm90
 #endif
 

@@ -48,7 +48,8 @@
 //   swizzle, so a D = 256 tile is four column chunks and a k-step's
 //   descriptor steps across them.  Rows past Sq or Skv are zero-filled by
 //   TMA.  A block takes 65.0 KB of shared memory at (D, DV) = (96, 64),
-//   21.0 KB at (24, 16), 129.0 KB at (192, 128).
+//   21.0 KB at (24, 16), 129.0 KB at (192, 128), 97.0 KB at (112, 112)
+//   (as at (128, 128)).
 // - Registers: setmaxnreg gives the consumers 240 and the producer 24
 //   (2 * 128 * 240 + 128 * 24 = 64,512 of the SM's 65,536); a consumer at
 //   D = 256 holds O (128 f32), S (32 f32) and P (16 bf16 pairs), 199
@@ -64,7 +65,10 @@
 //   multiple of 16 is padded to one in shared memory (24 -> 32): its TMA
 //   box is wider than the tensor, TMA fills the columns past D with
 //   zeros, which add nothing to Q.K^T.  At D = 96 a row is three 32-wide
-//   chunks in the 64-byte swizzle (`Cols`).
+//   chunks in the 64-byte swizzle (`Cols`).  Zamba2's D = 112 is padded
+//   to 128 the same way (two 64-wide chunks in the 128-byte swizzle
+//   rather than seven 16-wide ones): S takes one k-step of zeros, P.V is
+//   m64n128k16 with 16 columns of zeros, and the epilogue stores 112.
 //
 // Plain-C entry point, loaded with ctypes; the tensor maps are encoded on
 // the host through cuTensorMapEncodeTiled, looked up at run time with
@@ -80,7 +84,8 @@
 // entry point's name.  flash_attention_sm90_mla.cu includes this file with
 // its own pairs, so each set compiles in a translation unit of its own.
 #ifndef FA_PAIRS
-#define FA_PAIRS(X) X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(256, 256)
+#define FA_PAIRS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(112, 112) X(128, 128) X(256, 256)
 #define FA_ENTRY flash_attention_fwd_sm90
 #endif
 

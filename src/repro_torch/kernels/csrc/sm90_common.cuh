@@ -23,10 +23,16 @@ constexpr float kLn2 = 0.6931471805599453f;
 // kChunks of them side by side.  D is padded to kPad, a multiple of
 // wgmma's k-step of 16 (24 -> 32): the TMA box is then wider than the
 // tensor, and TMA fills the columns past D with zeros.  D = 96 is three
-// 32-wide chunks, D = 192 three 64-wide ones.
+// 32-wide chunks, D = 192 three 64-wide ones.  A multiple of 16 past 16
+// that is no multiple of 32 would be 16-wide chunks in the 32-byte
+// swizzle (zamba2's 112: seven TMA boxes a tile and the worst bank
+// pattern), so it takes 16 zero columns more: 112 -> 128, two 64-wide
+// chunks in the 128-byte swizzle, and the <128> products (1/7 more
+// tensor-core work; the epilogues store D columns).
 template <int D>
 struct Cols {
-  static constexpr int kPad = (D + 15) / 16 * 16;
+  static constexpr int k16 = (D + 15) / 16 * 16;
+  static constexpr int kPad = k16 > 16 && k16 % 32 ? k16 + 16 : k16;
   static constexpr int W = kPad % 64 == 0 ? 64 : kPad % 32 == 0 ? 32 : 16;
   static constexpr int kChunks = kPad / W;
   static constexpr uint32_t kRow = W * 2;

@@ -64,11 +64,12 @@ from .ref import attention_mask
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)
 # the (q/k head_dim, v head_dim) pairs the kernels are built for: the
-# square ones, and MLA's (minicpm3-4b's 96 = 64 nope + 32 rope over a v of
-# 64, its smoke configuration's 24 over 16, and deepseek-v2-lite's 192 =
-# 128 nope + 64 rope over a v of 128), whose kernels build into the
-# libraries' ``_mla`` twins
-SQUARE_DIMS = (16, 32, 64, 128, 256)
+# square ones (zamba2's 112 among them, padded to 128 columns in the bf16
+# kernels' shared memory), and MLA's (minicpm3-4b's 96 = 64 nope + 32 rope
+# over a v of 64, its smoke configuration's 24 over 16, and
+# deepseek-v2-lite's 192 = 128 nope + 64 rope over a v of 128), whose
+# kernels build into the libraries' ``_mla`` twins
+SQUARE_DIMS = (16, 32, 64, 112, 128, 256)
 MLA_DIMS = ((96, 64), (24, 16), (192, 128))
 HEAD_DIMS = tuple((d, d) for d in SQUARE_DIMS) + MLA_DIMS
 MAX_TILE = 64  # the f32 kernel's largest query and kv tiles

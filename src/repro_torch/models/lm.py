@@ -1,9 +1,10 @@
 """Decoder-only LM of the port (the port of `repro.models.lm`: train,
-prefill and decode).  The JAX package's `lax.scan` over pattern groups
-becomes a Python loop over the [G, ...] slices of the stacked parameters;
-its `jax.checkpoint` remat becomes `torch.utils.checkpoint` over the same
-segments, and its chunked cross-entropy recomputes each chunk's logits in
-the backward the same way."""
+prefill and decode; dense, MoE, vlm, SSM and hybrid families).  The JAX
+package's `lax.scan` over pattern groups becomes a Python loop over the
+[G, ...] slices of the stacked parameters; its `jax.checkpoint` remat
+becomes `torch.utils.checkpoint` over the same segments, and its chunked
+cross-entropy recomputes each chunk's logits in the backward the same
+way."""
 from __future__ import annotations
 
 import torch
@@ -36,6 +37,8 @@ def lm_specs(cfg):
     if not cfg.tie_embeddings:
         specs["lm_head"] = layers.linear_spec(d, cfg.padded_vocab, "embed",
                                               "vocab")
+    if "ssm_attn" in cfg.layer_pattern:
+        specs["shared"] = blocks.shared_block_specs(cfg)
     return specs
 
 
@@ -48,15 +51,25 @@ def _sqrt_split(g: int):
     return best
 
 
+def attention_layers(cfg) -> int:
+    """The layers that run an attention forward (`blocks.has_attention`):
+    every layer of a dense or MoE model, zamba2's ssm_attn layers, none of
+    mamba2's.  A prefill launches the forward kernel once each, and a
+    train step's backward once each."""
+    return cfg.pattern_groups * sum(map(blocks.has_attention,
+                                        cfg.layer_pattern))
+
+
 def remat_forwards(cfg) -> int:
-    """The attention forwards of one train step, summed over layers (the
-    backward runs once a layer).  A layer's forward runs once, once more
-    when its group is recomputed in the backward, and once more when its
-    outer segment is (two-level remat, gi > 1) — except in the last group
-    of a segment, whose output no saved tensor needs: non-reentrant
-    checkpoint's early stop ends the segment's recompute before it."""
+    """The attention forwards of one train step, summed over the
+    attention layers (the backward runs once each).  A layer's forward
+    runs once, once more when its group is recomputed in the backward, and
+    once more when its outer segment is (two-level remat, gi > 1) — except
+    in the last group of a segment, whose output no saved tensor needs:
+    non-reentrant checkpoint's early stop ends the segment's recompute
+    before it."""
     go, gi = _sqrt_split(cfg.pattern_groups)
-    per_group = len(cfg.layer_pattern)
+    per_group = attention_layers(cfg) // cfg.pattern_groups
     if gi == 1:
         return 2 * cfg.pattern_groups * per_group
     return go * per_group * (3 * (gi - 1) + 2)
@@ -89,6 +102,7 @@ def _run_groups(params, cfg, x, *, kind, positions, cache=None, index=None):
     returns no cache and recomputes in the backward (`_run_train`)."""
     if kind == "train":
         return _run_train(params, cfg, x, positions), None
+    shared = params.get("shared")
     new = []
     for g in range(cfg.pattern_groups):
         gp = tree_map(lambda a: a[g], params["groups"])
@@ -97,7 +111,8 @@ def _run_groups(params, cfg, x, *, kind, positions, cache=None, index=None):
         for i, k in enumerate(cfg.layer_pattern):
             x, ncs[str(i)] = blocks.apply_block(
                 gp[str(i)], x, cfg, k, kind=kind, positions=positions,
-                cache=None if gc is None else gc[str(i)], index=index)
+                cache=None if gc is None else gc[str(i)], index=index,
+                shared=shared)
         x = shard(x, "act_batch", "act_seq", "act_embed")
         new.append(ncs)
     if cache is not None:
@@ -110,15 +125,19 @@ def _run_train(params, cfg, x, positions):
     own checkpoint (only its input is kept), and each outer segment of gi
     groups under another, so the forward keeps go + gi residual slices,
     not G.  The stacked [G, ...] parameters are unbound once, so each
-    leaf gets one stacked gradient rather than a full-size one a group."""
+    leaf gets one stacked gradient rather than a full-size one a group.
+    The shared block's parameters (zamba2) reach every group's checkpoint
+    through the closure, so their gradient sums over all its
+    applications."""
     g = cfg.pattern_groups
+    shared = params.get("shared")
     per_leaf = tree_map(lambda a: a.unbind(0), params["groups"])
     groups = [tree_map(lambda t, i=i: t[i], per_leaf) for i in range(g)]
 
     def body(xc, gp):
         for i, k in enumerate(cfg.layer_pattern):
             xc, _ = blocks.apply_block(gp[str(i)], xc, cfg, k, kind="train",
-                                       positions=positions)
+                                       positions=positions, shared=shared)
         return shard(xc, "act_batch", "act_seq", "act_embed")
 
     def inner(xc, gp):
@@ -190,15 +209,22 @@ def cache_shapes(cfg, batch: int, seq: int, dtype=torch.bfloat16):
 
 def cache_axes(cfg):
     """Logical axes tree matching `init_cache`'s structure."""
-    for k in cfg.layer_pattern:
-        blocks._check_kind(cfg, k)
-    if cfg.attention == "mla":
-        latent = ("layers", "act_batch", "act_kv_seq", None)
-        attn = {"c_kv": latent, "k_rope": latent}
-    else:
-        kv = ("layers", "act_batch", "act_kv_seq", "act_kv_heads", None)
-        attn = {"k": kv, "v": kv}
-    return {str(i): {"attn": attn} for i, _ in enumerate(cfg.layer_pattern)}
+    kv = ("layers", "act_batch", "act_kv_seq", "act_kv_heads", None)
+
+    def axes_for(kind):
+        blocks._check_kind(cfg, kind)
+        if kind in blocks.SSM_KINDS:
+            c = {"ssm": {"h": ("layers", "act_batch", "act_heads", None,
+                               None),
+                         "conv": ("layers", "act_batch", None, "act_mlp")}}
+            if kind == "ssm_attn":
+                c["shared_attn"] = {"k": kv, "v": kv}
+            return c
+        if cfg.attention == "mla":
+            latent = ("layers", "act_batch", "act_kv_seq", None)
+            return {"attn": {"c_kv": latent, "k_rope": latent}}
+        return {"attn": {"k": kv, "v": kv}}
+    return {str(i): axes_for(k) for i, k in enumerate(cfg.layer_pattern)}
 
 
 def _nll_sum(logits, labels, vocab_size: int):

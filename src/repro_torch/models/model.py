@@ -1,7 +1,8 @@
 """Top-level model of the port: config -> specs, parameters, the train
 loss, prefill and decode, and the dry-run's input specs (meta tensors +
 logical axes) (the port of `repro.models.model.Model` for the decoder
-LMs, dense and MoE, a vlm's stub patch embeddings included)."""
+LMs, dense, MoE, SSM and hybrid, a vlm's stub patch embeddings
+included)."""
 from __future__ import annotations
 
 import torch
@@ -107,7 +108,10 @@ class Model(nn.Module):
         return lm.init_cache(self.cfg, batch, seq, dtype, self.device)
 
     def pad_cache(self, cache, batch: int, max_seq: int, dtype=torch.bfloat16):
-        """Right-pad a prefill cache (prompt length) to decode capacity."""
+        """Right-pad a prefill cache (prompt length) to decode capacity.
+        Every leaf is copied into `init_cache`'s template, in its dtype:
+        the sequence-free SSM leaves (``h``, ``conv``) have the template's
+        shape, so they are only cast (``h`` stays f32)."""
         def pad(leaf, tmpl):
             tmpl[tuple(slice(0, n) for n in leaf.shape)] = leaf
             return tmpl
@@ -129,14 +133,15 @@ class Model(nn.Module):
         decode: {token, index, cache}
 
         A vlm's batch holds P = ``num_patch_tokens`` patch embeddings
-        [b, P, d_model] and s - P text tokens.  The encoder-decoder inputs
-        (frames) wait for their architecture (ROADMAP.md, queue 1 item 8).
+        [b, P, d_model] and s - P text tokens; an SSM's decode cache holds
+        its ``h`` and ``conv`` leaves.  The encoder-decoder inputs (frames)
+        wait for their architecture (ROADMAP.md, queue 1 item 8.5).
         """
         cfg = self.cfg
         if cfg.is_encoder_decoder:
             raise NotImplementedError(
                 f"{cfg.name}: encoder-decoder inputs are not ported yet "
-                "(ROADMAP.md, queue 1 item 8: the other architectures)")
+                "(ROADMAP.md, queue 1 item 8.5: the encoder-decoder)")
         b, s = shape.global_batch, shape.seq_len
         i32 = torch.int32
         tok_ax = ("act_batch", "act_seq")

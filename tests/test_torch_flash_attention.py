@@ -403,7 +403,12 @@ def test_mla_pairs_build_in_their_own_libraries():
     assert [p.name for p in _build.sources("flash_attention_sm90_mla")] == [
         "flash_attention_sm90_mla.cu", "flash_attention_sm90.cu",
         "sm90_common.cuh"]
-    for d, dv in ((96, 32), (24, 24), (112, 112), (192, 96)):
+    # zamba2's 112 is square: built in the four attention sources
+    assert tfa.kernel_route(torch.bfloat16, 112, 112) == \
+        "flash_attention_sm90"
+    assert tfa.bwd_kernel_route(torch.float32, 112, 112) == \
+        "flash_attention_bwd"
+    for d, dv in ((96, 32), (24, 24), (48, 48), (112, 64), (192, 96)):
         with pytest.raises(ValueError, match=r"built \(D, Dv\) pairs"):
             tfa.library(tfa.ROUTES[torch.bfloat16], d, dv)
 
@@ -436,3 +441,40 @@ def test_mla_fake_kernels_and_flops():
     with FlopCounterMode(display=False) as fc:
         tfa.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o))
     assert fc.get_total_flops() == 2 * (3 * 24 + 2 * 16) * 4 * pairs
+
+
+# zamba2-7b's head_dim 112 (its shared attention block; 32/32 heads), in
+# both dtypes, causal and not, with GQA, a window and a softcap; lengths
+# that the Pallas wrapper takes (multiples of its 64-row tiles)
+HD112_CASES = [  # b, hq, hkv, sq, skv, causal, window, softcap, dtype
+    (1, 4, 4, 64, 64, True, None, None, jnp.float32),
+    (2, 4, 2, 64, 128, True, 32, 50.0, jnp.float32),
+    (1, 4, 1, 128, 128, False, None, 30.0, jnp.float32),
+    (1, 4, 4, 64, 64, True, None, None, jnp.bfloat16),
+    (1, 4, 2, 128, 128, False, 64, 2.0, jnp.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,causal,window,softcap,dtype",
+                         HD112_CASES)
+def test_head_dim_112_matches_pallas(b, hq, hkv, sq, skv, causal, window,
+                                     softcap, dtype):
+    """The plain route at (112, 112) against the Pallas kernel in
+    interpret mode and the reference's oracle, 2e-5 in f32 and 2e-2 in
+    bf16; on odd lengths the reference's XLA attention."""
+    jx, tx = _inputs(sq + skv, b, hq, hkv, sq, skv, 112, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = pallas_fa(*jx, block_q=64, block_k=64, **kw)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(*tx, **kw)
+    assert tfa.flash_attention.launches == before  # CPU: no kernel
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    tol = 2e-2 if dtype == jnp.bfloat16 else 2e-5
+    assert _err(got, want) < tol
+    if sq == skv:
+        assert _err(got, jref.attention_ref(*jx, **kw)) < tol
+    jx, tx = _inputs(7, b, hq, hkv, 37, 45, 112)
+    got = tfa.flash_attention(*tx, **kw)
+    q, k, v = (a.transpose(0, 2, 1, 3) for a in jx)
+    xla = attend_flash(q, k, v, q_offset=45 - 37, **kw)
+    assert _err(got.transpose(1, 2), xla) < 2e-5

@@ -229,3 +229,23 @@ def test_mla_lse_matches_reference(case):
     o2, lse2 = tfa.flash_attention(*heads, return_lse=True, **kw)
     np.testing.assert_allclose(lse2.numpy(), want_lse, **TOL)
     np.testing.assert_allclose(o2.numpy(), o.numpy(), **TOL)
+
+
+# zamba2-7b's head_dim 112, causal and not, with a window, a softcap, GQA
+# and shifted queries (b, h, hkv, sq, skv, (d, dv), causal, window,
+# softcap, q_offset, chunk)
+HD112_CASES = [(1, 4, 4, 32, 32, (112, 112), True, None, None, 0, 8),
+               (2, 4, 2, 24, 40, (112, 112), False, 8, 20.0, 16, 8),
+               (1, 4, 1, 32, 32, (112, 112), True, None, 30.0, 5, 16)]
+
+
+@pytest.mark.parametrize("case", HD112_CASES, ids=str)
+def test_head_dim_112_fwd_bwd_match_reference(case):
+    """The port's output and gradients at (112, 112) against the
+    reference's custom VJP, as the MLA pairs' are."""
+    test_mla_fwd_bwd_match_reference(case)
+
+
+@pytest.mark.parametrize("case", HD112_CASES, ids=str)
+def test_head_dim_112_lse_matches_reference(case):
+    test_mla_lse_matches_reference(case)

@@ -734,7 +734,7 @@ def test_flash_attention_mla_bwd_is_deterministic(cuda, pair):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
-@pytest.mark.parametrize("pair", [(96, 32), (24, 24), (64, 16), (112, 112)])
+@pytest.mark.parametrize("pair", [(96, 32), (24, 24), (64, 16), (48, 48)])
 def test_flash_attention_unbuilt_pair_raises(cuda, dtype, pair):
     """A (q/k, v) head_dim pair that no library is built for raises
     ValueError naming the built pairs, forward and backward, and nothing
@@ -750,6 +750,91 @@ def test_flash_attention_unbuilt_pair_raises(cuda, dtype, pair):
         tfa.flash_attention_bwd(*args, **kw)
     assert (tfa.flash_attention.launches,
             tfa.flash_attention_bwd.launches) == before
+
+
+# zamba2-7b's head_dim 112 (its shared attention block), built in the
+# square libraries (padded to 128 columns in the bf16 kernels' shared
+# memory), in both dtypes: causal and not, GQA, windows, softcaps that the
+# logits reach, shifted queries and rows with no key, and zamba2's 32/32
+# heads at 1,000 tokens
+HD112_CASES = [  # b, hq, hkv, sq, skv, (d, dv), causal, window, softcap, off
+    (1, 4, 4, 100, 100, (112, 112), True, None, None, 0),
+    (2, 4, 4, 64, 64, (112, 112), False, None, None, 0),
+    (1, 8, 2, 70, 70, (112, 112), True, None, 2.0, 0),
+    (1, 4, 1, 40, 64, (112, 112), True, 16, None, 24),
+    (2, 4, 2, 33, 33, (112, 112), False, 8, 3.0, -5),
+    (1, 8, 8, 300, 300, (112, 112), True, 128, 50.0, 0),
+    (1, 32, 32, 1000, 1000, (112, 112), True, None, None, 0),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (BF16, 2e-2)])
+@pytest.mark.parametrize("case", HD112_CASES, ids=str)
+def test_flash_attention_hd112_matches_plain(cuda, monkeypatch, case, dtype,
+                                             tol):
+    """The forward at (112, 112) against the plain version: one launch of
+    the square library of its dtype, the lse."""
+    from repro_torch.kernels import flash_attention as tfa
+    (q, k, v, _, want_lse, _), kw = _mla_args(cuda, case, dtype)
+    called = _routes_called(monkeypatch)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert called == [tfa.kernel_route(dtype)]
+    want = tfa.flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) < tol
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, got)
+    big = want_lse == tfa.BIG
+    assert torch.equal(lse == tfa.BIG, big)
+    scale = max(1.0, float(want_lse.masked_fill(big, 0.0).abs().max()))
+    lse_tol = 1e-3 if dtype == BF16 else 1e-4
+    assert float((lse - want_lse).abs().masked_fill(big, 0.0).max()) \
+        <= lse_tol * scale
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (BF16, 2e-2)])
+@pytest.mark.parametrize("case", HD112_CASES, ids=str)
+def test_flash_attention_hd112_bwd_matches_plain(cuda, monkeypatch, case,
+                                                 dtype, tol):
+    """dq, dk and dv at (112, 112) against `_bwd_rule`'s port, each within
+    ``tol`` of its largest |x|."""
+    from repro_torch.kernels import flash_attention as tfa
+    args, kw = _mla_args(cuda, case, dtype)
+    called = _routes_called(monkeypatch)
+    before = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == before + 1
+    assert called == [tfa.bwd_kernel_route(dtype)]
+    _bwd_close(got, tfa.flash_attention_bwd_plain(*args, **kw), dtype, tol)
+
+
+@pytest.mark.parametrize("dtype,tol,bwd_tol", [(torch.float32, 2e-5, 1e-4),
+                                               (BF16, 2e-2, 2e-2)])
+def test_flash_attention_hd112_strided_views(cuda, dtype, tol, bwd_tol):
+    """[B, S, H, 112] activations viewed as [B, H, S, 112], as zamba2's
+    shared block hands them over: the outputs and gradients keep the
+    layouts; the bf16 backward gives the same bits twice."""
+    from repro_torch.kernels import flash_attention as tfa
+    args, kw = _bwd_inputs(cuda, (2, 8, 8, 100, 100, 112, True, None, None,
+                                  0), dtype)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             if t.dim() == 4 else t for t in args]
+    out = tfa.flash_attention(*views[:3], **kw)
+    assert out.stride() == views[0].stride()
+    want = tfa.flash_attention_plain(*args[:3], **kw)
+    assert float((out.float() - want.float()).abs().max()) < tol
+    got = tfa.flash_attention_bwd(*views, **kw)
+    for g, t in zip(got, views):
+        assert g.stride() == t.stride()
+    _bwd_close(got, tfa.flash_attention_bwd_plain(*args, **kw), dtype,
+               bwd_tol)
+    again = tfa.flash_attention_bwd(*views, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

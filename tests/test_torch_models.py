@@ -54,7 +54,8 @@ def test_configs_are_the_references():
     assert configs.get_config("gemma2-9b") == configs.get_config(ARCH)
 
 
-@pytest.mark.parametrize("arch,match", [("zamba2_7b", "ROADMAP.md"),
+@pytest.mark.parametrize("arch,match", [("seamless_m4t_large_v2",
+                                         "ROADMAP.md"),
                                         ("no_such_arch", "unknown")])
 def test_unported_arch_raises(arch, match):
     for get in (configs.get_config, configs.get_smoke_config):
@@ -63,14 +64,15 @@ def test_unported_arch_raises(arch, match):
 
 
 def test_unported_block_kind_raises():
-    """SSM and encoder-decoder blocks wait for their architectures; MLA
-    attention (minicpm3-4b, `tests/test_torch_zoo.py`) and the MoE block
-    (`tests/test_torch_moe.py`) are ported."""
+    """Encoder-decoder blocks wait for their architecture; MLA attention
+    (minicpm3-4b, `tests/test_torch_zoo.py`), the MoE block
+    (`tests/test_torch_moe.py`) and the SSM blocks
+    (`tests/test_torch_ssm.py`) are ported."""
     cfg = configs.get_smoke_config(ARCH)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         blocks.block_specs(cfg, "xdec")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.block_specs(cfg, "ssm")
+        blocks.block_specs(cfg, "bidir")
     mla = blocks.block_specs(configs.get_smoke_config("minicpm3_4b"),
                              "dense")
     assert "wkv_b" in mla["attn"] and "wq" not in mla["attn"]

@@ -69,9 +69,11 @@ def _ref_params(arch, seed=0):
         jax.random.PRNGKey(seed), jnp.float32))
 
 
-# the weight matrices of a parameter tree: linear layers' ``w``, and an
-# MoE block's router and stacked experts ([G, E, d_in, d_out])
-WEIGHT_KEYS = ("w", "router", "w_gate", "w_up", "w_down")
+# the weight matrices of a parameter tree: linear layers' ``w``, an MoE
+# block's router and stacked experts ([G, E, d_in, d_out]), and an SSM
+# block's projections
+WEIGHT_KEYS = ("w", "router", "w_gate", "w_up", "w_down", "in_proj",
+               "out_proj")
 
 
 def _trained_scale(tree):

@@ -1,6 +1,7 @@
 """The port's qwen1.5-110b (QKV bias), llava-next-34b (a vlm's stub patch
-embeddings), minicpm3-4b (MLA), llama4-scout-17b-16e (MoE with GQA) and
-deepseek-v2-lite-16b (MoE with MLA) against the JAX package, on their smoke
+embeddings), minicpm3-4b (MLA), llama4-scout-17b-16e (MoE with GQA),
+deepseek-v2-lite-16b (MoE with MLA), mamba2-780m (SSM) and zamba2-7b (SSM
+with a weight-tied shared attention block) against the JAX package, on their smoke
 configurations in f32 on the CPU route, with parameters carried across
 (`params_from_jax`) and numpy-seeded inputs.
 
@@ -34,13 +35,22 @@ from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
 from test_torch_train import _trained_scale  # noqa: E402
 
 ARCHS = ["qwen1p5_110b", "llava_next_34b", "minicpm3_4b",
-         "llama4_scout_17b_16e", "deepseek_v2_lite_16b"]
+         "llama4_scout_17b_16e", "deepseek_v2_lite_16b", "mamba2_780m",
+         "zamba2_7b"]
 # parameters at full size, counted by the reference's Model.num_params()
 FULL_PARAMS = {"qwen1p5_110b": 111_235_080_192,
                "llava_next_34b": 34_410_937_344,
                "minicpm3_4b": 4_263_336_448,
                "llama4_scout_17b_16e": 107_777_070_080,
-               "deepseek_v2_lite_16b": 16_210_324_992}
+               "deepseek_v2_lite_16b": 16_210_324_992,
+               "mamba2_780m": 781_562_112,
+               "zamba2_7b": 6_756_635_856}
+
+# the SSMs' cases start from weights at std 1/sqrt(d_in): at the init's
+# scale (the stacked in_proj at 1/sqrt(G)) zamba2's smoke logits lie 7.2e-5
+# (port) and 5.8e-5 (JAX) from a float64 evaluation, 1.2e-4 apart; at
+# 1/sqrt(d_in), 2.3e-5 each
+SSM_ARCHS = ("mamba2_780m", "zamba2_7b")
 
 
 def _t(a):
@@ -63,6 +73,8 @@ def pair(request):
     jm = RefModel(ref_smoke(arch))
     jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0),
                                           jnp.float32))
+    if arch in SSM_ARCHS:
+        jp = _trained_scale(jp)
     tm = Model(configs.get_smoke_config(arch)).load(
         params_from_jax(jp, device="cpu"))
     return arch, jm, jp, tm
@@ -153,7 +165,8 @@ def test_decode_matches_full_forward(pair):
 def test_loss_and_grads_match_reference(arch):
     """One train step's loss and gradients against `jax.value_and_grad` of
     the reference's `loss_fn`, through the CPU route of the attention
-    (MLA: the (24, 16) head_dim pair) and, for llava, the patches."""
+    (MLA: the (24, 16) head_dim pair) and, for llava, the patches; zamba2's
+    shared leaves get the sum over every ssm_attn layer."""
     rng = np.random.default_rng(0)
     cfg = configs.get_smoke_config(arch)
     jm = RefModel(ref_smoke(arch))
@@ -277,7 +290,7 @@ def test_apply_mla_matches_jax(kind):
 def test_mla_cache_and_blocks():
     """MLA's block: its specs and compressed cache, as the reference's
     (c_kv [B, S, kv_lora], k_rope [B, S, r]), their axes; the kinds still
-    to come (the SSM's) raise with the ROADMAP pointer."""
+    to come (the encoder-decoder's) raise with the ROADMAP pointer."""
     from repro.models import blocks as ref_blocks
     cfg = configs.get_smoke_config("minicpm3_4b")
     shapes = tree_map(lambda s: s.shape, blocks.block_specs(cfg, "dense"))
@@ -289,7 +302,7 @@ def test_mla_cache_and_blocks():
     assert {k: tuple(v.shape) for k, v in cache["attn"].items()} == {
         "c_kv": (2, 8, 32), "k_rope": (2, 8, 8)}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.block_specs(cfg, "ssm")
+        blocks.block_specs(cfg, "bidir")
 
 
 def test_serve_extra_reaches_every_wave():
@@ -322,12 +335,17 @@ def test_serve_extra_reaches_every_wave():
 
 @pytest.mark.parametrize("arch,shape_name", [("minicpm3_4b", "decode_32k"),
                                              ("llava_next_34b",
-                                              "prefill_32k")])
+                                              "prefill_32k"),
+                                             ("mamba2_780m", "long_500k"),
+                                             ("zamba2_7b", "long_500k")])
 def test_dryrun_cells_of_the_new_architectures(tmp_path, arch, shape_name):
     """The dry-run CLI takes the new architectures: minicpm3-4b's decode
     cell traces its compressed cache (c_kv, k_rope: the arguments hold at
     least a rank's share of it), llava-next-34b's prefill cell its patch
-    embeddings; 56 and 40 heads over the 16-way model axis included."""
+    embeddings; 56 and 40 heads over the 16-way model axis included; the
+    SSMs' long_500k decode (traced only for sub-quadratic architectures)
+    its h and conv leaves, and zamba2's shared block's 524,288-position
+    k and v."""
     import json
     import os
     import subprocess
@@ -349,7 +367,13 @@ def test_dryrun_cells_of_the_new_architectures(tmp_path, arch, shape_name):
         shape = cfgmod.SHAPES[shape_name]
         cache = Model(configs.get_config(arch)).cache_shapes(
             shape.global_batch, shape.seq_len)
-        assert sorted(cache["0"]["attn"]) == ["c_kv", "k_rope"]
+        want = {"minicpm3_4b": {"attn": ["c_kv", "k_rope"]},
+                "mamba2_780m": {"ssm": ["conv", "h"]},
+                "zamba2_7b": {"ssm": ["conv", "h"]}}[arch]
+        for key, leaves in want.items():
+            assert sorted(cache["0"][key]) == leaves
+        if arch == "zamba2_7b":
+            assert cache["2"]["shared_attn"]["k"].shape[2] == 524288
         total = sum(t.numel() * t.element_size()
                     for t in tree_leaves(cache))
         assert out["memory"]["argument_bytes"] >= total // 256
