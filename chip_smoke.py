@@ -61,7 +61,7 @@ Phases, each printing one JSON line:
              and ``multiset``: a maintainer with device propagation on
              the card and one on the numpy host path take the same ops
              (1, 1,000 and 100,000 random edge inserts, 1,000 existing
-             edges again, DELETE_NODE on 2 nodes, compact) and must agree
+             edges again, DELETE_NODE on a node, compact) and must agree
              bit for bit after each; one line an op (frontier and changed
              nodes a level, rebuilt, device and host walls, fold launches,
              store sizes and bytes, peak memory); at the end equal stores
@@ -88,8 +88,8 @@ Phases, each printing one JSON line:
              k=4 (its partition stops changing at level 4), ``sorted``,
              2^20-edge chunks, with the write-ahead log, beside an
              in-memory maintainer on the card: the build (its
-             ``chunk_sig_fold`` launches equal the chunks folded), 1,000
-             and 100,000 random inserts, DELETE_NODE, a snapshot,
+             ``chunk_sig_fold`` launches equal the chunks folded),
+             100,000 random inserts, DELETE_NODE, a snapshot,
              1,000 inserts, a crash (no close) and recovery with device
              propagation (pid files bit-identical), 1,000 more inserts;
              one line an op (frontier and changed nodes a level, rebuilt,
@@ -122,11 +122,11 @@ Phases, each printing one JSON line:
              card, the queries once more through the engine, its waves
              and hops timed by CUDA events and its own spans, and its
              device->host copies a wave;
-7i. stream — ``serve-updates`` with the launcher's defaults on the
-             parity graph (200 ops, batches of 32, k=10, ``--oocore
-             --wal``) in two worker processes of this script, started
-             after phase 2 (beside 3-7b and then 7c-7h): the card's
-             ``--kill-at-op 120`` crash
+7i. stream — ``serve-updates`` on the parity graph (120 ops, the
+             launcher's batches of 32, k=10, ``--oocore --wal``) in two
+             worker processes of this script, started after phase 2
+             (beside 3-7b and then 7c-7h): the card's
+             ``--kill-at-op 72`` crash
              drill, whose uninterrupted run is the stream straight
              through (updates/s, batches, snapshots, staleness against
              its bound, epoch, ``chunk_sig_fold`` and
@@ -184,8 +184,17 @@ Phases, each printing one JSON line:
              in both dtypes against the plain version; zamba2-7b's shared
              block's prefill the same way (32/32 heads of 112, padded to
              128 columns in the bf16 kernel; SDPA as it picks its
-             backend) and the (112, 112) cases; prints the attention
-             libraries' ``-Xptxas -v``
+             backend) and the (112, 112) cases; then seamless-m4t's heads
+             (16/16 of 64, non-causal, both dtypes, SDPA with is_causal
+             off): the encoder's 4,096 frames, prefill_32k's 32,768
+             decoder positions over them in bf16 (8,192 in f32; the plain
+             version on slices of 8,192 rows) and a decode step's 4 rows
+             of one query, each output within 1e-2 (bf16) or 1e-4 (f32)
+             of its max |o| and each row's ``lse`` within 1e-3 / 1e-4 of
+             its max |lse| (one key tile of 32 missed moves an lse by
+             3e-2, which a bf16 output's bar alone would not see), and
+             the seconds these cases take; prints
+             the attention libraries' ``-Xptxas -v``
              lines, a register/spill/wgmma count of each kernel's SASS and
              the route each dtype takes;
 8a. attention_bwd — ``flash_attention_bwd`` against its plain version
@@ -204,7 +213,12 @@ Phases, each printing one JSON line:
              MLA pairs' and (112, 112)'s cases in both dtypes and
              minicpm3-4b's, deepseek-v2-lite's and zamba2-7b's heads at
              the train shape (4096 tokens) in both dtypes, timed the same
-             way
+             way, then the non-causal cases of
+             `tests/test_torch_kernels_gpu.py::CROSS_CASES` (Sq > Skv,
+             Sq = 1, Sq = Skv; the forwards' ``lse`` too) and
+             seamless-m4t's heads (the encoder's 4,096 frames; 8,192
+             decoder positions over them), both dtypes, and the seconds
+             the seamless shapes take
              beside the bound at 2 (3 D + 2 Dv) flops a visible pair and
              SDPA's backward where a backend takes the shapes; prints the
              route each dtype takes and the backward libraries'
@@ -219,14 +233,14 @@ Phases, each printing one JSON line:
              kv_lora 256, q_lora 768, rope 32, nope 64, v 64; weight
              matrices at std 1/sqrt(d_in), as train_parity's), one line
              each; then ``serve_parity_moe`` the same way for llama4-scout
-             and deepseek-v2-lite cut to 4 layers at d_model 512 with
-             their own heads and experts (`PARITY_LLAMA4`,
+             cut to 4 layers and deepseek-v2-lite to 2 at d_model 512
+             with their own heads and experts (`PARITY_LLAMA4`,
              `PARITY_DEEPSEEK`; fewer, shorter requests), every launch
              through the library of the config's (D, Dv) (deepseek: the
              f32 (192, 128) kernel), the assignments dropped for capacity,
-             and for deepseek one train step, cut to 2 of the 4 layers,
-             its gradients on the card within 1e-4 of each leaf's max
-             |g| of float64 (the f32 backward at (192, 128)); then
+             and for deepseek one train step, its gradients on the card
+             within 1e-4 of each leaf's max |g| of float64 (the f32
+             backward at (192, 128)); then
              ``serve_parity_ssm`` the same way for mamba2 cut to 4
              layers and zamba2 to 6 (2 groups) at d_model 512
              (`PARITY_MAMBA2`, `PARITY_ZAMBA2`: zamba2's shared block at
@@ -234,7 +248,17 @@ Phases, each printing one JSON line:
              attention layer a wave (zamba2's 2 ssm_attn layers; none for
              mamba2), and for zamba2 one train step's gradients (the f32
              backward at (112, 112); the shared block's summed over its
-             2 layers);
+             2 layers); then ``serve_parity_encdec``: seamless-m4t cut to
+             4 + 4 layers at d_model 512, 8/8 heads of 64, 512 frames
+             (`PARITY_ENCDEC`), served through the launcher's waves (stub
+             frames from seed 0, the same on card and CPU): equal tokens,
+             logits within 1e-4 of float64, ``flash_attention`` launched
+             12 times a prefill wave and 4 a decode step (its
+             cross-attention); and one train step at 1,024 decoder
+             positions over the 512 frames (the f32 backward at
+             non-causal Sq > Skv), every leaf, the encoder's included,
+             within 1e-4 of its max |g| of float64, forward and backward
+             launches the remat's counts;
 10. serve  — the serving launcher's defaults on gemma2-9b at full width,
              cut to 22 of its 42 layers (bf16, random weights from seed
              0): 16 requests of 4..63 tokens, 32 new tokens each, waves
@@ -256,10 +280,12 @@ Phases, each printing one JSON line:
              width and depth through the launcher (``--requests 4
              --max-new 16``): mamba2-780m (48 layers, no attention) and
              zamba2-7b (81 layers, 27 of them with the shared attention
-             block at head_dim 112): init s, prefill ms, decode ms,
-             tokens/s, peak bytes and share of the card,
-             ``flash_attention`` launches against attention layers x
-             waves, an
+             block at head_dim 112), then seamless-m4t-large-v2 at full
+             width and depth (24 + 24 layers, each wave over its 4,096
+             stub frames): init s, prefill ms, decode ms, tokens/s, peak
+             bytes and share of the card, ``flash_attention`` launches
+             against attention layers x waves (seamless: 72 a wave and
+             24 a decode step), an
              MoE's assignments dropped for capacity in its prefills,
              finite logits and well-formed outputs;
 12. train_parity — a 4-layer, d_model-512 gemma2 in f32 (weight matrices
@@ -1045,11 +1071,12 @@ def phase_oocore(args, g, inmem) -> dict:
 # the maintenance phase: k and modes of the issue's deployment, and its
 # ops in order (name, count): random inserts drawn as the launcher's
 # ``add-edges --count`` draws them, existing edges inserted again (the
-# fused k-loop's all-clean path), DELETE_NODE on random nodes, compact
+# fused k-loop's all-clean path), DELETE_NODE on a random node, compact
+# (one DELETE_NODE a mode, not two: the second took the same path and
+# 5-13 s of the main process, which sets the script's pace here)
 MAINT = dict(k=10, modes=("sorted", "multiset"), seed=0)
 MAINT_OPS = (("add-edges", 1), ("add-edges", 1000), ("add-edges", 100_000),
-             ("re-add-edges", 1000), ("delete-node", 1), ("delete-node", 1),
-             ("compact", 0))
+             ("re-add-edges", 1000), ("delete-node", 1), ("compact", 0))
 
 
 def _same_partition(a, b) -> bool:
@@ -1294,9 +1321,11 @@ OOC_PARITY_OPS = (("add-edges", 1), ("add-edges", 1000),
 OOC_MAINT = dict(k=4, mode="sorted", chunk_edges=1 << 20, io_threads=1,
                  seed=0)
 # (no single insert: it takes the 1,000-insert op's path and ~20 s, the
-# parity phase runs one, and the whole script must stay near 15 minutes)
-OOC_MAINT_OPS = (("add-edges", 1000), ("add-edges", 100_000),
-                 ("delete-node", 1), ("snapshot", 0), ("add-edges", 1000))
+# parity phase runs one, and the whole script must stay near 15 minutes;
+# nor a 1,000-insert op ahead of the 100,000: the two after the snapshot
+# and after the recovery take that path, and each op costs 20-34 s)
+OOC_MAINT_OPS = (("add-edges", 100_000), ("delete-node", 1),
+                 ("snapshot", 0), ("add-edges", 1000))
 OOC_WORKDIR = ROOT / "build" / "ooc-maint-smoke"  # removed at exit
 OOC_PARITY_WORKDIR = ROOT / "build" / "ooc-parity-smoke"  # the same
 
@@ -1687,9 +1716,11 @@ QUOTIENT = dict(k=4, mode="sorted", batch=64, budget_rows=1 << 20,
                 path_queries=32, point_lookups=64, brute_sample=16,
                 seed=0, ops=(("add-edges", 1000), ("add-edges", 100_000)))
 QUOTIENT_WORKDIR = ROOT / "build" / "quotient-smoke"  # removed at exit
-# the streaming service: the launcher's serve-updates defaults on the
-# parity graph
-STREAM = dict(k=10, mode="sorted", kill_at=120, ops=200, batch_ops=32,
+# the streaming service: the launcher's serve-updates on the parity graph,
+# cut from its default 200 ops to 120 (the card's drill, three runs of the
+# stream, took 645-762 s and paced the maintenance stage; killed at op 72
+# it still recovers from a snapshot and replays the WAL's tail)
+STREAM = dict(k=10, mode="sorted", kill_at=72, ops=120, batch_ops=32,
               drill_snapshot_every=2)
 STREAM_WORKDIR = ROOT / "build" / "stream-smoke"  # removed at exit
 # the host-bound runs of the quotient and stream phases go to worker
@@ -2157,9 +2188,10 @@ def _stream_argv(device: str, workdir, kill_at: int = 0) -> list:
     argv = ["--device", device, "--generator", "powerlaw", "--nodes",
             str(PARITY["nodes"]), "--edges", str(PARITY["edges"]), "--k",
             str(STREAM["k"]), "--mode", STREAM["mode"], "--oocore", "--wal",
-            "--workdir", str(workdir), "serve-updates"]
-    # the drill snapshots every 2 batches: the launcher's cadence (8) has
-    # taken no snapshot by op 120, and recovery needs one to start from
+            "--workdir", str(workdir), "serve-updates", "--ops",
+            str(STREAM["ops"])]
+    # the drill snapshots every 2 batches: the launcher's cadence (8) took
+    # no snapshot by op 120, and recovery needs one to start from
     return argv + (["--kill-at-op", str(kill_at), "--snapshot-every",
                     str(STREAM["drill_snapshot_every"])] if kill_at else [])
 
@@ -2177,7 +2209,7 @@ def stream_worker(device: str, workdir: str, kill_at: int,
     args = launcher.build_parser().parse_args(
         _stream_argv(device, workdir, kill_at))
     if (args.ops, args.batch_ops) != (STREAM["ops"], STREAM["batch_ops"]):
-        raise SystemExit("the launcher's serve-updates defaults moved")
+        raise SystemExit("the launcher's serve-updates batches moved")
     sig_fold.launches = chunk_sig_fold.launches = 0
     t0 = time.perf_counter()
     res = launcher.main(_stream_argv(device, workdir, kill_at))
@@ -2315,9 +2347,9 @@ def collect_quotient(procs: dict) -> dict:
 
 
 def phase_stream(procs: dict) -> dict:
-    """``serve-updates`` with the launcher's defaults (200 ops, batches
-    of 32, k=10, ``sorted``, ``--oocore --wal``) on the parity graph: the
-    card's crash drill killed at op 120 with a snapshot every 2 batches,
+    """``serve-updates`` (120 ops, the launcher's batches of 32, k=10,
+    ``sorted``, ``--oocore --wal``) on the parity graph: the card's crash
+    drill killed at op 72 with a snapshot every 2 batches,
     whose uninterrupted run is the stream straight through (updates/s,
     batches, snapshots, staleness against its bound, epoch) and whose
     recovered history must be bit-identical to it (else the launcher
@@ -2813,23 +2845,49 @@ MLA_ATTN = dict(b=1, hq=40, hkv=40, s=8192, d=96, dv=64)
 DEEPSEEK_ATTN = dict(b=1, hq=16, hkv=16, s=8192, d=192, dv=128)
 ZAMBA_ATTN = dict(b=1, hq=32, hkv=32, s=8192, d=112, dv=112)
 MLA_F32_TOKENS = 1024
+# seamless-m4t-large-v2's attention (16/16 heads of 64, non-causal): the
+# encoder's self-attention over its 4,096 frames; the cross-attention of
+# prefill_32k's 32,768 decoder positions over them in bf16 (the plain
+# version checks and is timed on query slices of 8,192 rows, whose logits
+# fit: the rows of a non-causal call are independent) and of 8,192 in
+# f32 and for the backward; and a decode step's cross-attention, 4 rows
+# of one query over the frames (one real row in the bf16 kernel's
+# 128-row tile)
+SEAMLESS_ATTN = dict(h=16, d=64, frames=4096, prefill=32768,
+                     plain_rows=8192, train_queries=8192, decode_rows=4)
+# the non-causal cases with Sq > Skv, Sq = 1 and Sq = Skv against the plain
+# version in the backward's check (and the forwards' lse there), those of
+# `tests/test_torch_kernels_gpu.py::CROSS_CASES` (b, hq, hkv, sq, skv, d,
+# causal, window, softcap, q_offset: None the default Skv - Sq)
+CROSS_BWD_CASES = [
+    (2, 4, 4, 40, 24, 16, False, None, None, None),
+    (4, 16, 16, 1, 4096, 64, False, None, None, None),
+    (2, 4, 4, 1, 24, 16, False, None, None, None),
+    (1, 8, 2, 1, 300, 64, False, None, None, 0),
+    (1, 16, 16, 300, 128, 64, False, None, None, None),
+    (2, 8, 2, 200, 70, 64, False, None, 2.0, 0),
+    (1, 16, 16, 1000, 300, 64, False, None, None, None),
+    (1, 4, 1, 129, 64, 128, False, None, None, None),
+    (1, 16, 16, 512, 512, 64, False, None, None, None),
+]
 # the MLA serve-parity model: minicpm3-4b cut to 4 layers at d_model 512,
 # its own head widths
 PARITY_MLA = dict(num_layers=4, d_model=512, num_heads=8, num_kv_heads=8,
                   kv_lora_rank=256, q_lora_rank=768, rope_head_dim=32,
                   nope_head_dim=64, v_head_dim=64, head_dim=64, d_ff=2048,
                   vocab_size=32768)
-# the MoE serve-parity models, each cut to 4 layers at d_model 512 with its
-# own head widths and experts: llama4-scout (GQA 8/2 heads of 128; 16
-# experts, top-1, one shared) and deepseek-v2-lite (MLA over 8 heads, q/k
-# 128 nope + 64 rope, v 128, kv_lora 512, no q_lora; 64 experts, top-6,
-# two shared); both serve fewer, shorter requests than the dense parities
-# (`PARITY_MOE_TRAFFIC`): the dense dispatch multiplies the 128 slots of
-# every expert at each decode step, which the CPU's side pays for
+# the MoE serve-parity models at d_model 512 with their own head widths and
+# experts: llama4-scout cut to 4 layers (GQA 8/2 heads of 128; 16 experts,
+# top-1, one shared) and deepseek-v2-lite to 2 (MLA over 8 heads, q/k 128
+# nope + 64 rope, v 128, kv_lora 512, no q_lora; 64 experts, top-6, two
+# shared; its CPU side took 12-20 s at 4); both serve fewer, shorter
+# requests than the dense parities (`PARITY_MOE_TRAFFIC`): the dense
+# dispatch multiplies the 128 slots of every expert at each decode step,
+# which the CPU's side pays for
 PARITY_LLAMA4 = dict(num_layers=4, d_model=512, num_heads=8, num_kv_heads=2,
                      head_dim=128, num_experts=16, moe_top_k=1,
                      num_shared_experts=1, d_ff=2048, vocab_size=32768)
-PARITY_DEEPSEEK = dict(num_layers=4, d_model=512, num_heads=8,
+PARITY_DEEPSEEK = dict(num_layers=2, d_model=512, num_heads=8,
                        num_kv_heads=8, kv_lora_rank=512, q_lora_rank=0,
                        rope_head_dim=64, nope_head_dim=128, v_head_dim=128,
                        head_dim=128, num_experts=64, moe_top_k=6,
@@ -2842,11 +2900,19 @@ PARITY_MOE_TRAFFIC = dict(lengths=(5, 40, 70), max_new=4)
 PARITY_MAMBA2 = dict(num_layers=4, d_model=512, vocab_size=32768)
 PARITY_ZAMBA2 = dict(num_layers=6, d_model=512, num_heads=4, num_kv_heads=4,
                      head_dim=112, d_ff=2048, vocab_size=32768)
-# the serve parities that add one train step's gradients, and its layers:
-# deepseek's f32 backward at (192, 128), cut from 4 to 2 layers (its
-# float64 CPU side); zamba2's at (112, 112), its shared block's gradient
-# summed over its 2 ssm_attn layers
-PARITY_TRAIN_LAYERS = {"deepseek_v2_lite_16b": 2, "zamba2_7b": 6}
+# the encoder-decoder's serve parity: seamless-m4t cut to 4 encoder + 4
+# decoder layers at d_model 512, 8/8 heads of the full model's head_dim 64,
+# 512 frames, f32
+PARITY_ENCDEC = dict(num_layers=4, encoder_layers=4, d_model=512,
+                     num_heads=8, num_kv_heads=8, head_dim=64, d_ff=2048,
+                     vocab_size=32768, source_len=512)
+# the serve parities that add one train step's gradients on their own
+# layers, and its decoder positions: deepseek's f32 backward at (192, 128);
+# zamba2's at (112, 112), its shared block's gradient summed over its 2
+# ssm_attn layers; seamless's at (64, 64), 1,024 positions over its 512
+# frames (non-causal Sq > Skv), dk and dv flowing into the encoder
+PARITY_TRAIN_SEQ = {"deepseek_v2_lite_16b": 64, "zamba2_7b": 64,
+                    "seamless_m4t_large_v2": 1024}
 # gemma2-9b's full-width serve, cut from 42 to 22 layers (11 local/global
 # pairs: the pattern takes an even count) for the script's time limit
 SERVE_LAYERS = 22
@@ -2954,9 +3020,15 @@ def phase_attention() -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def measure(b, hq, hkv, sq, skv, d, causal, window, softcap, dtype,
-                bshd=False, profile=False, dv=None, sdpa_backends=None):
+                bshd=False, profile=False, dv=None, sdpa_backends=None,
+                plain_rows=None, relative=False):
         # bshd: [B, S, H, D] activations viewed as [B, H, S, D], as the
-        # model hands them over; dv: v's head_dim (MLA), default d
+        # model hands them over; dv: v's head_dim (MLA), default d;
+        # plain_rows: the plain version runs on query slices of that many
+        # rows (a non-causal call without a window: rows independent);
+        # relative: the output held to its max |o| and the rows' lse to
+        # `_fwd_impl`'s port (over 4,096 keys a typical |o| is ~0.02, the
+        # size of the absolute bf16 bar)
         dv = dv or d
         q, k, v = (torch.randn(b, s, h, w, generator=gen, device=dev)
                    .to(getattr(torch, dtype)).transpose(1, 2)
@@ -2969,10 +3041,34 @@ def phase_attention() -> dict:
         launches = flash_attention.launches
         got = flash_attention(q, k, v, **kw)
         launched = flash_attention.launches - launches
-        want = flash_attention_plain(q, k, v, **kw)
+
+        def plain():
+            if plain_rows is None:
+                return flash_attention_plain(q, k, v, **kw)
+            assert not causal and window is None
+            return torch.cat([flash_attention_plain(
+                q[:, :, i:i + plain_rows], k, v, **kw)
+                for i in range(0, sq, plain_rows)], dim=2)
+        want = plain()
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        tol = 2e-2 if dtype == "bfloat16" else 2e-5
+        bf16 = dtype == "bfloat16"
+        tol = 2e-2 if bf16 else 2e-5
+        lse_ok, extra = True, {}
+        if relative:
+            assert not causal and window is None
+            tol = (1e-2 if bf16 else 1e-4) * float(want.float().abs().max())
+            o_l, lse = flash_attention(q, k, v, return_lse=True, **kw)
+            rows = plain_rows or sq
+            want_lse = torch.cat([tfa.flash_attention_fwd_plain(
+                q[:, :, i:i + rows], k, v, **kw)[1]
+                for i in range(0, sq, rows)], dim=2)
+            lse_err = float((lse - want_lse).abs().max())
+            lse_tol = (1e-3 if bf16 else 1e-4) * max(
+                1.0, float(want_lse.abs().max()))
+            lse_ok = lse_err <= lse_tol and torch.equal(o_l, got)
+            extra = {"lse_max_abs_err": lse_err, "lse_tol": lse_tol}
+            del o_l, lse, want_lse
         keep = attention_mask(sq, skv, causal=causal, window=window,
                               device=dev)
         pairs = int(keep.sum())  # unmasked (query, key) pairs of a head
@@ -2996,13 +3092,13 @@ def phase_attention() -> dict:
                             causal=causal, window=window, softcap=softcap,
                             dtype=dtype, bshd=bshd),
                "route": kernel_route(q.dtype, d, dv),
-               "max_abs_err": err, "tol": tol,
-               "ok": err < tol and launched == 1
+               "max_abs_err": err, "tol": tol, **extra,
+               "ok": err < tol and launched == 1 and lse_ok
                and got.stride() == tfa._empty_as(q, dv).stride(),
                "pairs_per_head": pairs,
                "ms": cuda_ms(lambda: flash_attention(q, k, v, **kw), 10),
-               "plain_ms": cuda_ms(
-                   lambda: flash_attention_plain(q, k, v, **kw), 10),
+               "plain_ms": cuda_ms(plain, 10),
+               "plain_rows": plain_rows,
                "library_ms": library_ms, "library_note": library_note,
                "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
                "bound_ms": max(flop_ms, byte_ms),
@@ -3044,6 +3140,26 @@ def phase_attention() -> dict:
     mla = mla_prefill(MLA_ATTN)
     deepseek = mla_prefill(DEEPSEEK_ATTN)
     zamba = mla_prefill(ZAMBA_ATTN, None)
+    # seamless-m4t-large-v2's heads, non-causal, in the model's [B, S, H,
+    # D] layout: the encoder, the cross-attention of prefill_32k and a
+    # decode step's
+    sm = SEAMLESS_ATTN
+    h, d = sm["h"], sm["d"]
+    t0 = time.perf_counter()
+    seamless = {dtype: {
+        "encoder": measure(1, h, h, sm["frames"], sm["frames"], d, False,
+                           None, None, dtype, bshd=True, profile=True,
+                           relative=True),
+        "cross_prefill": measure(
+            1, h, h, sm["prefill"] if dtype == "bfloat16"
+            else sm["plain_rows"], sm["frames"], d, False, None, None,
+            dtype, bshd=True, profile=True, plain_rows=sm["plain_rows"],
+            relative=True),
+        "cross_decode": measure(sm["decode_rows"], h, h, 1, sm["frames"], d,
+                                False, None, None, dtype, bshd=True,
+                                profile=True, relative=True)}
+        for dtype in ("bfloat16", "float32")}
+    seamless_s = time.perf_counter() - t0
     g = GEMMA_ATTN
     timing = {name: measure(g["b"], g["hq"], g["hkv"], g["s"], g["s"],
                             g["d"], True, window, softcap, "bfloat16",
@@ -3053,7 +3169,8 @@ def phase_attention() -> dict:
                   ("local", g["window"], g["softcap"]),
                   ("global_no_softcap", None, None))}
     rows = (cases + list(timing.values()) + list(mla.values())
-            + list(deepseek.values()) + list(zamba.values()))
+            + list(deepseek.values()) + list(zamba.values())
+            + [r for by in seamless.values() for r in by.values()])
     ptxas = {lib: [ln.strip() for ln in _build.ptxas_report(lib).splitlines()
                    if "Used" in ln or "spill" in ln or "C75" in ln]
              for lib in ("flash_attention", "flash_attention_sm90",
@@ -3082,6 +3199,7 @@ def phase_attention() -> dict:
            "gemma2_9b_prefill": timing, "minicpm3_4b_prefill": mla,
            "deepseek_v2_lite_16b_prefill": deepseek,
            "zamba2_7b_prefill": zamba,
+           "seamless_m4t_large_v2": seamless, "seamless_seconds": seamless_s,
            "built_pairs": [list(p) for p in tfa.HEAD_DIMS],
            "ptxas": ptxas, "sass": sass}
     emit(out)
@@ -3132,26 +3250,35 @@ def phase_serve_parity(arch: str = "gemma2_9b", overrides=None,
                        trained_scale: bool = False, traffic=None) -> dict:
     """A small ``arch`` (default gemma2 at `PARITY_LM`; minicpm3 at
     `PARITY_MLA` is the MLA one, llama4 and deepseek at `PARITY_LLAMA4`
-    and `PARITY_DEEPSEEK` the MoE ones) served on the card (prefill
-    attention through the kernel) and on the CPU (plain version) from one
-    init (with ``trained_scale``, its weight matrices at std 1/sqrt(d_in):
-    `_trained_scale`): equal tokens, one launch a layer a prefill wave,
-    every launch through the library built for the config's (D, Dv), and
-    the card's prefill logits within 1e-4 of the CPU's plain route
-    evaluated in float64.  (Card and CPU in f32 each lie ~2e-5 from
+    and `PARITY_DEEPSEEK` the MoE ones, seamless at `PARITY_ENCDEC` the
+    encoder-decoder) served on the card (prefill attention through the
+    kernel) and on the CPU (plain version) from one init (with
+    ``trained_scale``, its weight matrices at std 1/sqrt(d_in):
+    `_trained_scale`) through the serving launcher's waves
+    (`launch.serve.run_serve`: an encoder-decoder's stub frames drawn on
+    the host from seed 0, the same on both): equal tokens, the launches
+    `_expected_launches` counts (a decoder LM's attention layers a
+    prefill wave; seamless's 12 a wave and 4 a decode step, its
+    cross-attention), every launch through the library built for the
+    config's (D, Dv), and the card's prefill logits (2 rows of 70
+    tokens, over 2 rows of stub frames) within 1e-4 of the CPU's plain
+    route evaluated in float64.  (Card and CPU in f32 each lie ~2e-5 from
     float64 on this model, but their f32 gap depends on the host: 3.1e-5
     on most machines, 9.2e-4 on one, so it is reported beside the host's
     CPU and not held to 1e-4.)  ``traffic`` ({lengths, max_new}) replaces
     the 11 requests of 16 new tokens; an MoE's line adds the assignments
     dropped for capacity in the card's prefills.  An ``arch`` of
-    `PARITY_TRAIN_LAYERS` adds one train step's gradients on the card
+    `PARITY_TRAIN_SEQ` adds one train step's gradients on the card
     against float64 (`_train_grads_vs_f64`)."""
+    import types
+
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     kernel_route)
+    from repro_torch.launch import serve as launcher
     from repro_torch.models import Model
-    from repro_torch.models.lm import attention_layers
     from repro_torch.models.params import tree_map
     from repro_torch.serve import ServeEngine
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
@@ -3165,16 +3292,21 @@ def phase_serve_parity(arch: str = "gemma2_9b", overrides=None,
     cpu64 = Model(cfg).load(tree_map(lambda t: t.double(), cpu.params))
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 70)))
-    logits = {"card": card.prefill(toks.to(DEVICE))[0].cpu().double(),
-              "cpu": cpu.prefill(toks)[0].double(),
-              "f64": cpu64.prefill(toks)[0]}
+    # an encoder-decoder's 2 rows of stub frames (the model casts them)
+    extra = launcher.wave_inputs(cfg, 2, torch.float32, "cpu") or {}
+    on_card = {k: t.to(DEVICE) for k, t in extra.items()}
+    logits = {"card": card.prefill(toks.to(DEVICE), **on_card)[0].cpu()
+              .double(),
+              "cpu": cpu.prefill(toks, **extra)[0].double(),
+              "f64": cpu64.prefill(toks, **extra)[0]}
     del cpu64
     err = {f"{a}_vs_{b}": float((logits[a] - logits[b]).abs().max())
            for a, b in (("card", "f64"), ("cpu", "f64"), ("card", "cpu"))}
     # prompts longer than the window of 32, in five length buckets
     lengths = (traffic["lengths"] if traffic else
                (5, 40, 40, 70, 33, 100, 40, 12, 40, 40, 40))
-    max_new = traffic["max_new"] if traffic else 16
+    args = types.SimpleNamespace(max_new=traffic["max_new"] if traffic
+                                 else 16)
     reqs = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lengths]
     kw = dict(max_batch=4, max_seq=160)
     flash_attention.launches = 0
@@ -3183,38 +3315,34 @@ def phase_serve_parity(arch: str = "gemma2_9b", overrides=None,
     card.prefill = _counting_drops(card.prefill, dropped)
     try:
         with _pairs_called() as pairs:
-            got = eng.serve(reqs, max_new=max_new)
+            got, _ = launcher.run_serve(args, eng, reqs)
     finally:
         del card.prefill
     launches = flash_attention.launches
     cpu_eng = ServeEngine(cpu, **kw)
-    want = cpu_eng.serve(reqs, max_new=max_new)
-    from repro_torch.kernels.flash_attention import kernel_route
+    want, _ = launcher.run_serve(args, cpu_eng, reqs)
     d, dv = _head_dims(cfg)
     # the library of the config's (D, Dv); none for an attention-free SSM
-    attn = attention_layers(cfg)
+    expected = _expected_launches(cfg, eng.stats)
     libs = {_pair_key(kernel_route(torch.float32, d, dv), d, dv)} \
-        if attn else set()
+        if expected else set()
     out = {"phase": phase, "arch": arch, "config": overrides,
            "trained_scale": trained_scale, "dtype": "float32",
            "requests": len(reqs), "prompt_lengths": [len(r) for r in reqs],
-           "max_new": max_new,
+           "max_new": args.max_new,
            "prefill_logit_max_abs_err": err, "host_cpu": _host_cpu(),
            "tokens_equal": got == want, "stats": vars(eng.stats),
            "stats_equal": eng.stats == cpu_eng.stats,
            "flash_attention_launches": launches,
-           "attention_layers": attn,
-           "layers_x_waves": attn * eng.stats.waves,
+           "expected_launches": expected,
            "kernel_calls": dict(pairs), "kernel_expected": sorted(libs)}
     if cfg.num_experts:
         out["moe_dropped_in_prefills"] = int(dropped)
     ok = (got == want and eng.stats == cpu_eng.stats
-          and err["card_vs_f64"] < 1e-4
-          and launches == attn * eng.stats.waves
+          and err["card_vs_f64"] < 1e-4 and launches == expected
           and set(pairs) == libs)
-    if arch in PARITY_TRAIN_LAYERS:
-        out["train_step"] = _train_grads_vs_f64(
-            cfg.scaled(num_layers=PARITY_TRAIN_LAYERS[arch]))
+    if arch in PARITY_TRAIN_SEQ:
+        out["train_step"] = _train_grads_vs_f64(cfg, PARITY_TRAIN_SEQ[arch])
         ok = ok and out["train_step"]["ok"]
     out["seconds"] = time.perf_counter() - t0
     emit(out)
@@ -3229,33 +3357,44 @@ def _pair_key(library: str, d: int, dv: int) -> str:
     return f"{library} D={d}/{dv}"
 
 
-def _train_grads_vs_f64(cfg) -> dict:
+def _train_grads_vs_f64(cfg, seq: int = 64) -> dict:
     """One train step's loss and gradients of ``cfg`` from seed 0 (weights
-    at 1/sqrt(d_in), `_trained_scale`), in f32 on the card (the attention
-    forward and backward through their f32 kernels), against the same
-    parameters' float64 evaluation on the CPU (the plain versions): each
-    leaf within 1e-4 of its max |g|, the loss within 1e-4 relative; the
-    backward's launches (one an attention layer) and the libraries it
-    resolved."""
+    at 1/sqrt(d_in), `_trained_scale`) on a batch of one row of ``seq``
+    tokens (an encoder-decoder's with its ``source_len`` frames), in f32
+    on the card (the attention forward and backward through their f32
+    kernels), against the same parameters' float64 evaluation on the CPU
+    (the plain versions): each leaf within 1e-4 of its max |g|, the loss
+    within 1e-4 relative; the forward's launches (the remat's count) and
+    the backward's (one an attention call of the forward) and the
+    libraries they resolved."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as tfa
-    from repro_torch.models import Model
-    from repro_torch.models.lm import attention_layers
+    from repro_torch.models import Model, encdec, lm
     from repro_torch.models.params import tree_map
     params = Model(cfg).init(0, torch.float32, DEVICE).params
     _trained_scale(params)
     rng = np.random.default_rng(1)
-    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64)))
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, seq)))
              for k in ("tokens", "labels")}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(1, cfg.source_len, cfg.d_model)).astype(np.float32))
+        want_fwd, want_bwd = (encdec.remat_forwards(cfg),
+                              encdec.prefill_launches(cfg))
+    else:
+        want_fwd, want_bwd = (lm.remat_forwards(cfg),
+                              lm.attention_layers(cfg))
     f64 = Model(cfg).load(tree_map(lambda t: t.detach().cpu().double(),
                                    params), trainable=True)
     train = Model(cfg).load(params, trainable=True)
+    fwd = tfa.flash_attention.launches
     bwd = tfa.flash_attention_bwd.launches
     with _pairs_called() as pairs:
         loss, g_card = _grads(train, {k: v.to(DEVICE)
                                       for k, v in batch.items()})
         torch.cuda.synchronize()
+    fwd = tfa.flash_attention.launches - fwd
     bwd = tfa.flash_attention_bwd.launches - bwd
     loss64, g64 = _grads(f64, batch)
     errs = _leaf_errors(g_card, g64)
@@ -3263,13 +3402,18 @@ def _train_grads_vs_f64(cfg) -> dict:
     d, dv = _head_dims(cfg)
     want = {_pair_key(tfa.kernel_route(torch.float32, d, dv), d, dv),
             _pair_key(tfa.bwd_kernel_route(torch.float32, d, dv), d, dv)}
-    return {"batch": [1, 64], "layers": cfg.num_layers, "loss": loss,
+    return {"batch": [1, seq], "layers": cfg.num_layers, "loss": loss,
             "loss_f64": loss64,
             "grad_err_of_max": errs[worst], "worst_leaf": worst,
             "shared_grad_err_of_max": {k: v for k, v in errs.items()
                                        if k.startswith("shared/")},
+            "encoder_grad_err_of_max": max(
+                (v for k, v in errs.items() if k.startswith("enc_")),
+                default=None),
+            "fwd_launches": fwd, "remat_forwards": want_fwd,
             "bwd_launches": bwd, "kernel_calls": dict(pairs),
-            "ok": (errs[worst] <= 1e-4 and bwd == attention_layers(cfg)
+            "ok": (errs[worst] <= 1e-4 and bwd == want_bwd
+                   and fwd == want_fwd
                    and abs(loss - loss64) <= 1e-4 * abs(loss64)
                    and set(pairs) == want)}
 
@@ -3425,23 +3569,41 @@ def phase_serve_profile(eng, reqs) -> dict:
 # layers (107.8e9 parameters, 215.6 GB; 8 layers are 19,692,999,680, 39.4
 # GB)
 # (minicpm3-4b cut from 62 to 31 layers for the script's time limit:
-# PERF.md section 7's second cut; the SSMs at full depth)
+# PERF.md section 7's second cut; the SSMs at full depth); the
+# encoder-decoder seamless-m4t-large-v2 at full depth (24 + 24 layers,
+# 2,038,556,672 parameters, 4.08 GB) through the launcher, each wave over
+# its stub frames (4,096 a row)
 ZOO = (("minicpm3_4b", 31, "requests"), ("qwen1p5_110b", 8, "requests"),
        ("llava_next_34b", 20, "vlm_wave"),
        ("deepseek_v2_lite_16b", None, "launcher"),
        ("llama4_scout_17b_16e", 8, "requests"),
-       ("mamba2_780m", None, "launcher"), ("zamba2_7b", None, "launcher"))
+       ("mamba2_780m", None, "launcher"), ("zamba2_7b", None, "launcher"),
+       ("seamless_m4t_large_v2", None, "launcher"))
 ZOO_TRAFFIC = dict(requests=4, max_new=16, vlm_rows=4, vlm_text=48)
+
+
+def _expected_launches(cfg, stats) -> int:
+    """``flash_attention`` launches of a serve: a decoder LM's attention
+    layers a prefill wave (its decode is plain PyTorch); an
+    encoder-decoder's `encdec.prefill_launches` a wave and its
+    cross-attention's `encdec.decode_launches` a decode step."""
+    from repro_torch.models import encdec
+    from repro_torch.models.lm import attention_layers
+    if cfg.is_encoder_decoder:
+        return (encdec.prefill_launches(cfg) * stats.waves
+                + encdec.decode_launches(cfg) * stats.decode_steps)
+    return attention_layers(cfg) * stats.waves
 
 
 def phase_serve_zoo() -> dict:
     """minicpm3-4b, qwen1.5-110b, llava-next-34b, deepseek-v2-lite,
-    llama4-scout, mamba2-780m and zamba2-7b served on the card (`ZOO`),
-    each model freed before the next; one line each, with the
-    ``flash_attention`` count set to 0 just before each model serves and
-    read just after (it must be its attention layers x waves: zamba2's
-    27 ssm_attn layers, none of mamba2's), and an MoE's assignments
-    dropped for capacity in its prefills."""
+    llama4-scout, mamba2-780m, zamba2-7b and seamless-m4t-large-v2 served
+    on the card (`ZOO`), each model freed before the next; one line each,
+    with the ``flash_attention`` count set to 0 just before each model
+    serves and read just after (it must be `_expected_launches`: zamba2's
+    27 ssm_attn layers a wave, none of mamba2's; seamless's 72 a wave
+    and 24 a decode step), and an MoE's assignments dropped for capacity
+    in its prefills."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3492,7 +3654,10 @@ def phase_serve_zoo() -> dict:
         try:
             flash_attention.launches = 0
             t0 = time.perf_counter()
-            outs = eng.serve(reqs, max_new=tr["max_new"], extra=extra)
+            if traffic == "launcher":  # its waves' stub inputs, if any
+                outs, _ = launcher.run_serve(args, eng, reqs)
+            else:
+                outs = eng.serve(reqs, max_new=tr["max_new"], extra=extra)
             wall = time.perf_counter() - t0
             launches = flash_attention.launches
         finally:
@@ -3500,7 +3665,7 @@ def phase_serve_zoo() -> dict:
         peak = torch.cuda.max_memory_allocated()
         card = torch.cuda.get_device_properties(0).total_memory
         st = eng.stats
-        want = attention_layers(cfg) * st.waves
+        want = _expected_launches(cfg, st)
         shapes_ok = (len(outs) == len(reqs)
                      and all(len(o) == tr["max_new"] for o in outs)
                      and all(0 <= t < cfg.padded_vocab
@@ -3511,6 +3676,7 @@ def phase_serve_zoo() -> dict:
                "prompt_lengths": [len(r) for r in reqs],
                "patch_tokens": (cfg.num_patch_tokens if extra is not None
                                 else 0),
+               "frames": cfg.source_len if cfg.is_encoder_decoder else 0,
                "max_new": tr["max_new"], "init_s": init_s, "wall_s": wall,
                "generated_tokens": st.generated_tokens,
                "tokens_per_s": st.generated_tokens / wall,
@@ -3535,8 +3701,8 @@ def phase_serve_zoo() -> dict:
         del eng, model, outs, extra
         if launches != want:
             raise SystemExit(f"serve_zoo {arch}: {launches} flash_attention "
-                             f"launches for {st.waves} waves of "
-                             f"{attention_layers(cfg)} attention layers")
+                             f"launches where {st.waves} waves and "
+                             f"{st.decode_steps} decode steps make {want}")
         if not (all(finite) and shapes_ok):
             raise SystemExit(f"serve_zoo {arch}: non-finite logits or "
                              f"malformed outputs")
@@ -3657,13 +3823,20 @@ def phase_attention_bwd() -> dict:
 
     cases = [check(c, dt) for dt in ("float32", "bfloat16")
              for c in BWD_CASES + MLA_BWD_CASES]
+    t0 = time.perf_counter()
+    cases += [check(c, dt) for dt in ("float32", "bfloat16")
+              for c in CROSS_BWD_CASES]
+    cross_s = time.perf_counter() - t0
 
-    def timed(dtype, shape, window, softcap, dv=None, sdpa_backends=None):
+    def timed(dtype, shape, window, softcap, dv=None, sdpa_backends=None,
+              skv=None, causal=True):
+        # shape: (b, hq, hkv, s, d), s the queries; skv the keys (default
+        # s); a non-causal call (seamless) may have s > skv
         b, hq, hkv, s, d = shape
-        dv = dv or d
-        q, k, v, do = inputs(b, hq, hkv, s, s, d, getattr(torch, dtype), 7,
-                             dv)
-        kw = dict(causal=True, window=window, softcap=softcap)
+        dv, skv = dv or d, skv or s
+        q, k, v, do = inputs(b, hq, hkv, s, skv, d, getattr(torch, dtype),
+                             7, dv)
+        kw = dict(causal=causal, window=window, softcap=softcap)
         o, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
 
         def fn():
@@ -3676,7 +3849,8 @@ def phase_attention_bwd() -> dict:
                 / max(float(w.float().abs().max()), 1e-30)
                 for n, a, w in zip(("dq", "dk", "dv"), got, want)}
         del got, want
-        keep = attention_mask(s, s, causal=True, window=window, device=dev)
+        keep = attention_mask(s, skv, causal=causal, window=window,
+                              device=dev)
         pairs = int(keep.sum())
         # the rule's five products (s, dq, dk over D; dp, dv over Dv),
         # 2 flops a visible pair a column each, on the peak of the dtype
@@ -3708,12 +3882,12 @@ def phase_attention_bwd() -> dict:
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
         gqa = dict(enable_gqa=True) if hq != hkv or dv == d else {}
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qs, ks, vs, is_causal=True, **gqa)
+            qs, ks, vs, is_causal=causal, **gqa)
         sdpa_fwd_ms, library_note = _sdpa_ms(sdpa, sdpa_backends)
         sdpa_fb_ms = _sdpa_ms(lambda: sdpa().backward(do), sdpa_backends)[0]
         tol = 2e-2 if dtype == "bfloat16" else 1e-4
-        row = {"case": dict(b=b, hq=hq, hkv=hkv, s=s, d=d, dv=dv,
-                            causal=True, window=window, softcap=softcap,
+        row = {"case": dict(b=b, hq=hq, hkv=hkv, s=s, skv=skv, d=d, dv=dv,
+                            causal=causal, window=window, softcap=softcap,
                             dtype=dtype),
                "route": route, "err_of_max": errs, "tol_of_max": tol,
                "ok": (route == [tfa.bwd_kernel_route(q.dtype, d, dv)]
@@ -3764,6 +3938,18 @@ def phase_attention_bwd() -> dict:
     mla = mla_train(MLA_ATTN)
     deepseek = mla_train(DEEPSEEK_ATTN)
     zamba = mla_train(ZAMBA_ATTN, None)  # zamba2's heads, (112, 112)
+    # seamless-m4t's heads, non-causal: the encoder's self-attention and
+    # the cross-attention of a decoder longer than the frames
+    sm = SEAMLESS_ATTN
+    t0 = time.perf_counter()
+    seamless = {dtype: {
+        "encoder": timed(dtype, (1, sm["h"], sm["h"], sm["frames"],
+                                 sm["d"]), None, None, causal=False),
+        "cross": timed(dtype, (1, sm["h"], sm["h"], sm["train_queries"],
+                               sm["d"]), None, None, skv=sm["frames"],
+                       causal=False)}
+        for dtype in ("bfloat16", "float32")}
+    seamless_s = time.perf_counter() - t0
     tfa._call = call
     routes = {"bfloat16": tfa.bwd_kernel_route(torch.bfloat16)
               + " (wgmma, TMA)",
@@ -3786,7 +3972,9 @@ def phase_attention_bwd() -> dict:
             print(f"sass {lib} {kernel}: {json.dumps(counts)}", flush=True)
     bad = [c for c in cases + list(timing.values()) + list(f32.values())
            + list(mla.values()) + list(deepseek.values())
-           + list(zamba.values()) if not c["ok"]]
+           + list(zamba.values())
+           + [r for rows in seamless.values() for r in rows.values()]
+           if not c["ok"]]
     out = {"phase": "attention_bwd", "kernel": "flash_attention_bwd",
            "replaces": "none: the JAX package differentiates in XLA "
                        "(src/repro/models/flash_xla.py:100, _bwd_rule)",
@@ -3798,7 +3986,9 @@ def phase_attention_bwd() -> dict:
                               for c in cases),
            "gemma2_9b_train": timing, "f32_routes": f32,
            "minicpm3_4b_train": mla, "deepseek_v2_lite_16b_train": deepseek,
-           "zamba2_7b_train": zamba, "ptxas": ptxas, "sass": sass}
+           "zamba2_7b_train": zamba, "seamless_m4t_large_v2_train": seamless,
+           "seconds": {"cross_cases": cross_s, "seamless": seamless_s},
+           "ptxas": ptxas, "sass": sass}
     emit(out)
     if bad:
         raise SystemExit("flash_attention_bwd or an lse disagrees with its "
@@ -4651,6 +4841,12 @@ def _full_argv() -> list:
 T0 = time.perf_counter()
 
 
+def elapsed(after: str) -> None:
+    """The script's seconds so far, after the phases named."""
+    print(f"elapsed: {time.perf_counter() - T0:.1f} s after {after}",
+          flush=True)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--worker"]:
         return run_worker(sys.argv[2:])
@@ -4728,7 +4924,9 @@ def main() -> int:
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
     frontier = phase_frontier_kernels(folds)  # alone on the card
     attn = phase_attention()
+    elapsed("attention")
     attn_bwd = phase_attention_bwd()
+    elapsed("attention_bwd")
     phase_serve_parity()
     # minicpm3 has no logit softcap, and at the init's scale its attention
     # saturates: card and CPU in f32 alike lie ~3e-4 from float64 there,
@@ -4749,9 +4947,17 @@ def main() -> int:
         arch, cut, "serve_parity_ssm", trained_scale=True)
         for arch, cut in (("mamba2_780m", PARITY_MAMBA2),
                           ("zamba2_7b", PARITY_ZAMBA2))}
+    # the encoder-decoder at 1/sqrt(d_in), with a train step's gradients
+    # (the f32 backward at non-causal Sq > Skv, into the encoder)
+    elapsed("serve_parity to serve_parity_ssm")
+    encdec_parity = phase_serve_parity(
+        "seamless_m4t_large_v2", PARITY_ENCDEC, "serve_parity_encdec",
+        trained_scale=True)
+    elapsed("serve_parity_encdec")
     serve, eng, reqs = phase_serve()
     phase_serve_profile(eng, reqs)
     del eng
+    elapsed("serve and serve_profile")
     zoo = phase_serve_zoo()
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
     phase_train_parity()
@@ -4863,7 +5069,17 @@ def main() -> int:
         "serve_parity_ssm_launches": {
             arch: {"launches": line["flash_attention_launches"],
                    "kernel_calls": line["kernel_calls"]}
-            for arch, line in ssm_parity.items()}}, {
+            for arch, line in ssm_parity.items()},
+        "seamless": {dtype: {case: {k: row[k] for k in (*mla_keys,
+                                                         "plain_rows")}
+                             for case, row in by_case.items()}
+                     for dtype, by_case in
+                     attn["seamless_m4t_large_v2"].items()},
+        "serve_parity_encdec_launches": {
+            "launches": encdec_parity["flash_attention_launches"],
+            "train_fwd_launches": encdec_parity["train_step"][
+                "fwd_launches"],
+            "kernel_calls": encdec_parity["kernel_calls"]}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "f32_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4897,7 +5113,13 @@ def main() -> int:
                          attn_bwd["zamba2_7b_train"].items()},
         "serve_parity_ssm_train_launches": {
             "zamba2_7b": ssm_parity["zamba2_7b"]["train_step"][
-                "bwd_launches"]}}]})
+                "bwd_launches"]},
+        "seamless": {dtype: {case: {k: row[k] for k in mla_bwd_keys}
+                             for case, row in by_case.items()}
+                     for dtype, by_case in
+                     attn_bwd["seamless_m4t_large_v2_train"].items()},
+        "serve_parity_encdec_train_launches": encdec_parity["train_step"][
+            "bwd_launches"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

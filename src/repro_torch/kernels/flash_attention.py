@@ -4,7 +4,9 @@ PyTorch version.
 Port of `repro.kernels.flash_attention._kernel` (reached through
 `flash_attention`): causal, GQA (q-head groups share a kv head),
 sliding-window (gemma2 local layers), logit soft-capping (gemma2) and
-right-aligned queries (Sq <= Skv), in f32 and bf16, accumulating in f32
+right-aligned queries (a causal call needs Sq <= Skv; a non-causal one,
+as cross-attention, takes any Sq and Skv), in f32 and bf16, accumulating
+in f32
 (the plain version also takes f64 and then computes in f64: the CPU
 route's float64 evaluation, a numerical reference).
 Unlike the Pallas wrapper it takes any Sq and Skv, not only multiples of
@@ -101,8 +103,9 @@ def _check(q, k, v, causal, window, softcap, block_q, block_k):
     if hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention: {hq} q heads are not a multiple "
                          f"of {hkv} kv heads")
-    if sq > skv:
-        raise ValueError(f"flash_attention: Sq={sq} exceeds Skv={skv}")
+    if causal and sq > skv:
+        raise ValueError(f"flash_attention: causal Sq={sq} exceeds "
+                         f"Skv={skv}")
     if (q.dtype not in _PLAIN_DTYPES or k.dtype != q.dtype
             or v.dtype != q.dtype):
         raise ValueError(f"flash_attention: q, k, v must share one of "
@@ -365,7 +368,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
                     block_q: int = 128, block_k: int = 128, q_offset=None,
                     return_lse: bool = False):
     """q, k: [B, Hq, Sq, D], [B, Hkv, Skv, D]; v: [B, Hkv, Skv, Dv];
-    Hq % Hkv == 0, Sq <= Skv.
+    Hq % Hkv == 0; a causal call needs Sq <= Skv (a non-causal one with
+    no window sees every key whatever ``q_offset``).
 
     Returns [B, Hq, Sq, Dv] in q's dtype and layout, and with
     ``return_lse`` also the rows' log-sum-exp (f32 [B, Hq, Sq], +BIG for

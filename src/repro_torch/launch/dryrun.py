@@ -35,8 +35,8 @@ import traceback
 import torch
 import torch.distributed as dist
 
-from ..configs import PORTED, get_config
-from ..models import lm
+from ..configs import ARCH_IDS, get_config
+from ..models import encdec, layers, lm
 from ..models.config import SHAPES, supports_shape
 from ..models.model import Model, model_flops
 from ..optim import OptConfig
@@ -134,19 +134,27 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
             lower_s, counter, mem = _trace(step_fn, (model.params, opt,
                                                      batch))
         elif shape.kind == "prefill":
-            def prefill_step(tokens, patch_embeds=None):
+            def prefill_step(tokens, extra=None):
                 # the last position's logits, as the reference's
                 # logits[:, -1] (which XLA computes alone): the head runs
-                # on that position's hidden state only
+                # on that position's hidden state only; ``extra``: a vlm's
+                # patch embeddings or an encoder-decoder's frames
+                params = model.params
                 with meshlib.sharding_context(mesh, rules):
+                    if cfg.is_encoder_decoder:
+                        hidden, cache = encdec.encdec_forward(
+                            params, cfg, extra, tokens, kind="prefill",
+                            return_hidden=True)
+                        return layers.linear(params["lm_head"],
+                                             hidden[:, -1:])[:, 0], cache
                     hidden, cache = lm.lm_forward(
-                        model.params, cfg, tokens, kind="prefill",
-                        patch_embeds=patch_embeds, return_hidden=True)
-                    return lm._logits(model.params, cfg,
+                        params, cfg, tokens, kind="prefill",
+                        patch_embeds=extra, return_hidden=True)
+                    return lm._logits(params, cfg,
                                       hidden[:, -1:])[:, 0], cache
+            extra = batch.get("frames", batch.get("patch_embeds"))
             lower_s, counter, mem = _trace(
-                prefill_step, (batch["tokens"], batch.get("patch_embeds")),
-                model.params)
+                prefill_step, (batch["tokens"], extra), model.params)
         else:  # decode
             assert index is not None
 
@@ -236,7 +244,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun",
                                  description="multi-pod dry-run")
     ap.add_argument("--arch", default="all",
-                    help=f"one of {PORTED} | all (those) | bisim")
+                    help=f"one of {ARCH_IDS} | all (those) | bisim")
     ap.add_argument("--shape", default="all",
                     help=f"one of {list(SHAPES)} | all")
     ap.add_argument("--mesh", default="single,multi")
@@ -246,7 +254,7 @@ def main(argv=None) -> None:
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
 
-    archs = PORTED if args.arch == "all" else [args.arch]
+    archs = ARCH_IDS if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     meshes = [m.strip() for m in args.mesh.split(",")]
     os.makedirs(args.out, exist_ok=True)

@@ -11,7 +11,9 @@ f32 with ``--smoke`` and bf16 without, as the reference initializes).
 Parameters are random, from seed 0.  A vlm (llava-next-34b) prefills
 each wave behind its stub patch embeddings (the configuration's
 ``num_patch_tokens`` a row, normal, from seed 0; ``max_seq`` grows by
-that many positions), which the reference's launcher does not supply.
+that many positions), and an encoder-decoder (seamless-m4t-large-v2)
+encodes stub audio frames for each wave (``source_len`` a row, normal,
+from seed 0): inputs that the reference's launcher does not supply.
 """
 from __future__ import annotations
 
@@ -71,14 +73,35 @@ def patch_embeds(cfg, rows: int, dtype, device, seed: int = 0):
                        generator=gen, device=device).to(dtype)
 
 
+def frames(cfg, rows: int, dtype, device, seed: int = 0):
+    """Stub audio frames of an encoder-decoder wave: [rows, source_len,
+    d_model], normal, from ``seed``, drawn on the host (the same frames on
+    the card and on the CPU)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(rows, cfg.source_len, cfg.d_model,
+                       generator=gen).to(device=device, dtype=dtype)
+
+
+def wave_inputs(cfg, rows: int, dtype, device):
+    """The stub inputs a wave of ``rows`` prefills with, as
+    `ServeEngine.serve`'s ``extra``: a vlm's patch embeddings, an
+    encoder-decoder's frames; None for a decoder LM."""
+    if cfg.family == "vlm":
+        return {"patch_embeds": patch_embeds(cfg, rows, dtype, device)}
+    if cfg.is_encoder_decoder:
+        return {"frames": frames(cfg, rows, dtype, device)}
+    return None
+
+
 def run_serve(args, eng, reqs):
     """Serve ``reqs``; returns (outputs, wall seconds to the last token,
-    which the engine has read back to the host).  A vlm's requests are
-    served a wave at a time (the engine's waves: by length, up to
-    ``max_batch`` rows), each with its rows' patch embeddings."""
+    which the engine has read back to the host).  A vlm's or an
+    encoder-decoder's requests are served a wave at a time (the engine's
+    waves: by length, up to ``max_batch`` rows), each with its rows' stub
+    inputs (`wave_inputs`)."""
     cfg = eng.model.cfg
     t0 = time.perf_counter()
-    if cfg.family != "vlm":
+    if not (cfg.family == "vlm" or cfg.is_encoder_decoder):
         outs = eng.serve(reqs, max_new=args.max_new)
         return outs, time.perf_counter() - t0
     outs = [None] * len(reqs)
@@ -88,8 +111,7 @@ def run_serve(args, eng, reqs):
     for _, idx in sorted(by_len.items()):
         for w in range(0, len(idx), eng.max_batch):
             wave = idx[w:w + eng.max_batch]
-            extra = {"patch_embeds": patch_embeds(
-                cfg, len(wave), eng.dtype, eng.model.device)}
+            extra = wave_inputs(cfg, len(wave), eng.dtype, eng.model.device)
             for i, g in zip(wave, eng.serve([reqs[i] for i in wave],
                                             max_new=args.max_new,
                                             extra=extra)):

@@ -1,5 +1,5 @@
-"""Layers of the port's decoder LM (the port of `repro.models.layers`, its
-dense GQA and MLA parts).
+"""Layers of the port's LMs (the port of `repro.models.layers`: dense GQA,
+MLA, and the encoder-decoder's cross-attention).
 
 Attention paths:
   * prefill: the hand-written Hopper flash attention kernel
@@ -23,8 +23,14 @@ Norms, rope and attention compute in f32 (in f64 for f64 activations, the
 CPU route's float64 evaluation).  Sharding constraints use logical names
 resolved by `repro_torch.launch.mesh.shard`: no-ops on one device, DTensor
 redistributions under a mesh (there the attention kernels run on each
-rank's local heads, `flash_xla.local_heads`).  Cross-attention waits for
-its architecture.
+rank's local heads, `flash_xla.local_heads`).
+
+A ``bidir`` layer (the encoder's) attends without the causal mask.
+Cross-attention (`apply_cross_attn`) is full multi-head attention of the
+decoder's queries over the encoder's memory (or over the cache's ``xk``
+and ``xv`` at decode), with no rope and no bias: every call non-causal
+through the kernels, Sq (the decoder's positions) above or below Skv (the
+frames), the decode's single query included.
 """
 from __future__ import annotations
 
@@ -177,14 +183,15 @@ def _write_rows(cache, new, index: int) -> None:
         local[:, lo - s0:hi - s0] = rows[:, lo - index:hi - index]
 
 
-def _prefill_attention(q, k, v, *, window=None, softcap=None):
-    """Causal prefill attention through the forward kernel (no lse) on
-    [B, S, H, D] activations viewed as [B, H, S, D], on each rank's local
-    heads under a mesh; v may be narrower than q and k (MLA)."""
+def _prefill_attention(q, k, v, *, causal=True, window=None, softcap=None):
+    """Prefill attention (causal unless asked) through the forward kernel
+    (no lse) on [B, S, H, D] activations viewed as [B, H, S, D], on each
+    rank's local heads under a mesh; v may be narrower than q and k
+    (MLA)."""
     def attend(q, k, v):
         return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=True, window=window,
-                               softcap=softcap).transpose(1, 2)
+                               v.transpose(1, 2), causal=causal,
+                               window=window, softcap=softcap).transpose(1, 2)
     return local_heads(attend, q, k, v)
 
 
@@ -200,13 +207,14 @@ def gqa_specs(cfg):
 def apply_gqa(p, x, cfg, *, kind, layer_kind, positions, cache=None,
               index=None):
     """kind: train|prefill|decode. Returns (out, new_cache); train returns
-    no cache.
+    no cache.  A ``bidir`` layer (the encoder's) is not causal.
 
     Decode writes this token's k and v into ``cache`` in place at
     ``index`` (a Python int) and returns the same tensors."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     window = cfg.local_window if layer_kind == "local" else None
+    causal = layer_kind != "bidir"
     split = meshlib.split_last
     q = rope(split(linear(p["wq"], x), h, hd), positions, cfg.rope_theta)
     k = rope(split(linear(p["wk"], x), hkv, hd), positions, cfg.rope_theta)
@@ -221,17 +229,54 @@ def apply_gqa(p, x, cfg, *, kind, layer_kind, positions, cache=None,
                           softcap=cfg.attn_softcap, index=index)
         new_cache = {"k": k_cache, "v": v_cache}
     elif kind == "prefill":
-        o = _prefill_attention(q, k, v, window=window,
+        o = _prefill_attention(q, k, v, causal=causal, window=window,
                                softcap=cfg.attn_softcap)
         new_cache = {"k": k, "v": v}
     elif kind == "train":
-        o = attend_flash(q, k, v, causal=True, window=window,
+        o = attend_flash(q, k, v, causal=causal, window=window,
                          softcap=cfg.attn_softcap)
         new_cache = None
     else:
         raise ValueError(f"kind must be train, prefill or decode, got "
                          f"{kind!r}")
     o = shard(o, "act_batch", "act_seq", "act_heads", None)
+    return linear(p["wo"], meshlib.merge_last(o, h, hd)), new_cache
+
+
+def cross_attn_specs(cfg):
+    h, hd, d = cfg.num_heads, cfg.head_dim, cfg.d_model
+    return {"wq": linear_spec(d, h * hd, "embed", "qkv"),
+            "wk": linear_spec(d, h * hd, "embed", "qkv"),
+            "wv": linear_spec(d, h * hd, "embed", "qkv"),
+            "wo": linear_spec(h * hd, d, "qkv", "embed")}
+
+
+def apply_cross_attn(p, x, memory, cfg, *, kind, cache=None):
+    """Encoder-decoder cross-attention of ``x`` [B, S, D] over ``memory``
+    [B, Sm, D] (the encoder's output), or over ``cache``'s ``xk``/``xv``
+    [B, Sm, H, hd] when it holds them (decode).  Returns (out, new_cache):
+    prefill's cache is {"xk", "xv"}, train and decode return none (the
+    decode's is static after prefill).  Every call is non-causal through
+    the kernels: train through `attend_flash` (with its gradient, dk and
+    dv flowing into the memory), prefill and decode through the forward
+    kernel."""
+    h, hd = cfg.num_heads, cfg.head_dim
+    split = meshlib.split_last
+    q = shard(split(linear(p["wq"], x), h, hd), "act_batch", "act_seq",
+              "act_heads", None)
+    if cache is not None and "xk" in cache:
+        k, v = cache["xk"], cache["xv"]
+    else:
+        k = split(linear(p["wk"], memory), h, hd)
+        v = split(linear(p["wv"], memory), h, hd)
+    if kind == "train":
+        o = attend_flash(q, k, v, causal=False, window=None, softcap=None)
+    elif kind in ("prefill", "decode"):
+        o = _prefill_attention(q, k, v, causal=False)
+    else:
+        raise ValueError(f"kind must be train, prefill or decode, got "
+                         f"{kind!r}")
+    new_cache = {"xk": k, "xv": v} if kind == "prefill" else None
     return linear(p["wo"], meshlib.merge_last(o, h, hd)), new_cache
 
 

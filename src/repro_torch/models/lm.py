@@ -14,7 +14,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..launch import mesh as meshlib
 from . import blocks, layers
-from .params import ParamSpec, tree_map
+from .params import ParamSpec, tree_leaves, tree_map
 
 shard = meshlib.shard
 
@@ -62,16 +62,22 @@ def attention_layers(cfg) -> int:
 
 def remat_forwards(cfg) -> int:
     """The attention forwards of one train step, summed over the
-    attention layers (the backward runs once each).  A layer's forward
-    runs once, once more when its group is recomputed in the backward, and
-    once more when its outer segment is (two-level remat, gi > 1) — except
-    in the last group of a segment, whose output no saved tensor needs:
-    non-reentrant checkpoint's early stop ends the segment's recompute
-    before it."""
-    go, gi = _sqrt_split(cfg.pattern_groups)
-    per_group = attention_layers(cfg) // cfg.pattern_groups
+    attention layers (the backward runs once each)."""
+    return stack_remat_forwards(cfg.pattern_groups,
+                                attention_layers(cfg) // cfg.pattern_groups)
+
+
+def stack_remat_forwards(groups: int, per_group: int) -> int:
+    """The attention forwards of one train step through `_run_train` over
+    a stack of ``groups`` groups of ``per_group`` attention forwards each.
+    A layer's forward runs once, once more when its group is recomputed in
+    the backward, and once more when its outer segment is (two-level
+    remat, gi > 1) — except in the last group of a segment, whose output
+    no saved tensor needs: non-reentrant checkpoint's early stop ends the
+    segment's recompute before it."""
+    go, gi = _sqrt_split(groups)
     if gi == 1:
-        return 2 * cfg.pattern_groups * per_group
+        return 2 * groups * per_group
     return go * per_group * (3 * (gi - 1) + 2)
 
 
@@ -96,48 +102,65 @@ def _embed(params, cfg, tokens):
     return shard(x, "act_batch", "act_seq", "act_embed")
 
 
-def _run_groups(params, cfg, x, *, kind, positions, cache=None, index=None):
-    """Every layer in order.  Prefill returns the new cache stacked
-    [G, ...]; decode updates ``cache`` in place and returns it; train
-    returns no cache and recomputes in the backward (`_run_train`)."""
+def _run_groups(params, cfg, x, *, kind, positions, cache=None, index=None,
+                stack="groups", pattern=None, memory=None,
+                keep_cache: bool = True):
+    """Every layer of ``params[stack]`` in order: its [G, ...] groups, each
+    of ``pattern``'s blocks (default ``cfg.layer_pattern``); ``memory``,
+    the encoder's output, reaches each block (an xdec block's
+    cross-attention).  Prefill returns the new cache stacked [G, ...]
+    (None without ``keep_cache``: the encoder's, never read); decode
+    updates ``cache`` in place and returns it; train returns no cache and
+    recomputes in the backward (`_run_train`)."""
+    pattern = pattern or cfg.layer_pattern
     if kind == "train":
-        return _run_train(params, cfg, x, positions), None
+        return _run_train(params, cfg, x, positions, stack, pattern,
+                          memory), None
     shared = params.get("shared")
+    stacked = params[stack]
     new = []
-    for g in range(cfg.pattern_groups):
-        gp = tree_map(lambda a: a[g], params["groups"])
+    for g in range(_groups(stacked)):
+        gp = tree_map(lambda a: a[g], stacked)
         gc = None if cache is None else tree_map(lambda a: a[g], cache)
         ncs = {}
-        for i, k in enumerate(cfg.layer_pattern):
+        for i, k in enumerate(pattern):
             x, ncs[str(i)] = blocks.apply_block(
                 gp[str(i)], x, cfg, k, kind=kind, positions=positions,
                 cache=None if gc is None else gc[str(i)], index=index,
-                shared=shared)
+                shared=shared, memory=memory)
         x = shard(x, "act_batch", "act_seq", "act_embed")
-        new.append(ncs)
-    if cache is not None:
+        if keep_cache:
+            new.append(ncs)
+    if cache is not None or not keep_cache:
         return x, cache
     return x, tree_map(lambda *leaves: torch.stack(leaves), *new)
 
 
-def _run_train(params, cfg, x, positions):
+def _groups(stacked) -> int:
+    """The number of groups of a stacked parameter tree (its leaves'
+    leading dim)."""
+    return tree_leaves(stacked)[0].shape[0]
+
+
+def _run_train(params, cfg, x, positions, stack, pattern, memory):
     """The train kind's two-level sqrt remat: each group runs under its
     own checkpoint (only its input is kept), and each outer segment of gi
     groups under another, so the forward keeps go + gi residual slices,
     not G.  The stacked [G, ...] parameters are unbound once, so each
     leaf gets one stacked gradient rather than a full-size one a group.
-    The shared block's parameters (zamba2) reach every group's checkpoint
-    through the closure, so their gradient sums over all its
-    applications."""
-    g = cfg.pattern_groups
+    The shared block's parameters (zamba2) and the encoder's ``memory``
+    reach every group's checkpoint through the closure, so their
+    gradients sum over all their uses."""
+    g = _groups(params[stack])
     shared = params.get("shared")
-    per_leaf = tree_map(lambda a: a.unbind(0), params["groups"])
+    per_leaf = tree_map(lambda a: a.unbind(0), params[stack])
     groups = [tree_map(lambda t, i=i: t[i], per_leaf) for i in range(g)]
 
     def body(xc, gp):
-        for i, k in enumerate(cfg.layer_pattern):
+        for i, k in enumerate(pattern):
             xc, _ = blocks.apply_block(gp[str(i)], xc, cfg, k, kind="train",
-                                       positions=positions, shared=shared)
+                                       positions=positions, shared=shared,
+                                       memory=memory)
         return shard(xc, "act_batch", "act_seq", "act_embed")
 
     def inner(xc, gp):
@@ -223,6 +246,10 @@ def cache_axes(cfg):
         if cfg.attention == "mla":
             latent = ("layers", "act_batch", "act_kv_seq", None)
             return {"attn": {"c_kv": latent, "k_rope": latent}}
+        if kind == "xdec":  # the cross-attention's k/v over the frames
+            xkv = ("layers", "act_batch", "act_frames", "act_heads", None)
+            return {"attn": {"k": kv, "v": kv},
+                    "xattn": {"xk": xkv, "xv": xkv}}
         return {"attn": {"k": kv, "v": kv}}
     return {str(i): axes_for(k) for i, k in enumerate(cfg.layer_pattern)}
 

@@ -1,15 +1,17 @@
 """Top-level model of the port: config -> specs, parameters, the train
 loss, prefill and decode, and the dry-run's input specs (meta tensors +
-logical axes) (the port of `repro.models.model.Model` for the decoder
-LMs, dense, MoE, SSM and hybrid, a vlm's stub patch embeddings
-included)."""
+logical axes) (the port of `repro.models.model.Model`: the decoder LMs,
+dense, MoE, SSM and hybrid, a vlm's stub patch embeddings included, and
+the encoder-decoder over stub audio frames)."""
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
 
 from .. import resolve_device
-from . import lm, params as P
+from . import encdec, layers, lm, params as P
 from .config import ModelConfig, ShapeConfig
 
 
@@ -30,8 +32,9 @@ def _register(module: nn.Module, tree: dict, trainable: bool) -> dict:
 
 
 class Model(nn.Module):
-    """A decoder LM holding its parameter tree (``self.params``: nested
-    dicts with the JAX package's keys, registered as parameters).
+    """An LM (decoder-only or encoder-decoder) holding its parameter
+    tree (``self.params``: nested dicts with the JAX package's keys,
+    registered as parameters).
 
     ``init`` or ``load`` gives it parameters, frozen for serving or
     trainable (``trainable=True``) for `loss_fn`'s gradients; `prefill`,
@@ -44,6 +47,8 @@ class Model(nn.Module):
         self.params = None
 
     def param_specs(self):
+        if self.cfg.is_encoder_decoder:
+            return encdec.encdec_specs(self.cfg)
         return lm.lm_specs(self.cfg)
 
     def param_shapes(self, dtype=torch.bfloat16):
@@ -78,30 +83,46 @@ class Model(nn.Module):
         return self.params["embed"].device
 
     def loss_fn(self, params, batch):
-        """Train loss of a decoder LM through the chunked cross-entropy
-        ([B, S, V] logits never materialize; each chunk's logits are
-        recomputed in the backward).  batch: {"tokens", "labels"}, [B, S]
-        integer tensors on the parameters' device; a vlm's also
-        "patch_embeds" [B, P, d_model], ahead of P fewer tokens."""
-        hidden, _ = lm.lm_forward(params, self.cfg, batch["tokens"],
-                                  kind="train",
-                                  patch_embeds=self._patches(batch),
-                                  return_hidden=True)
-        return lm.chunked_ce(lambda xc: lm._logits(params, self.cfg, xc),
-                             hidden, batch["labels"], self.cfg.vocab_size)
+        """Train loss through the chunked cross-entropy ([B, S, V] logits
+        never materialize; each chunk's logits are recomputed in the
+        backward).  batch: {"tokens", "labels"}, [B, S] integer tensors on
+        the parameters' device; a vlm's also "patch_embeds" [B, P,
+        d_model], ahead of P fewer tokens; an encoder-decoder's also
+        "frames" [B, Sm, d_model], and its head is ``lm_head`` alone."""
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            hidden, _ = encdec.encdec_forward(
+                params, cfg, batch["frames"], batch["tokens"], kind="train",
+                return_hidden=True)
+            head = functools.partial(layers.linear, params["lm_head"])
+        else:
+            hidden, _ = lm.lm_forward(params, cfg, batch["tokens"],
+                                      kind="train",
+                                      patch_embeds=self._patches(batch),
+                                      return_hidden=True)
+            head = lambda xc: lm._logits(params, cfg, xc)  # noqa: E731
+        return lm.chunked_ce(head, hidden, batch["labels"], cfg.vocab_size)
 
     def _patches(self, batch):
         """A vlm batch's patch embeddings (the reference reads them for
         every vlm batch); None for any other family."""
         return batch["patch_embeds"] if self.cfg.family == "vlm" else None
 
-    def prefill(self, tokens, patch_embeds=None):
+    def prefill(self, tokens, patch_embeds=None, frames=None):
         """tokens: [B, S] integer; ``patch_embeds`` [B, P, d_model] (a
-        vlm's) go first.  Returns (logits [B, P + S, V], cache)."""
+        vlm's) go first; ``frames`` [B, Sm, d_model] are an
+        encoder-decoder's encoder input.  Returns (logits [B, P + S, V],
+        cache)."""
+        if self.cfg.is_encoder_decoder:
+            return encdec.encdec_forward(self.params, self.cfg, frames,
+                                         tokens)
         return lm.lm_forward(self.params, self.cfg, tokens,
                              patch_embeds=patch_embeds)
 
     def decode_step(self, cache, token, index: int):
+        if self.cfg.is_encoder_decoder:
+            return encdec.encdec_decode_step(self.params, self.cfg, cache,
+                                             token, index)
         return lm.lm_decode_step(self.params, self.cfg, cache, token, index)
 
     def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16):
@@ -128,20 +149,17 @@ class Model(nn.Module):
     def input_specs(self, shape: ShapeConfig, dtype=torch.bfloat16):
         """Meta-tensor stand-ins + logical axes for every model input.
 
-        train:  {tokens, labels[, patch_embeds]}
-        prefill:{tokens[, patch_embeds]}
+        train:  {tokens, labels[, patch_embeds | frames]}
+        prefill:{tokens[, patch_embeds | frames]}
         decode: {token, index, cache}
 
         A vlm's batch holds P = ``num_patch_tokens`` patch embeddings
-        [b, P, d_model] and s - P text tokens; an SSM's decode cache holds
-        its ``h`` and ``conv`` leaves.  The encoder-decoder inputs (frames)
-        wait for their architecture (ROADMAP.md, queue 1 item 8.5).
+        [b, P, d_model] and s - P text tokens; an encoder-decoder's
+        ``source_len`` frames [b, Sm, d_model] ahead of s tokens; an SSM's
+        decode cache holds its ``h`` and ``conv`` leaves, an
+        encoder-decoder's the cross-attention's ``xk``/``xv``.
         """
         cfg = self.cfg
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder inputs are not ported yet "
-                "(ROADMAP.md, queue 1 item 8.5: the encoder-decoder)")
         b, s = shape.global_batch, shape.seq_len
         i32 = torch.int32
         tok_ax = ("act_batch", "act_seq")
@@ -155,6 +173,10 @@ class Model(nn.Module):
                 text = s - p
                 specs["patch_embeds"] = meta(b, p, cfg.d_model, dt=dtype)
                 axes["patch_embeds"] = ("act_batch", "act_seq", "act_embed")
+            elif cfg.is_encoder_decoder:
+                specs["frames"] = meta(b, cfg.source_len, cfg.d_model,
+                                       dt=dtype)
+                axes["frames"] = ("act_batch", "act_frames", "act_embed")
             specs["tokens"], axes["tokens"] = meta(b, text), tok_ax
             if shape.kind == "train":
                 specs["labels"], axes["labels"] = meta(b, s), tok_ax
@@ -171,7 +193,8 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     decode/prefill; N = the active parameters (an MoE counts top_k routed
     experts and the shared ones: the inactive routed experts' 3·d·d_ff a
     layer are subtracted)."""
-    n_active = P.count_params(lm.lm_specs(cfg))
+    n_active = P.count_params(encdec.encdec_specs(cfg)
+                              if cfg.is_encoder_decoder else lm.lm_specs(cfg))
     if cfg.num_experts:
         moe_layers = sum(k == "moe" for k in cfg.layer_pattern) \
             * cfg.pattern_groups

@@ -3,7 +3,9 @@ batching over a request queue (the port of `repro.serve.engine`).
 
 Each wave is one prefill of its left-padded prompts (every layer's
 attention through the Hopper flash attention kernel on the card) and then
-one decode step a token, writing the cache in place.
+one decode step a token, writing the cache in place (an encoder-decoder's
+cross-attention reads its static cache through the kernel at each
+step).
 """
 from __future__ import annotations
 
@@ -81,8 +83,9 @@ class ServeEngine:
         Waves are bucketed by prompt length so no row needs padding —
         results are independent of batch composition (pad tokens would
         otherwise be attended; production engines mask, we bucket).
-        ``extra`` (a vlm's ``{"patch_embeds": [B, P, d_model]}``) goes to
-        every wave's prefill unchanged, as the reference passes it: its
+        ``extra`` (a vlm's ``{"patch_embeds": [B, P, d_model]}``, an
+        encoder-decoder's ``{"frames": [B, source_len, d_model]}``) goes
+        to every wave's prefill unchanged, as the reference passes it: its
         batch dim must be the wave's."""
         results: List[Optional[List[int]]] = [None] * len(requests)
         by_len: dict = {}

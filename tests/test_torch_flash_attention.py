@@ -93,6 +93,8 @@ def test_row_without_keys_is_zero():
 
 @pytest.mark.parametrize("shapes,kw,match", [
     (((1, 2, 9, 16), (1, 2, 8, 16)), {}, "exceeds"),
+    (((1, 2, 9, 16), (1, 2, 8, 16)), dict(causal=True, window=4),
+     "exceeds"),
     (((1, 3, 8, 16), (1, 2, 8, 16)), {}, "multiple"),
     (((1, 2, 8, 16), (1, 2, 8, 32)), {}, "do not fit"),
     (((1, 2, 8, 16), (1, 2, 8, 16)), dict(softcap=0.0), "softcap"),
@@ -102,6 +104,68 @@ def test_wrapper_rejects_bad_input(shapes, kw, match):
     q, k = torch.zeros(qs), torch.zeros(ks)
     with pytest.raises(ValueError, match=match):
         tfa.flash_attention(q, k, k.clone(), **kw)
+
+
+# b, hq, hkv, sq, skv, d, chunk: non-causal calls with Sq > Skv, as the
+# encoder-decoder's cross-attention makes them (its smoke decoder's 32 and
+# 40 positions over 24 frames), GQA groups 1, 2 and 4, kv chunks that
+# divide Skv and one that does not; and Sq = 1 (a decode step's query
+# over the frames)
+CROSS_CASES = [
+    (2, 4, 4, 40, 24, 16, 8),
+    (1, 4, 2, 64, 16, 32, 16),
+    (1, 8, 2, 100, 24, 16, 512),
+    (2, 4, 1, 37, 20, 64, 7),
+    (2, 4, 4, 1, 24, 16, 8),
+    (1, 8, 2, 1, 300, 64, 512),
+]
+
+
+@pytest.mark.parametrize("case", CROSS_CASES, ids=str)
+def test_noncausal_longer_queries_match_flash_xla(case):
+    """A non-causal call takes any Sq and Skv: the plain versions (the
+    wrapper's CPU route, its lse, and the backward through
+    `models.flash_xla.attend_flash`) against the reference's
+    `flash_attention_xla` and its custom VJP (rtol = atol = 2e-4, the
+    gradient test's bar).  Without a window ``q_offset`` changes nothing:
+    the wrapper's default Skv - Sq (negative here) equals the reference's
+    0."""
+    import jax
+    from repro.models.flash_xla import _fwd_impl, flash_attention_xla
+    from repro_torch.models.flash_xla import attend_flash as t_attend
+    b, hq, hkv, sq, skv, d, chunk = case
+    rng = np.random.default_rng(sum(case))
+    q, k, v = (rng.normal(size=(b, s, h, d)).astype(np.float32)
+               for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+    w = rng.normal(size=(b, sq, hq, d)).astype(np.float32)
+    tol = dict(rtol=2e-4, atol=2e-4)
+
+    def ref(q, k, v):
+        o = flash_attention_xla(q, k, v, False, None, None, 0, chunk)
+        return jnp.sum(jnp.tanh(o) * w), o
+
+    (_, want_o), want_g = jax.value_and_grad(ref, argnums=(0, 1, 2),
+                                             has_aux=True)(q, k, v)
+    heads = [torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)]
+    for off in (None, 0):
+        got = tfa.flash_attention(*heads, causal=False, q_offset=off)
+        np.testing.assert_allclose(got.transpose(1, 2).numpy(),
+                                   np.asarray(want_o), **tol)
+    _, want_lse = _fwd_impl(q, k, v, False, None, None, 0, chunk)
+    o, lse = tfa.flash_attention_fwd_plain(*heads, causal=False,
+                                           chunk=chunk)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(want_lse).reshape(b, hq, sq), **tol)
+    np.testing.assert_allclose(o.transpose(1, 2).numpy(),
+                               np.asarray(want_o), **tol)
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out = t_attend(*ts, causal=False, window=None, softcap=None, chunk=chunk)
+    (torch.tanh(out) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_o),
+                               **tol)
+    for t, r in zip(ts, want_g):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), **tol)
+    assert tfa.visible_pairs(sq, skv, causal=False) == sq * skv
 
 
 def test_wrapper_rejects_mixed_dtypes():

@@ -81,9 +81,9 @@ def test_moe_slice_is_guarded():
     """The MoE slice's modules, as the training and mesh slices'; both
     MoE architectures resolve through the registry."""
     _slice_is_guarded(MOE_MODULES)
-    from repro_torch.configs import PORTED, get_config
+    from repro_torch.configs import ARCH_IDS, get_config
     for arch in ("llama4_scout_17b_16e", "deepseek_v2_lite_16b"):
-        assert arch in PORTED and get_config(arch).family == "moe"
+        assert arch in ARCH_IDS and get_config(arch).family == "moe"
 
 
 def test_resolve_device_never_falls_back(monkeypatch):

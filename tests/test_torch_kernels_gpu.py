@@ -1200,3 +1200,104 @@ def test_custom_ops_launch_on_the_card_and_pass_opcheck(cuda, dtype):
         after = (tfold.sig_fold.launches, tfa.flash_attention.launches,
                  tfa.flash_attention_bwd.launches)
         assert after != before, op
+
+
+# non-causal calls with Sq > Skv (the encoder-decoder's cross-attention:
+# decoder positions over frames), Sq = 1 (a decode step's query over the
+# frames: one real row in the bf16 kernel's 128-row TMA tile), and the
+# encoder's non-causal Sq = Skv; seamless-m4t's heads (16/16 of 64) at
+# 4,096 frames among them, GQA, a softcap that the logits reach, the
+# offset given and by default (Skv - Sq < 0)
+CROSS_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset
+    (2, 4, 4, 40, 24, 16, False, None, None, None),
+    (4, 16, 16, 1, 4096, 64, False, None, None, None),
+    (2, 4, 4, 1, 24, 16, False, None, None, None),
+    (1, 8, 2, 1, 300, 64, False, None, None, 0),
+    (1, 16, 16, 300, 128, 64, False, None, None, None),
+    (2, 8, 2, 200, 70, 64, False, None, 2.0, 0),
+    (1, 16, 16, 1000, 300, 64, False, None, None, None),
+    (1, 4, 1, 129, 64, 128, False, None, None, None),
+    (1, 16, 16, 512, 512, 64, False, None, None, None),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (BF16, 2e-2)])
+@pytest.mark.parametrize("case", CROSS_CASES, ids=str)
+def test_flash_attention_cross_matches_plain(cuda, monkeypatch, case, dtype,
+                                             tol):
+    """The forward kernels at non-causal Sq > Skv, Sq = 1 and Sq = Skv
+    against the plain version: one launch of the square library of the
+    dtype; the lse against `_fwd_impl`'s port, the output with it equal
+    to the output without."""
+    from repro_torch.kernels import flash_attention as tfa
+    (q, k, v, _, want_lse, _), kw = _bwd_inputs(cuda, case, dtype)
+    called = _routes_called(monkeypatch)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert called == [tfa.kernel_route(dtype)]
+    want = tfa.flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) < tol
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, got)
+    assert not bool((want_lse == tfa.BIG).any())  # every row sees a key
+    lse_tol = 1e-3 if dtype == BF16 else 1e-4
+    assert float((lse - want_lse).abs().max()) \
+        <= lse_tol * max(1.0, float(want_lse.abs().max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (BF16, 2e-2)])
+@pytest.mark.parametrize("case", CROSS_CASES, ids=str)
+def test_flash_attention_cross_bwd_matches_plain(cuda, monkeypatch, case,
+                                                 dtype, tol):
+    """The backward kernels at non-causal Sq > Skv, Sq = 1 and Sq = Skv
+    against `_bwd_rule`'s port, each gradient within ``tol`` of its
+    largest |x|."""
+    from repro_torch.kernels import flash_attention as tfa
+    args, kw = _bwd_inputs(cuda, case, dtype)
+    called = _routes_called(monkeypatch)
+    got = tfa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert called == [tfa.bwd_kernel_route(dtype)]
+    _bwd_close(got, tfa.flash_attention_bwd_plain(*args, **kw), dtype, tol)
+
+
+def test_causal_longer_queries_raise_on_card(cuda):
+    """A causal call with Sq > Skv still raises; nothing launches."""
+    from repro_torch.kernels import flash_attention as tfa
+    q, k, v = _qkv(cuda, 0, 1, 4, 4, 40, 24, 16, BF16)
+    before = tfa.flash_attention.launches
+    with pytest.raises(ValueError, match="exceeds"):
+        tfa.flash_attention(q, k, v, causal=True)
+    assert tfa.flash_attention.launches == before
+
+
+def test_card_encdec_serve_equals_cpu_serve(cuda):
+    """The encoder-decoder's smoke configuration served on the card over
+    the same stub frames gives the CPU's tokens; the kernel launches
+    once an encoder layer and twice a decoder layer a prefill wave, once
+    a decoder layer a decode step (its cross-attention)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import Model, encdec
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import ServeEngine
+    cfg = get_smoke_config("seamless_m4t_large_v2")
+    cpu = Model(cfg).init(0, device="cpu")
+    card = Model(cfg).load(tree_map(lambda t: t.to(cuda), cpu.params))
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in (21, 40, 21, 40)]
+    frames = torch.from_numpy(rng.normal(
+        size=(2, cfg.source_len, cfg.d_model)).astype(np.float32))
+    before = tfa.flash_attention.launches
+    eng = ServeEngine(card, max_batch=2, max_seq=64)
+    got = eng.serve(reqs, max_new=8, extra={"frames": frames.to(cuda)})
+    st = eng.stats
+    assert tfa.flash_attention.launches - before == (
+        encdec.prefill_launches(cfg) * st.waves
+        + encdec.decode_launches(cfg) * st.decode_steps)
+    assert got == ServeEngine(cpu, max_batch=2, max_seq=64).serve(
+        reqs, max_new=8, extra={"frames": frames})

@@ -23,7 +23,7 @@ from repro.models.model import Model as RefModel
 from repro.models.model import model_flops as ref_model_flops
 
 torch = pytest.importorskip("torch")
-from repro_torch.configs import PORTED, get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.launch import mesh as meshlib  # noqa: E402
 from repro_torch.models import config as cfgmod  # noqa: E402
 from repro_torch.models.model import Model, model_flops  # noqa: E402
@@ -67,7 +67,7 @@ def _trees(arch: str, shape_name: str):
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 @pytest.mark.parametrize("shape_name", SHAPES)
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_resolve_spec_matches_reference(arch, shape_name, mesh_name):
     mesh = _stand_in(MESHES[mesh_name])
     ref_rules = ref_mesh.rules_for_shape(shape_name)
@@ -90,7 +90,7 @@ def test_resolve_spec_matches_reference(arch, shape_name, mesh_name):
     assert leaves > 10
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_shapes_counts_and_flops_match_reference(arch):
     ref, port = RefModel(ref_config(arch)), Model(get_config(arch))
     assert port.num_params() == ref.num_params()
@@ -153,13 +153,22 @@ def test_shard_is_a_no_op_outside_a_context():
     assert meshlib.active_mesh() is None
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_input_specs_refuse_inputs_not_ported(arch):
-    """The encoder-decoder inputs (frames) wait for their architecture;
-    a vlm's patch embeddings are ported (`tests/test_torch_zoo.py`)."""
+    """No input is refused any more: a config flagged encoder-decoder
+    takes the reference's frames [B, source_len, d_model] (a vlm keeps
+    its patches, which the reference reads first), shapes and axes as
+    the reference's; a decode takes its three inputs."""
     import dataclasses
     cfg = dataclasses.replace(get_config(arch), is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        Model(cfg).input_specs(cfgmod.SHAPES["train_4k"])
+    ref = dataclasses.replace(ref_config(arch), is_encoder_decoder=True)
+    r_in, r_ax = RefModel(ref).input_specs(ref_cfgmod.SHAPES["train_4k"],
+                                           jnp.bfloat16)
+    p_in, p_ax = Model(cfg).input_specs(cfgmod.SHAPES["train_4k"])
+    assert list(p_in) == list(r_in)
+    assert {k: tuple(t.shape) for k, t in p_in.items()} == {
+        k: tuple(t.shape) for k, t in r_in.items()}
+    assert p_ax == {k: tuple(v) for k, v in r_ax.items()}
+    assert ("frames" in p_in) == (cfg.family != "vlm")
     np.testing.assert_equal(len(Model(get_config(arch)).input_specs(
         cfgmod.SHAPES["decode_32k"])[0]), 3)

@@ -54,25 +54,44 @@ def test_configs_are_the_references():
     assert configs.get_config("gemma2-9b") == configs.get_config(ARCH)
 
 
-@pytest.mark.parametrize("arch,match", [("seamless_m4t_large_v2",
-                                         "ROADMAP.md"),
-                                        ("no_such_arch", "unknown")])
-def test_unported_arch_raises(arch, match):
-    for get in (configs.get_config, configs.get_smoke_config):
-        with pytest.raises(KeyError, match=match):
-            get(arch)
+@pytest.mark.parametrize("arch,ported", [("seamless_m4t_large_v2", True),
+                                         ("no_such_arch", False)])
+def test_unported_arch_raises(arch, ported):
+    """Every architecture of the JAX package is ported (the last,
+    seamless-m4t-large-v2, resolves to the reference's configurations);
+    an unknown one still raises."""
+    for get, jget in ((configs.get_config, jget_config),
+                      (configs.get_smoke_config, jget_smoke)):
+        if ported:
+            assert (dataclasses.asdict(get(arch))
+                    == dataclasses.asdict(jget(arch)))
+        else:
+            with pytest.raises(KeyError, match="unknown"):
+                get(arch)
+    from repro.configs import ARCH_IDS as jarch_ids
+    assert sorted(configs.ARCH_IDS) == sorted(jarch_ids)
 
 
 def test_unported_block_kind_raises():
-    """Encoder-decoder blocks wait for their architecture; MLA attention
-    (minicpm3-4b, `tests/test_torch_zoo.py`), the MoE block
-    (`tests/test_torch_moe.py`) and the SSM blocks
-    (`tests/test_torch_ssm.py`) are ported."""
-    cfg = configs.get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.block_specs(cfg, "xdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.block_specs(cfg, "bidir")
+    """Every block kind of the JAX package is ported: the
+    encoder-decoder's xdec and bidir specs equal the reference's on
+    gemma2's smoke config (xdec adds ``ln_x`` and the cross-attention's
+    full-MHA ``xattn``), MLA attention (minicpm3-4b,
+    `tests/test_torch_zoo.py`), the MoE block (`tests/test_torch_moe.py`)
+    and the SSM blocks (`tests/test_torch_ssm.py`); an unknown kind still
+    raises."""
+    from repro.models import blocks as jblocks
+    cfg, jcfg = configs.get_smoke_config(ARCH), jget_smoke(ARCH)
+    for kind in ("xdec", "bidir"):
+        want = jax.tree.map(lambda s: (s.shape, s.axes, s.init, s.scale),
+                            jblocks.block_specs(jcfg, kind),
+                            is_leaf=lambda x: hasattr(x, "init"))
+        assert tree_map(lambda s: (s.shape, s.axes, s.init, s.scale),
+                        blocks.block_specs(cfg, kind)) == want
+    assert sorted(blocks.block_specs(cfg, "xdec")) == [
+        "attn", "ln_attn", "ln_mlp", "ln_x", "mlp", "xattn"]
+    with pytest.raises(ValueError, match="unknown block kind"):
+        blocks.block_specs(cfg, "cross")
     mla = blocks.block_specs(configs.get_smoke_config("minicpm3_4b"),
                              "dense")
     assert "wkv_b" in mla["attn"] and "wq" not in mla["attn"]

@@ -1,7 +1,8 @@
 """The port's qwen1.5-110b (QKV bias), llava-next-34b (a vlm's stub patch
 embeddings), minicpm3-4b (MLA), llama4-scout-17b-16e (MoE with GQA),
-deepseek-v2-lite-16b (MoE with MLA), mamba2-780m (SSM) and zamba2-7b (SSM
-with a weight-tied shared attention block) against the JAX package, on their smoke
+deepseek-v2-lite-16b (MoE with MLA), mamba2-780m (SSM), zamba2-7b (SSM
+with a weight-tied shared attention block) and seamless-m4t-large-v2 (the
+encoder-decoder over stub audio frames) against the JAX package, on their smoke
 configurations in f32 on the CPU route, with parameters carried across
 (`params_from_jax`) and numpy-seeded inputs.
 
@@ -36,7 +37,7 @@ from test_torch_train import _trained_scale  # noqa: E402
 
 ARCHS = ["qwen1p5_110b", "llava_next_34b", "minicpm3_4b",
          "llama4_scout_17b_16e", "deepseek_v2_lite_16b", "mamba2_780m",
-         "zamba2_7b"]
+         "zamba2_7b", "seamless_m4t_large_v2"]
 # parameters at full size, counted by the reference's Model.num_params()
 FULL_PARAMS = {"qwen1p5_110b": 111_235_080_192,
                "llava_next_34b": 34_410_937_344,
@@ -44,13 +45,20 @@ FULL_PARAMS = {"qwen1p5_110b": 111_235_080_192,
                "llama4_scout_17b_16e": 107_777_070_080,
                "deepseek_v2_lite_16b": 16_210_324_992,
                "mamba2_780m": 781_562_112,
-               "zamba2_7b": 6_756_635_856}
+               "zamba2_7b": 6_756_635_856,
+               "seamless_m4t_large_v2": 2_038_556_672}
 
 # the SSMs' cases start from weights at std 1/sqrt(d_in): at the init's
 # scale (the stacked in_proj at 1/sqrt(G)) zamba2's smoke logits lie 7.2e-5
 # (port) and 5.8e-5 (JAX) from a float64 evaluation, 1.2e-4 apart; at
 # 1/sqrt(d_in), 2.3e-5 each
 SSM_ARCHS = ("mamba2_780m", "zamba2_7b")
+# and so does the encoder-decoder: at the init's scale (its 2 stacked
+# layers at std 1/sqrt(2)) a smoke block's outputs reach the hundreds and
+# the prefill logits of the two packages lie 3.9e-4 of their max apart,
+# the port's 1.06e-4 from a float64 evaluation and the JAX package's
+# 3.07e-4 (`tests/test_torch_encdec.py::test_init_scale_logits_vs_float64`)
+TRAINED_SCALE_ARCHS = SSM_ARCHS + ("seamless_m4t_large_v2",)
 
 
 def _t(a):
@@ -73,7 +81,7 @@ def pair(request):
     jm = RefModel(ref_smoke(arch))
     jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0),
                                           jnp.float32))
-    if arch in SSM_ARCHS:
+    if arch in TRAINED_SCALE_ARCHS:
         jp = _trained_scale(jp)
     tm = Model(configs.get_smoke_config(arch)).load(
         params_from_jax(jp, device="cpu"))
@@ -82,13 +90,24 @@ def pair(request):
 
 def _batch(cfg, rng, b, s):
     """A prefill batch of ``s`` positions: tokens, and for a vlm its
-    ``num_patch_tokens`` patch embeddings ahead of s - P tokens."""
+    ``num_patch_tokens`` patch embeddings ahead of s - P tokens; for an
+    encoder-decoder also its ``source_len`` frames."""
     p = cfg.num_patch_tokens if cfg.family == "vlm" else 0
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s - p))}
     if p:
         batch["patch_embeds"] = rng.normal(size=(b, p, cfg.d_model)).astype(
             np.float32)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.normal(
+            size=(b, cfg.source_len, cfg.d_model)).astype(np.float32)
     return batch
+
+
+def _extra(batch):
+    """The prefill's keyword inputs besides the tokens (a vlm's patches, an
+    encoder-decoder's frames), as torch tensors."""
+    return {k: _t(v) for k, v in batch.items()
+            if k in ("patch_embeds", "frames")}
 
 
 def _paths(tree, prefix=""):
@@ -121,13 +140,13 @@ def test_num_params_equals_reference_without_allocation(arch):
 
 
 def test_prefill_matches_jax(pair):
+    """Prefill logits and cache; the encoder-decoder's 40 positions over
+    its 24 frames are the non-causal Sq > Skv cross-attention."""
     arch, jm, jp, tm = pair
     rng = np.random.default_rng(2)
     batch = _batch(tm.cfg, rng, 2, 40)
     jl, jc = jm.prefill(jax.tree.map(jnp.asarray, jp), _jax_batch(batch))
-    tl, tc = tm.prefill(_t(batch["tokens"]).long(),
-                        patch_embeds=(_t(batch["patch_embeds"])
-                                      if "patch_embeds" in batch else None))
+    tl, tc = tm.prefill(_t(batch["tokens"]).long(), **_extra(batch))
     assert tl.shape == (2, 40, jm.cfg.padded_vocab)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                atol=1e-4)
@@ -141,18 +160,18 @@ def test_prefill_matches_jax(pair):
 def test_decode_matches_full_forward(pair):
     """As `tests/test_models.py::test_decode_matches_full_forward`: the
     cache of a prefill of the first half, then one decode step a token,
-    against the full prefill's logits (a vlm's patches in both)."""
+    against the full prefill's logits (a vlm's patches, an
+    encoder-decoder's frames in both)."""
     _, _, _, tm = pair
     rng = np.random.default_rng(1)
     b, s = 2, 24
     batch = _batch(tm.cfg, rng, b, s)
     toks = _t(batch["tokens"])
-    patches = (_t(batch["patch_embeds"]) if "patch_embeds" in batch
-               else None)
-    p = 0 if patches is None else patches.shape[1]
-    full, _ = tm.prefill(toks, patch_embeds=patches)
+    extra = _extra(batch)
+    p = extra["patch_embeds"].shape[1] if "patch_embeds" in extra else 0
+    full, _ = tm.prefill(toks, **extra)
     s0 = (s - p) // 2
-    _, cache = tm.prefill(toks[:, :s0], patch_embeds=patches)
+    _, cache = tm.prefill(toks[:, :s0], **extra)
     cache = tm.pad_cache(cache, b, s, torch.float32)
     errs = []
     for t in range(s0, s - p):
@@ -166,7 +185,10 @@ def test_loss_and_grads_match_reference(arch):
     """One train step's loss and gradients against `jax.value_and_grad` of
     the reference's `loss_fn`, through the CPU route of the attention
     (MLA: the (24, 16) head_dim pair) and, for llava, the patches; zamba2's
-    shared leaves get the sum over every ssm_attn layer."""
+    shared leaves get the sum over every ssm_attn layer; seamless's
+    encoder leaves get the cross-attention's dk and dv through the
+    memory (its 32 decoder positions over 24 frames: non-causal Sq >
+    Skv in the backward too)."""
     rng = np.random.default_rng(0)
     cfg = configs.get_smoke_config(arch)
     jm = RefModel(ref_smoke(arch))
@@ -217,6 +239,9 @@ def test_input_specs_match_reference(arch, shape_name):
     if "patch_embeds" in p_in:
         assert p_in["patch_embeds"].dtype == torch.bfloat16
         assert p_in["patch_embeds"].shape[1] == 2880
+    if "frames" in p_in:
+        assert p_in["frames"].dtype == torch.bfloat16
+        assert p_in["frames"].shape[1] == 4096
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
@@ -289,8 +314,9 @@ def test_apply_mla_matches_jax(kind):
 
 def test_mla_cache_and_blocks():
     """MLA's block: its specs and compressed cache, as the reference's
-    (c_kv [B, S, kv_lora], k_rope [B, S, r]), their axes; the kinds still
-    to come (the encoder-decoder's) raise with the ROADMAP pointer."""
+    (c_kv [B, S, kv_lora], k_rope [B, S, r]), their axes; a bidir block on
+    an MLA config takes MLA's specs, as the reference's does; an unknown
+    kind raises."""
     from repro.models import blocks as ref_blocks
     cfg = configs.get_smoke_config("minicpm3_4b")
     shapes = tree_map(lambda s: s.shape, blocks.block_specs(cfg, "dense"))
@@ -301,8 +327,10 @@ def test_mla_cache_and_blocks():
     cache = blocks.cache_struct(cfg, "dense", 2, 8, torch.float32, "cpu")
     assert {k: tuple(v.shape) for k, v in cache["attn"].items()} == {
         "c_kv": (2, 8, 32), "k_rope": (2, 8, 8)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.block_specs(cfg, "bidir")
+    bidir = tree_map(lambda s: s.shape, blocks.block_specs(cfg, "bidir"))
+    assert bidir == want
+    with pytest.raises(ValueError, match="unknown block kind"):
+        blocks.block_specs(cfg, "cross")
 
 
 def test_serve_extra_reaches_every_wave():
