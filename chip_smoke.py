@@ -60,8 +60,9 @@ Phases, each printing one JSON line:
 7c. maintenance — Algorithms 2-4 on the same graph at k=10, ``sorted``
              and ``multiset``: a maintainer with device propagation on
              the card and one on the numpy host path take the same ops
-             (1, 1,000 and 100,000 random edge inserts, 1,000 existing
-             edges again, DELETE_NODE on a node, compact) and must agree
+             (1 and 1,000 random edge inserts, and 100,000 in
+             ``multiset``, 1,000 existing edges again, DELETE_NODE on
+             a node, compact) and must agree
              bit for bit after each; one line an op (frontier and changed
              nodes a level, rebuilt, device and host walls, fold launches,
              store sizes and bytes, peak memory); at the end equal stores
@@ -89,7 +90,7 @@ Phases, each printing one JSON line:
              2^20-edge chunks, with the write-ahead log, beside an
              in-memory maintainer on the card: the build (its
              ``chunk_sig_fold`` launches equal the chunks folded),
-             100,000 random inserts, DELETE_NODE, a snapshot,
+             100,000 random inserts, a snapshot,
              1,000 inserts, a crash (no close) and recovery with device
              propagation (pid files bit-identical), 1,000 more inserts;
              one line an op (frontier and changed nodes a level, rebuilt,
@@ -114,7 +115,7 @@ Phases, each printing one JSON line:
              and edges a level, the materialize wall and `IOStats`, the
              engine's device bytes; every answer of 32 path queries and
              64 point lookups against `eval_ref` and 16 against
-             `eval_brute`; then 1,000 and 100,000 inserts absorbed by
+             `eval_brute`; then 1,000 inserts absorbed by
              the service (patch ms, levels touched, ``sig_fold`` and
              ``frontier_sig_fold`` launches) and the queries again on
              the patched index (not against `eval_ref`: that round is
@@ -193,15 +194,16 @@ Phases, each printing one JSON line:
              of its max |o| and each row's ``lse`` within 1e-3 / 1e-4 of
              its max |lse| (one key tile of 32 missed moves an lse by
              3e-2, which a bf16 output's bar alone would not see), and
-             the seconds these cases take; prints
-             the attention libraries' ``-Xptxas -v``
-             lines, a register/spill/wgmma count of each kernel's SASS and
-             the route each dtype takes;
+             the seconds these cases take; each f32 row also beside
+             the 3xTF32 bound (its bound) and the CUDA-core one, printed
+             with both shares; prints the attention libraries' ``-Xptxas
+             -v`` lines, a register/spill/wgmma/mma.sync count of each
+             kernel's SASS and the route each dtype takes;
 8a. attention_bwd — ``flash_attention_bwd`` against its plain version
              (`_bwd_rule`'s port) on the card on the cases of
              `tests/test_torch_kernels_gpu.py`, each dtype through its
              route, recorded (bf16 the wgmma kernel within 2e-2 of each
-             output's max |x|, f32 the CUDA-core kernel within 1e-4), both
+             output's max |x|, f32 the 3xTF32 kernel within 1e-4), both
              forward kernels' ``lse`` against `_fwd_impl`'s, then
              gemma2's train shape (bf16, 16/8 heads, head_dim 256, 4096
              tokens, causal, softcap 50, with and without the 4096
@@ -224,6 +226,11 @@ Phases, each printing one JSON line:
              route each dtype takes and the backward libraries'
              ``-Xptxas -v`` lines and SASS counts (by kernel and
              head_dims);
+8b. mma_rate — the TF32 rate that the f32 kernels' instruction reaches
+             on this card: ``mma.sync`` m16n8k8 from registers, 1 to 16
+             independent accumulator chains a warp, 8 warps a block, 4
+             blocks an SM (its source built beside the kernels in phase
+             1), beside the data sheet's 495 TFLOP/s;
 9. serve_parity — a 4-layer, d_model-512 gemma2 in f32 served by
              ``ServeEngine`` on the card and on the CPU from one seeded
              init: equal tokens, the card's prefill logits within 1e-4 of
@@ -260,10 +267,10 @@ Phases, each printing one JSON line:
              within 1e-4 of its max |g| of float64, forward and backward
              launches the remat's counts;
 10. serve  — the serving launcher's defaults on gemma2-9b at full width,
-             cut to 22 of its 42 layers (bf16, random weights from seed
+             cut to 12 of its 42 layers (bf16, random weights from seed
              0): 16 requests of 4..63 tokens, 32 new tokens each, waves
              of up to 8, with the ``flash_attention`` count set to 0 just
-             before and read just after (it must be 22 x waves);
+             before and read just after (it must be 12 x waves);
 11. serve_profile — device time by kernel and the device's idle share
              for one wave of that server, under `torch.profiler`;
 11a. serve_zoo — the other architectures served in bf16 from
@@ -327,8 +334,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
-# H100 SXM dense peaks (data sheet): bf16 tensor cores, f32 CUDA cores
-FLOP_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM dense peaks (data sheet): bf16 tensor cores, f32 CUDA cores,
+# and the f32-accurate rate of the tensor cores in 3xTF32 (three TF32
+# products a product at 495 TFLOP/s), the f32 kernels' bound
+FLOP_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 FULL = dict(nodes=8_000_000, edges=64_000_000, k=10)
 PARITY = dict(nodes=200_000, edges=1_000_000, k=10)
 OOCORE = dict(chunk_edges=1 << 20, parity_chunk_edges=1 << 16)
@@ -437,10 +446,74 @@ def fold_times(fn, raw, kernel: str) -> dict:
             "back_to_back_ms": back_to_back_ms(fn)}
 
 
+# phase 8b's loop: TF32 mma.sync m16n8k8 with NACC independent chains a
+# warp, operands in registers, built beside the kernels (not a kernel of
+# the port: it measures the rate that the f32 kernels' instruction reaches)
+MMA_RATE_SRC = r"""
+#include <cuda_runtime.h>
+
+template <int NACC>
+__global__ void __launch_bounds__(256) mma_loop(float* out, int iters) {
+  unsigned a[4], b[2];
+  for (int i = 0; i < 4; ++i)
+    asm("cvt.rna.tf32.f32 %0, %1;"
+        : "=r"(a[i]) : "f"(1.0f + 1e-3f * float(threadIdx.x + i)));
+  for (int i = 0; i < 2; ++i)
+    asm("cvt.rna.tf32.f32 %0, %1;"
+        : "=r"(b[i]) : "f"(1.0f - 1e-3f * float(threadIdx.x + i)));
+  float c[NACC][4] = {};
+#pragma unroll 4
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < NACC; ++j)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+          : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+            "r"(b[1]));
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < NACC; ++j) sum += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
+// launch `blocks` blocks of 8 warps on the current device's default
+// stream; out holds blocks * 256 floats; the launch's error code
+extern "C" int mma_tf32_loop(int nacc, int blocks, int iters, float* out) {
+  switch (nacc) {
+    case 1: mma_loop<1><<<blocks, 256>>>(out, iters); break;
+    case 2: mma_loop<2><<<blocks, 256>>>(out, iters); break;
+    case 4: mma_loop<4><<<blocks, 256>>>(out, iters); break;
+    case 8: mma_loop<8><<<blocks, 256>>>(out, iters); break;
+    case 16: mma_loop<16><<<blocks, 256>>>(out, iters); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+"""
+MMA_RATE_LIB = ROOT / "build" / "mma_rate" / "libmma_rate.so"
+MMA_RATE_CHAINS = (1, 2, 4, 8, 16)
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build(*_build.SIGNATURES)
+    MMA_RATE_LIB.parent.mkdir(parents=True, exist_ok=True)
+    src = MMA_RATE_LIB.with_name("mma_rate.cu")
+    src.write_text(MMA_RATE_SRC)
+    probe = subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(MMA_RATE_LIB),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        _build.build(*_build.SIGNATURES)
+    finally:
+        log = probe.communicate()[0]
+    if probe.returncode:
+        raise SystemExit(f"nvcc mma_rate.cu exited {probe.returncode}:\n"
+                         f"{log}")
     seconds = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1073,10 +1146,15 @@ def phase_oocore(args, g, inmem) -> dict:
 # ``add-edges --count`` draws them, existing edges inserted again (the
 # fused k-loop's all-clean path), DELETE_NODE on a random node, compact
 # (one DELETE_NODE a mode, not two: the second took the same path and
-# 5-13 s of the main process, which sets the script's pace here)
+# 5-13 s of the main process, which sets the script's pace here; and the
+# 100,000 inserts in one mode: in ``sorted`` they took the device
+# propagation that ``multiset``'s take, to the same largest frontier fold
+# (747,841 lanes, 127,308 rows), and 19-25 s)
 MAINT = dict(k=10, modes=("sorted", "multiset"), seed=0)
-MAINT_OPS = (("add-edges", 1), ("add-edges", 1000), ("add-edges", 100_000),
-             ("re-add-edges", 1000), ("delete-node", 1), ("compact", 0))
+_MAINT_TAIL = (("re-add-edges", 1000), ("delete-node", 1), ("compact", 0))
+MAINT_OPS = {"sorted": (("add-edges", 1), ("add-edges", 1000)) + _MAINT_TAIL,
+             "multiset": (("add-edges", 1), ("add-edges", 1000),
+                          ("add-edges", 100_000)) + _MAINT_TAIL}
 
 
 def _same_partition(a, b) -> bool:
@@ -1156,7 +1234,7 @@ def phase_maintenance(g) -> dict:
         setup_s = time.perf_counter() - t0
         rng = np.random.default_rng(MAINT["seed"])
         ops = []
-        for op, count in MAINT_OPS:
+        for op, count in MAINT_OPS[mode]:
             draw = _draw_maint_op(op, count, dev_m.graph, rng, launcher)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1323,9 +1401,10 @@ OOC_MAINT = dict(k=4, mode="sorted", chunk_edges=1 << 20, io_threads=1,
 # (no single insert: it takes the 1,000-insert op's path and ~20 s, the
 # parity phase runs one, and the whole script must stay near 15 minutes;
 # nor a 1,000-insert op ahead of the 100,000: the two after the snapshot
-# and after the recovery take that path, and each op costs 20-34 s)
-OOC_MAINT_OPS = (("add-edges", 100_000), ("delete-node", 1),
-                 ("snapshot", 0), ("add-edges", 1000))
+# and after the recovery take that path, and each op costs 20-34 s; nor
+# a DELETE_NODE: `ooc_maintenance_parity` drives that path, and here it
+# took 14-20 s of the main process, which paces stage 2 on a slow host)
+OOC_MAINT_OPS = (("add-edges", 100_000), ("snapshot", 0), ("add-edges", 1000))
 OOC_WORKDIR = ROOT / "build" / "ooc-maint-smoke"  # removed at exit
 OOC_PARITY_WORKDIR = ROOT / "build" / "ooc-parity-smoke"  # the same
 
@@ -1712,9 +1791,11 @@ def phase_ooc_maintenance(g) -> dict:
 QPARITY = dict(k=10, levels=(1, 5, 10), seed=0, batch=64, points=8,
                ops=(("add-edges", 1000), ("delete-node", 1), ("compact", 0),
                     ("change-k", 6)))
+# (one patch: a second of 100,000 inserts took the same path and 45-52 s
+# of the worker, which paces stage 2 beside the main process)
 QUOTIENT = dict(k=4, mode="sorted", batch=64, budget_rows=1 << 20,
                 path_queries=32, point_lookups=64, brute_sample=16,
-                seed=0, ops=(("add-edges", 1000), ("add-edges", 100_000)))
+                seed=0, ops=(("add-edges", 1000),))
 QUOTIENT_WORKDIR = ROOT / "build" / "quotient-smoke"  # removed at exit
 # the streaming service: the launcher's serve-updates on the parity graph,
 # cut from its default 200 ops to 120 (the card's drill, three runs of the
@@ -2034,11 +2115,11 @@ def phase_quotient(g, quiet=None) -> dict:
     `IOStats`, the engine's device bytes), 32 path queries (8 a hop
     count, so one wave each of 64 fixed slots) and 64 point lookups,
     every answer equal to `eval_ref`'s and a seeded 16 of them to
-    `eval_brute`'s on the original graph; then 1,000 and 100,000 inserts
-    absorbed by the service (patch ms, levels touched, kernel launches:
+    `eval_brute`'s on the original graph; then 1,000 inserts absorbed by
+    the service (patch ms, levels touched, kernel launches:
     ``sig_fold.launches`` set to 0 just before the build and each op and
     read just after, counted by `_launches_by_row`), and the same
-    queries on the index both patches made (their `eval_ref` round is
+    queries on the patched index (their `eval_ref` round is
     cut for time; the timed round must equal them).  Last,
     once ``quiet()`` returns (no other process on the card), the queries
     once more through the engine as it runs, timed (`_timed_waves`; the
@@ -2913,9 +2994,10 @@ PARITY_ENCDEC = dict(num_layers=4, encoder_layers=4, d_model=512,
 # frames (non-causal Sq > Skv), dk and dv flowing into the encoder
 PARITY_TRAIN_SEQ = {"deepseek_v2_lite_16b": 64, "zamba2_7b": 64,
                     "seamless_m4t_large_v2": 1024}
-# gemma2-9b's full-width serve, cut from 42 to 22 layers (11 local/global
-# pairs: the pattern takes an even count) for the script's time limit
-SERVE_LAYERS = 22
+# gemma2-9b's full-width serve, cut from 42 to 12 layers (6 local/global
+# pairs: the pattern takes an even count) for the script's time limit (at
+# 22 layers the serve and its profiled wave took 72-73 s)
+SERVE_LAYERS = 12
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2948,7 +3030,8 @@ def _sass_summary(name: str, path=None) -> dict:
     """Per kernel of a built library (``path``, default the library
     ``name`` builds to), keyed by its name and head_dims, from its SASS
     (``cuobjdump``): the registers it touches, spill stores and loads,
-    wgmma and the waits on them, the instruction count and a digest of the
+    wgmma and the waits on them, mma.sync (``HMMA``: the f32 kernels'
+    3xTF32 products), the instruction count and a digest of the
     instructions (offsets and encodings left out), which tells two builds
     of one kernel apart.  Under ``setmaxnreg`` this is what ``-Xptxas -v``
     cannot show: it prints only the registers at entry."""
@@ -2964,7 +3047,7 @@ def _sass_summary(name: str, path=None) -> dict:
     out = {}
     for block in sass.split("Function : ")[1:]:
         fn = block.split()[0]
-        dims = re.findall(r"Li(\d+)E", fn)
+        dims = re.findall(r"L[ib](\d+)E", fn)
         regs = [int(r) for r in re.findall(r"\bR(\d+)\b", block)]
         code = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln.split(";")[0]).strip()
                 for ln in block.splitlines() if ";" in ln and "/*" in ln]
@@ -2972,7 +3055,7 @@ def _sass_summary(name: str, path=None) -> dict:
         out[key] = {
             "registers_touched": max(regs, default=-1) + 1,
             "STL": block.count("STL"), "LDL": block.count("LDL"),
-            "HGMMA": block.count("HGMMA"),
+            "HGMMA": block.count("HGMMA"), "HMMA": block.count("HMMA"),
             "wgmma_waits": block.count("WARPGROUP.DEPBAR"),
             "instructions": len(code),
             "digest": hashlib.sha256(
@@ -3003,6 +3086,75 @@ def _sdpa_ms(fn, backends=None, reps: int = 10) -> tuple:
     except RuntimeError as exc:
         return None, (f"no SDPA backend among {', '.join(backends)} takes "
                       f"these shapes: {str(exc).splitlines()[0][:200]}")
+
+
+def _flop_bounds(flops: float, dtype: str) -> tuple:
+    """(ms on the kernel's peak, ms on the CUDA cores' f32 peak or None):
+    bf16 kernels run on the tensor cores' bf16 peak, f32 kernels in 3xTF32
+    on the tensor cores (`FLOP_PER_S` "tf32x3"), their bound, where the
+    CUDA-core kernels they replaced had 67 TFLOP/s."""
+    if dtype == "float32":
+        return (flops / FLOP_PER_S["tf32x3"] * 1e3,
+                flops / FLOP_PER_S["float32"] * 1e3)
+    return flops / FLOP_PER_S[dtype] * 1e3, None
+
+
+def _shares(row: dict, time_key: str, prefix: str = "") -> None:
+    """A timed row's share of its bound (``<prefix>bound_ms`` over
+    ``time_key``) and, for an f32 kernel, of the CUDA-core bound too;
+    printed on a line of its own for an f32 row."""
+    t = row[time_key]
+    row[f"{prefix}share_of_bound"] = row[f"{prefix}bound_ms"] / t
+    cuda_core = row.get(f"{prefix}cuda_core_bound_ms")
+    if cuda_core is None:
+        return
+    row[f"{prefix}share_of_cuda_core_bound"] = cuda_core / t
+    print(f"f32 {prefix or 'kernel '}{json.dumps(row['case'])}: {t:.4f} ms "
+          f"({time_key}), {row[f'{prefix}share_of_bound']:.1%} of the "
+          f"3xTF32 bound {row[f'{prefix}bound_ms']:.4f} ms, "
+          f"{row[f'{prefix}share_of_cuda_core_bound']:.1%} of the CUDA-core "
+          f"bound {cuda_core:.4f} ms", flush=True)
+
+
+def phase_mma_rate() -> dict:
+    """Phase 8b: TFLOP/s of TF32 ``mma.sync`` m16n8k8 at each count of
+    accumulator chains (median of 5 timed launches), the best of them, a
+    third of it (the f32-accurate 3xTF32 rate) and the data sheet's 495
+    over the best (by which the f32 rows' shares of the 3xTF32 bound
+    would grow against the reached rate)."""
+    import ctypes
+    import torch
+    lib = ctypes.CDLL(str(MMA_RATE_LIB))
+    lib.mma_tf32_loop.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 8192
+    out = torch.empty(blocks * 256, dtype=torch.float32, device=DEVICE)
+
+    def launch(nacc):
+        err = lib.mma_tf32_loop(nacc, blocks, iters, out.data_ptr())
+        if err:
+            raise SystemExit(f"mma_rate: launch failed, cudaError {err}")
+    rates = {}
+    for nacc in MMA_RATE_CHAINS:
+        ms = cuda_ms(lambda: launch(nacc), 5)
+        flops = blocks * 8 * iters * nacc * 2 * 16 * 8 * 8
+        rates[nacc] = flops / ms / 1e9
+    best = max(rates.values())
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    res = {"phase": "mma_rate",
+           "instruction": "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+           "nvidia_smi": smi, "blocks": blocks, "warps_a_block": 8,
+           "iters": iters, "tflops_by_chains": rates, "tflops": best,
+           "tf32x3_tflops": best / 3,
+           "data_sheet_tflops": FLOP_PER_S["tf32x3"] * 3 / 1e12,
+           "data_sheet_over_reached": FLOP_PER_S["tf32x3"] * 3e-12 / best}
+    emit(res)
+    if not all(r > 0 for r in rates.values()):
+        raise SystemExit("mma_rate: a rate is not positive")
+    return res
 
 
 def phase_attention() -> dict:
@@ -3072,8 +3224,8 @@ def phase_attention() -> dict:
         keep = attention_mask(sq, skv, causal=causal, window=window,
                               device=dev)
         pairs = int(keep.sum())  # unmasked (query, key) pairs of a head
-        flop_ms = (tfa.fwd_flops(d, dv, b * hq * pairs) / FLOP_PER_S[dtype]
-                   * 1e3)
+        flop_ms, cuda_core_ms = _flop_bounds(
+            tfa.fwd_flops(d, dv, b * hq * pairs), dtype)
         byte_ms = (q.element_size() * (q.numel() + k.numel() + v.numel()
                                        + got.numel())
                    / HBM_BYTES_PER_S * 1e3)
@@ -3102,7 +3254,9 @@ def phase_attention() -> dict:
                "library_ms": library_ms, "library_note": library_note,
                "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
                "bound_ms": max(flop_ms, byte_ms),
-               "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+               "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+               "cuda_core_bound_ms": None if cuda_core_ms is None
+               else max(cuda_core_ms, byte_ms)}
         if profile:  # the kernel's own device time and the host's share
             fn = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
             names = device_ms_by_name(fn)
@@ -3116,6 +3270,7 @@ def phase_attention() -> dict:
                        else "cuda events, 20 calls in a row",
                        device_ms_by_name=names, back_to_back_ms=b2b,
                        host_us=host_us(fn))
+        _shares(row, "kernel_ms" if profile else "ms")
         del q, k, v, got, want, keep, sdpa
         torch.cuda.empty_cache()
         return row
@@ -3176,7 +3331,8 @@ def phase_attention() -> dict:
              for lib in ("flash_attention", "flash_attention_sm90",
                          "flash_attention_mla", "flash_attention_sm90_mla")}
     routes = {"bfloat16": kernel_route(torch.bfloat16) + " (wgmma, TMA)",
-              "float32": kernel_route(torch.float32) + " (CUDA cores)"}
+              "float32": kernel_route(torch.float32)
+              + " (3xTF32 on the tensor cores, mma.sync)"}
     print(f"flash_attention route: bf16 -> {routes['bfloat16']}, "
           f"f32 -> {routes['float32']}", flush=True)
     for lib, lines in ptxas.items():
@@ -3758,7 +3914,7 @@ TRAIN = dict(layers=20, seq=4096, batch=1, steps=5)
 def phase_attention_bwd() -> dict:
     """flash_attention_bwd on the card against `_bwd_rule`'s port on the
     card (each dtype through its route: bf16 the wgmma kernel, f32 the
-    CUDA-core kernel), both forward kernels' lse against `_fwd_impl`'s,
+    3xTF32 kernel), both forward kernels' lse against `_fwd_impl`'s,
     then gemma2's train shape timed beside its bound and the SDPA
     yardstick, and the f32 routes timed at the train-parity shape (where
     they launch) and at gemma2's train shape."""
@@ -3845,24 +4001,31 @@ def phase_attention_bwd() -> dict:
         got = fn()
         route = list(called)
         want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-        errs = {n: float((a.float() - w.float()).abs().max())
-                / max(float(w.float().abs().max()), 1e-30)
-                for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        abs_errs = {n: float((a.float() - w.float()).abs().max())
+                    for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        errs = {n: abs_errs[n] / max(float(w.float().abs().max()), 1e-30)
+                for n, w in zip(("dq", "dk", "dv"), want)}
         del got, want
+        # the forward's output against the plain version's
+        fwd_err = float((o.float() - tfa.flash_attention_fwd_plain(
+            q, k, v, **kw)[0].float()).abs().max())
         keep = attention_mask(s, skv, causal=causal, window=window,
                               device=dev)
         pairs = int(keep.sum())
         # the rule's five products (s, dq, dk over D; dp, dv over Dv),
         # 2 flops a visible pair a column each, on the peak of the dtype
-        # (bf16 the tensor cores', f32 the CUDA cores'); bytes: q, k, v,
-        # o, dO and the outputs once, lse once.  The forward: two products
-        # (QK^T over D, PV over Dv), q, k, v read and o, lse written once
-        peak, size = FLOP_PER_S[dtype], q.element_size()
-        flop_ms = tfa.bwd_flops(d, dv, pairs * b * hq) / peak * 1e3
+        # (bf16 the tensor cores', f32 the tensor cores' in 3xTF32, with
+        # the CUDA cores' beside it); bytes: q, k, v, o, dO and the
+        # outputs once, lse once.  The forward: two products (QK^T over D,
+        # PV over Dv), q, k, v read and o, lse written once
+        size = q.element_size()
+        flop_ms, cc_ms = _flop_bounds(tfa.bwd_flops(d, dv, pairs * b * hq),
+                                      dtype)
         byte_ms = (size * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                            + 2 * o.numel() + do.numel())
                    + 4 * lse.numel()) / HBM_BYTES_PER_S * 1e3
-        fwd_flop_ms = tfa.fwd_flops(d, dv, pairs * b * hq) / peak * 1e3
+        fwd_flop_ms, fwd_cc_ms = _flop_bounds(
+            tfa.fwd_flops(d, dv, pairs * b * hq), dtype)
         fwd_byte_ms = (size * (q.numel() + k.numel() + v.numel()
                                + o.numel())
                        + 4 * lse.numel()) / HBM_BYTES_PER_S * 1e3
@@ -3890,8 +4053,11 @@ def phase_attention_bwd() -> dict:
                             causal=causal, window=window, softcap=softcap,
                             dtype=dtype),
                "route": route, "err_of_max": errs, "tol_of_max": tol,
+               "max_abs_err": max(abs_errs.values()),
+               "fwd_max_abs_err": fwd_err,
                "ok": (route == [tfa.bwd_kernel_route(q.dtype, d, dv)]
-                      and max(errs.values()) <= tol),
+                      and max(errs.values()) <= tol
+                      and (dtype != "float32" or fwd_err < 2e-5)),
                "pairs_per_head": pairs, "kernel_ms": kernel_ms,
                "kernel_ms_source": source, "device_ms_by_name": names,
                "ms": cuda_ms(fn, 10), "back_to_back_ms": b2b,
@@ -3905,6 +4071,8 @@ def phase_attention_bwd() -> dict:
                "fwd_bound_ms": max(fwd_flop_ms, fwd_byte_ms),
                "fwd_bound_by": ("operations" if fwd_flop_ms >= fwd_byte_ms
                                 else "bytes"),
+               "fwd_cuda_core_bound_ms": None if fwd_cc_ms is None
+               else max(fwd_cc_ms, fwd_byte_ms),
                "library_fwd_bwd_ms": sdpa_fb_ms,
                "library_fwd_ms": sdpa_fwd_ms,
                "library_ms": (sdpa_fb_ms - sdpa_fwd_ms
@@ -3913,7 +4081,11 @@ def phase_attention_bwd() -> dict:
                "library_note": library_note,
                "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
                "bound_ms": max(flop_ms, byte_ms),
-               "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+               "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+               "cuda_core_bound_ms": None if cc_ms is None
+               else max(cc_ms, byte_ms)}
+        _shares(row, "kernel_ms")
+        _shares(row, "fwd_ms", "fwd_")
         del q, k, v, do, o, lse, qs, ks, vs, keep
         torch.cuda.empty_cache()
         return row
@@ -3954,7 +4126,7 @@ def phase_attention_bwd() -> dict:
     routes = {"bfloat16": tfa.bwd_kernel_route(torch.bfloat16)
               + " (wgmma, TMA)",
               "float32": tfa.bwd_kernel_route(torch.float32)
-              + " (CUDA cores)"}
+              + " (3xTF32 on the tensor cores, mma.sync)"}
     print(f"flash_attention_bwd route: bf16 -> {routes['bfloat16']}, "
           f"f32 -> {routes['float32']}", flush=True)
     libs = ("flash_attention_bwd_sm90", "flash_attention_bwd",
@@ -4042,6 +4214,26 @@ def _grads(model, batch):
     loss = model.loss_fn(model.params, batch)
     it = iter(torch.autograd.grad(loss, tree_leaves(model.params)))
     return float(loss.detach()), tree_map(lambda _: next(it), model.params)
+
+
+def _f32_entry(rows: dict, prefix: str) -> dict:
+    """The kernels line's numbers of an f32 kernel (``prefix`` "fwd_" the
+    forward, "" the backward) from `phase_attention_bwd`'s ``f32_routes``:
+    at the train-parity shape, with gemma2's train shape beside."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "cuda_core_bound_ms", "share_of_bound",
+            "share_of_cuda_core_bound")
+    library = "library_fwd_ms" if prefix else "library_ms"
+
+    def pick(row):
+        out = {k: row[prefix + k] for k in keys}
+        out["library_ms"] = row[library]
+        if not prefix:
+            out["kernel_ms"] = row["kernel_ms"]
+        return out
+    return {**pick(rows["train_parity"]),
+            "shape": rows["train_parity"]["case"],
+            "gemma2_9b_train": pick(rows["gemma2_9b_train"])}
 
 
 def phase_train_parity() -> dict:
@@ -4927,6 +5119,7 @@ def main() -> int:
     elapsed("attention")
     attn_bwd = phase_attention_bwd()
     elapsed("attention_bwd")
+    phase_mma_rate()
     phase_serve_parity()
     # minicpm3 has no logit softcap, and at the init's scale its attention
     # saturates: card and CPU in f32 alike lie ~3e-4 from float64 there,
@@ -4960,7 +5153,7 @@ def main() -> int:
     elapsed("serve and serve_profile")
     zoo = phase_serve_zoo()
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
-    phase_train_parity()
+    train_par = phase_train_parity()
     train = phase_train()
     print(f"elapsed: {time.perf_counter() - T0:.1f} s", flush=True)
     bwd = attn_bwd["gemma2_9b_train"]["global"]
@@ -5119,7 +5312,32 @@ def main() -> int:
                      for dtype, by_case in
                      attn_bwd["seamless_m4t_large_v2_train"].items()},
         "serve_parity_encdec_train_launches": encdec_parity["train_step"][
-            "bwd_launches"]}]})
+            "bwd_launches"]}, {
+        # the f32 routes (3xTF32 on the tensor cores): their main path is
+        # train_parity's step (launches a step, counted from 0), timed at
+        # its shape; gemma2's train shape and seamless's decode beside
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "mla_source": "src/repro_torch/kernels/csrc/flash_attention_mla.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "launches": train_par["launches_a_step"]["fwd"],
+        "sharded_launches_by_rank": sharded_launches["fwd"],
+        "custom_op": "repro_torch::flash_attention",
+        **_f32_entry(attn_bwd["f32_routes"], "fwd_"),
+        "seamless_decode": {k: attn["seamless_m4t_large_v2"]["float32"][
+            "cross_decode"][k] for k in (
+                "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "share_of_bound")}}, {
+        "name": "flash_attention_bwd_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "mla_source":
+            "src/repro_torch/kernels/csrc/flash_attention_bwd_mla.cu",
+        "replaces": "no Pallas kernel: the JAX package differentiates in "
+                    "XLA, src/repro/models/flash_xla.py:100 (_bwd_rule)",
+        "launches": train_par["launches_a_step"]["bwd"],
+        "sharded_launches_by_rank": sharded_launches["bwd"],
+        "custom_op": "repro_torch::flash_attention_bwd",
+        **_f32_entry(attn_bwd["f32_routes"], "")}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

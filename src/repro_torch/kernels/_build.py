@@ -37,10 +37,10 @@ SIGNATURES = {
         "chunk_sig_fold": [_P] * 5 + [_LL, _I, _I, _I, _I, _I, _I, _P],
         "sig_fold_bitonic": [_P] * 5 + [_LL, _LL, _I, _I, _P],
     },
-    # q, k, v, o, dims, the mask and softcap, (f32: tiles), q_offset, lse
+    # q, k, v, o, dims, the mask and softcap, q_offset, lse
     "flash_attention": {
         "flash_attention_fwd": [_P] * 4 + [ctypes.POINTER(_LL), _I, _I, _LL,
-                                           _I, _F, _F, _I, _I, _LL, _P, _P],
+                                           _I, _F, _F, _LL, _P, _P],
     },
     "flash_attention_sm90": {
         "flash_attention_fwd_sm90": [_P] * 4 + [ctypes.POINTER(_LL), _I, _I,

@@ -26,8 +26,12 @@ Routing is by dtype (`kernel_route`), with no fallback between routes:
   wgmma, tiles through TMA.  TMA needs q, k and v 16-byte aligned and their
   (batch, head, seq) strides multiples of 16 bytes (`tma_strides`); a bf16
   input that breaks this raises ValueError, it is not sent elsewhere.
-- f32 -> ``csrc/flash_attention.cu``: the CUDA cores in full f32 (the f32
-  tolerance of 2e-5 rules out a bf16 P and TF32).
+- f32 -> ``csrc/flash_attention.cu``: the tensor cores through
+  ``mma.sync`` in 3xTF32 (each f32 operand split into two TF32 parts,
+  three TF32 products a product: within 2^-22 of f32's, so the f32
+  tolerance of 2e-5 holds where one TF32 product would not); any strides
+  with a contiguous head_dim (16-byte copies where they allow, else
+  4-byte ones).
 
 Each is built at first use by `_build`.  On a CUDA tensor the wrapper
 launches one of them or raises; only a tensor on the CPU takes the plain
@@ -42,7 +46,8 @@ computes dq, dk and dv from (q, k, v, o, lse, dO), routed by dtype
 - bf16 -> ``csrc/flash_attention_bwd_sm90.cu``: the tensor cores through
   wgmma, tiles through TMA, laid out by the pure-Python
   `bwd_launch_plan`; q, k, v and dO pass `tma_strides`.
-- f32 -> ``csrc/flash_attention_bwd.cu``: the CUDA cores in full f32.
+- f32 -> ``csrc/flash_attention_bwd.cu``: the tensor cores in 3xTF32, as
+  the f32 forward.
 
 The JAX package differentiates its XLA attention
 (`repro.models.flash_xla._bwd_rule`); its steps are the plain versions
@@ -74,7 +79,6 @@ _NEG = -0.7 * float(torch.finfo(torch.float32).max)
 SQUARE_DIMS = (16, 32, 64, 112, 128, 256)
 MLA_DIMS = ((96, 64), (24, 16), (192, 128))
 HEAD_DIMS = tuple((d, d) for d in SQUARE_DIMS) + MLA_DIMS
-MAX_TILE = 64  # the f32 kernel's largest query and kv tiles
 # the CUDA library (and its entry point) that each dtype launches
 ROUTES = {torch.bfloat16: ("flash_attention_sm90", "flash_attention_fwd_sm90"),
           torch.float32: ("flash_attention", "flash_attention_fwd")}
@@ -258,7 +262,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 
 def kernel_route(dtype, d=None, dv=None) -> str:
     """The CUDA library that a call in ``dtype`` launches: bf16 the wgmma
-    kernel (``flash_attention_sm90``), f32 the CUDA-core kernel
+    kernel (``flash_attention_sm90``), f32 the 3xTF32 kernel
     (``flash_attention``); with a (``d``, ``dv``) head_dim pair, the
     library that pair is built in (`library`).  Any other dtype has no
     kernel and raises."""
@@ -375,14 +379,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = None,
     ``return_lse`` also the rows' log-sum-exp (f32 [B, Hq, Sq], +BIG for
     a row with no key).  ``scale`` defaults to 1/sqrt(D); ``q_offset``
     (default Skv - Sq) is the position of query row 0.
-    ``block_q``/``block_k`` are validated on every route; on the
-    f32 route they bound the kernel's query and kv tiles, which are at most
-    `MAX_TILE` (the tile sizes change only the order of the f32 sums); the
-    bf16 kernel uses its own tiles, 128 query rows (two wgmma tiles of 64)
-    by 64 keys.  (D, Dv) must be one of `HEAD_DIMS` (on a CUDA tensor
-    another pair raises ValueError), and B * Hq at most 65535 (the grid's
-    second axis): a launch the card refuses raises.  ``scale`` defaults to
-    1/sqrt(D), of q and k, as the reference's.
+    ``block_q``/``block_k`` are validated on every route and change
+    nothing: the kernels take their own tiles, bf16 128 query rows (two
+    wgmma tiles of 64) by 64 keys, f32 128 query rows (16 a warp) by 16 to
+    64 keys as its shared memory allows, or for Sq <= 16 (a decode step)
+    one 16-row tile whose keys its warps share out
+    (``csrc/flash_attention.cu``, ``Tiles``).  (D, Dv) must be one of
+    `HEAD_DIMS` (on a CUDA tensor another pair raises ValueError), and
+    B * Hq at most 65535 (the grid's second axis): a launch the card
+    refuses raises.  ``scale`` defaults to 1/sqrt(D), of q and k, as the
+    reference's.
 
     The call goes through the custom op ``repro_torch::flash_attention``
     (`torch.library.Library`; CPU: the plain version, CUDA: the
@@ -443,11 +449,8 @@ def _fwd_on_card(q, k, v, causal, window, softcap, scale, block_q,
     lse = (torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
            if return_lse else None)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    args = _window_args(causal, window, softcap, scale)
-    if q.dtype == torch.float32:
-        args += [min(int(block_q), MAX_TILE), min(int(block_k), MAX_TILE)]
-    args += [k.shape[2] - sq if q_offset is None else int(q_offset),
-             _ptr(lse)]
+    args = _window_args(causal, window, softcap, scale) + [
+        k.shape[2] - sq if q_offset is None else int(q_offset), _ptr(lse)]
     err = _call(lib, entry, q.device,
                 *(_ptr(t) for t in (q, k, v, out)),
                 (ctypes.c_longlong * len(dims))(*dims), *args)
@@ -467,7 +470,7 @@ flash_attention.launches = 0  # kernel launches made through the wrapper
 
 def bwd_kernel_route(dtype, d=None, dv=None) -> str:
     """The CUDA library that a backward call in ``dtype`` launches: bf16
-    the wgmma kernel (``flash_attention_bwd_sm90``), f32 the CUDA-core
+    the wgmma kernel (``flash_attention_bwd_sm90``), f32 the 3xTF32
     kernel (``flash_attention_bwd``); with a (``d``, ``dv``) pair, the
     library that pair is built in.  Any other dtype raises."""
     if dtype not in BWD_ROUTES:

@@ -190,7 +190,7 @@ def test_plain_float64_evaluation():
     (torch.float32, "flash_attention"),
 ])
 def test_kernel_route_by_dtype(dtype, route):
-    """bf16 takes the wgmma kernel, f32 the CUDA-core kernel; both are
+    """bf16 takes the wgmma kernel, f32 the 3xTF32 kernel; both are
     libraries the build knows."""
     from repro_torch.kernels import _build
     assert tfa.kernel_route(dtype) == route
@@ -246,7 +246,7 @@ def test_tma_strides_refuses(make, match):
 ])
 def test_bwd_kernel_route_by_dtype(dtype, route):
     """The backward routes as the forward does: bf16 to the wgmma kernel,
-    f32 to the CUDA-core kernel; both are libraries the build knows."""
+    f32 to the 3xTF32 kernel; both are libraries the build knows."""
     from repro_torch.kernels import _build
     assert tfa.bwd_kernel_route(dtype) == route
     assert tfa.BWD_ROUTES[dtype][1] in _build.SIGNATURES[route]

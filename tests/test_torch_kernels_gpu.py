@@ -13,7 +13,8 @@ from repro_torch.core import build_bisim  # noqa: E402
 from repro_torch.exmem import build_bisim_oocore  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.kernels import sig_fold as tfold  # noqa: E402
-from repro_torch.kernels.flash_attention import SQUARE_DIMS  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    HEAD_DIMS, SQUARE_DIMS)
 
 pytestmark = pytest.mark.gpu
 
@@ -307,10 +308,11 @@ def test_card_oocore_odd_chunks_equal_cpu(cuda, tmp_path, mode):
 BF16 = torch.bfloat16
 # b, hq, hkv, sq, skv, d, causal, window, softcap, dtype: the cases of
 # `tests/test_kernels.py::ATTN_CASES`, the odd lengths serving prompts
-# have, and gemma2-9b's head_dim 256 with its window and softcap; then the
-# bf16 (wgmma) kernel at every head_dim, ragged lengths, GQA groups 1, 2
-# and 8, window and softcap each on and off, and gemma2-9b's 8192-token
-# prefill
+# have, and gemma2-9b's head_dim 256 with its window and softcap; then both
+# kernels (bf16 wgmma, f32 3xTF32) at every head_dim, ragged lengths, GQA
+# groups 1, 2 and 8, window and softcap each on and off, and gemma2-9b's
+# 8192-token prefill in bf16
+DTYPES = (torch.float32, BF16)
 FLASH_CASES = [
     (2, 4, 2, 128, 128, 64, True, None, None, torch.float32),
     (1, 8, 1, 256, 256, 32, True, None, 30.0, torch.float32),
@@ -323,14 +325,18 @@ FLASH_CASES = [
     (2, 4, 2, 37, 300, 64, True, 64, 50.0, torch.float32),
     (2, 16, 8, 300, 300, 256, True, 128, 50.0, torch.float32),
     (2, 16, 8, 300, 300, 256, True, 128, 50.0, BF16),
-] + [(1, 4, 2, 200, 200, d, True, None, None, BF16) for d in SQUARE_DIMS] + [
-    (1, 4, 4, 256, 256, d, False, None, 30.0, BF16) for d in SQUARE_DIMS
-] + [(2, 4, 2, sq, skv, 64, True, 16, 50.0, BF16)
-     for sq, skv in ((1, 300), (37, 37), (37, 300), (300, 300))] + [
-    (1, hq, hkv, 150, 250, 128, True, None, None, BF16)
-    for hq, hkv in ((4, 4), (4, 2), (8, 1))
-] + [(1, 4, 2, 300, 300, 256, True, window, softcap, BF16)
-     for window in (None, 100) for softcap in (None, 50.0)] + [
+] + [(1, 4, 2, 200, 200, d, True, None, None, dt) for d in SQUARE_DIMS
+      for dt in DTYPES] + [
+    (1, 4, 4, 256, 256, d, False, None, 30.0, dt) for d in SQUARE_DIMS
+    for dt in DTYPES
+] + [(2, 4, 2, sq, skv, 64, True, 16, 50.0, dt)
+     for sq, skv in ((1, 300), (37, 37), (37, 300), (300, 300))
+     for dt in DTYPES] + [
+    (1, hq, hkv, 150, 250, 128, True, None, None, dt)
+    for hq, hkv in ((4, 4), (4, 2), (8, 1)) for dt in DTYPES
+] + [(1, 4, 2, 300, 300, 256, True, window, softcap, dt)
+     for window in (None, 100) for softcap in (None, 50.0)
+     for dt in DTYPES] + [
     (1, 16, 8, 8192, 8192, 256, True, None, 50.0, BF16),
 ]
 
@@ -357,7 +363,8 @@ def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal,
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     assert got.dtype == dtype and got.shape == want.shape
     assert float((got.float() - want.float()).abs().max()) < tol
-    # the tiles change only the order of the f32 sums
+    # block_q and block_k bound only the CPU route: each kernel takes its
+    # own tiles
     for bq, bk in ((16, 64), (64, 32), (37, 5)):
         other = tfa.flash_attention(*qkv, block_q=bq, block_k=bk, **kw)
         assert float((other.float() - got.float()).abs().max()) < tol
@@ -1262,6 +1269,40 @@ def test_flash_attention_cross_bwd_matches_plain(cuda, monkeypatch, case,
     torch.cuda.synchronize()
     assert called == [tfa.bwd_kernel_route(dtype)]
     _bwd_close(got, tfa.flash_attention_bwd_plain(*args, **kw), dtype, tol)
+
+
+# f32 at every built (D, Dv) pair, non-causal: a decode step's Sq = 1 (the
+# 3xTF32 forward's decode mode, Sq <= 16: one 16-row tile, its warps share
+# out each kv tile's keys and combine their softmax states) and Sq > Skv
+# (the 128-row tile, rows past Skv's tiles, keys zero-filled past Skv)
+F32_EDGE_CASES = [  # b, hq, hkv, sq, skv, (d, dv)
+    (b, hq, hkv, sq, skv, pair) for pair in HEAD_DIMS
+    for b, hq, hkv, sq, skv in ((4, 8, 8, 1, 300), (1, 4, 2, 200, 70))]
+
+
+@pytest.mark.parametrize("case", F32_EDGE_CASES, ids=str)
+def test_flash_attention_f32_edge_rows_match_plain(cuda, monkeypatch, case):
+    """The f32 forward (2e-5, its lse 1e-4) and backward (1e-4 of each
+    gradient's max |x|) at Sq = 1 and non-causal Sq > Skv, at each pair's
+    library."""
+    from repro_torch.kernels import flash_attention as tfa
+    b, hq, hkv, sq, skv, (d, dv) = case
+    args, kw = _bwd_inputs(cuda, (b, hq, hkv, sq, skv, d, False, None, None,
+                                  None), torch.float32, dv)
+    q, k, v, _, want_lse, _ = args
+    called = _routes_called(monkeypatch)
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    got = tfa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert called == [tfa.kernel_route(torch.float32, d, dv),
+                      tfa.bwd_kernel_route(torch.float32, d, dv)]
+    want = tfa.flash_attention_plain(q, k, v, **kw)
+    assert o.shape == want.shape == (b, hq, sq, dv)
+    assert float((o - want).abs().max()) < 2e-5
+    assert float((lse - want_lse).abs().max()) \
+        <= 1e-4 * max(1.0, float(want_lse.abs().max()))
+    _bwd_close(got, tfa.flash_attention_bwd_plain(*args, **kw),
+               torch.float32, 1e-4)
 
 
 def test_causal_longer_queries_raise_on_card(cuda):
