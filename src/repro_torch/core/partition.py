@@ -26,8 +26,14 @@ differ only in what they sync and keep:
 Every device->host transfer emits a ``build.sync`` tracer event and every
 dispatched iteration a ``build.dispatch`` event, so ``--trace`` shows what
 the port really does; the JAX package's one-sync contract does not carry
-over.  Pid histories, counts, convergence, store columns and the
-`IterationStats` byte columns equal the JAX package's exactly.
+over.  The build's phases are tracer spans under ``build.bisim``
+(``build.upload``, ``build.prepare``, ``build.iteration`` a level,
+``build.drain``, ``build.fetch``, ``build.stores``); each copy emits a
+``build.copy`` event with the ``bytes`` it writes; on a card each level's
+device time, from CUDA events, is a ``build.level`` event.  With no
+tracer installed each of these is one branch.  Pid histories, counts,
+convergence, store columns and the `IterationStats` byte columns equal
+the JAX package's exactly.
 """
 from __future__ import annotations
 
@@ -52,6 +58,9 @@ _KEY_BYTES = {"sorted": 12, "dedup_hash": 12, "multiset": 0}
 class IterationStats:
     iteration: int
     num_partitions: int
+    # host seconds: this iteration's dispatch plus an even share of the
+    # wait of the drain that synced it; not the device's time (on a card
+    # with a tracer installed, the ``build.level`` events carry that)
     seconds: float
     # Bytes touched by the bulk operators this iteration — the analogue of
     # the paper's STXXL I/O volume column in Table 7.
@@ -124,22 +133,78 @@ def build_bisim(graph: Graph, k: int, *, mode: str = "sorted",
     if fused is None:
         fused = not with_store
     path = "fused" if fused else "staged"
-    n = graph.num_nodes
-    node_labels, src, dst, elabel = (
-        torch.from_numpy(x).to(dev)
-        for x in (graph.node_labels, graph.src, graph.dst, graph.elabel))
-    elabel_range = ((int(graph.elabel.min()), int(graph.elabel.max()))
-                    if graph.num_edges else (0, 0))
-    esize = max(graph.num_edges, 1)
-    step_bytes = dict(bytes_sorted=_KEY_BYTES[mode] * esize + 8 * n,
-                      bytes_scanned=12 * esize + 8 * n)
+    with obs.span("build.bisim", nodes=graph.num_nodes,
+                  edges=graph.num_edges, k=k, mode=mode, path=path):
+        return _build(graph, k, mode, early_stop, with_store, sync_every,
+                      path, dev)
 
-    t0 = time.perf_counter()
-    obs.event("build.dispatch", path=path, what="iteration0")
-    pid0, count0 = sig.dense_rank_ints(node_labels)
+
+class _LevelClock:
+    """CUDA events around each level's launches, read at the drain that
+    already syncs: each level's device time as a ``build.level`` event and
+    as its ``build.iteration`` span's ``device_ms``.  Made only on a card
+    with a tracer installed."""
+
+    def __init__(self):
+        self._open = {}     # level -> [span, start event, end event]
+
+    @staticmethod
+    def _mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def start(self, j: int, span) -> None:
+        self._open[j] = [span, self._mark(), None]
+
+    def stop(self, j: int) -> None:
+        self._open[j][2] = self._mark()
+
+    def emit(self, levels, converged_at) -> None:
+        for j in levels:
+            span, start, end = self._open.pop(j)
+            ms = start.elapsed_time(end)
+            trimmed = converged_at is not None and j > converged_at
+            # the span has closed; its record holds this same attrs dict
+            span.set(device_ms=ms, trimmed=trimmed)
+            obs.event("build.level", level=j, device_ms=ms, trimmed=trimmed)
+
+
+def _upload(graph: Graph, dev) -> list:
+    """The graph's columns on ``dev``; the bytes copied there are counted,
+    none on the CPU, whose tensors alias the graph's arrays."""
+    columns = (graph.node_labels, graph.src, graph.dst, graph.elabel)
+    nbytes = sum(x.nbytes for x in columns) if dev.type != "cpu" else 0
+    with obs.span("build.upload", bytes=nbytes):
+        tensors = [torch.from_numpy(x).to(dev) for x in columns]
+        obs.event("build.copy", what="upload", to="device", bytes=nbytes)
+    return tensors
+
+
+def _build(graph, k, mode, early_stop, with_store, sync_every, path, dev):
+    n = graph.num_nodes
+    clock = (_LevelClock() if dev.type == "cuda"
+             and obs.current_tracer() is not None else None)
+    node_labels, src, dst, elabel = _upload(graph, dev)
+    with obs.span("build.prepare"):
+        elabel_range = ((int(graph.elabel.min()), int(graph.elabel.max()))
+                        if graph.num_edges else (0, 0))
+        esize = max(graph.num_edges, 1)
+        step_bytes = dict(bytes_sorted=_KEY_BYTES[mode] * esize + 8 * n,
+                          bytes_scanned=12 * esize + 8 * n)
+
     stats, counts = [], []
-    # (iteration, count, convergence flag, dispatch seconds), on device
-    pending = [(0, count0, count0 != count0, time.perf_counter() - t0)]
+    with obs.span("build.iteration", level=0) as sp:
+        t0 = time.perf_counter()
+        if clock:
+            clock.start(0, sp)
+        obs.event("build.dispatch", path=path, what="iteration0")
+        pid0, count0 = sig.dense_rank_ints(node_labels)
+        flag0 = count0 != count0
+        if clock:
+            clock.stop(0)
+        # (iteration, count, convergence flag, dispatch seconds), on device
+        pending = [(0, count0, flag0, time.perf_counter() - t0)]
     converged_at = None
 
     def drain() -> bool:
@@ -147,42 +212,54 @@ def build_bisim(graph: Graph, k: int, *, mode: str = "sorted",
         nonlocal converged_at
         if not pending:
             return converged_at is not None
-        t_sync = time.perf_counter()
-        obs.event("build.sync", path=path, what="drain",
-                  batched=len(pending))
-        host = torch.stack([torch.stack([c, f.to(c.dtype)])
-                            for _, c, f, _ in pending]).tolist()
-        # the wait is where the drained steps' device work is paid for;
-        # amortize it so per-iteration seconds sum to the wall time
-        dt_sync = (time.perf_counter() - t_sync) / len(pending)
-        for (j, _, _, dt), (c, f) in zip(pending, host):
-            counts.append(c)
-            stats.append(IterationStats(
-                j, c, dt + dt_sync,
-                **(step_bytes if j else dict(bytes_sorted=4 * n,
-                                             bytes_scanned=4 * n))))
-            if early_stop and converged_at is None and f:
-                converged_at = j
-        pending.clear()
+        with obs.span("build.drain", batched=len(pending)) as sp:
+            t_sync = time.perf_counter()
+            obs.event("build.sync", path=path, what="drain",
+                      batched=len(pending))
+            scalars = torch.stack([torch.stack([c, f.to(c.dtype)])
+                                   for _, c, f, _ in pending])
+            host = scalars.tolist()
+            nbytes = scalars.numel() * scalars.element_size()
+            sp.set(bytes=nbytes)
+            obs.event("build.copy", what="drain", to="host", bytes=nbytes)
+            # the wait is where the drained steps' device work is paid
+            # for; amortize it so per-iteration seconds sum to the wall
+            dt_sync = (time.perf_counter() - t_sync) / len(pending)
+            for (j, _, _, dt), (c, f) in zip(pending, host):
+                counts.append(c)
+                stats.append(IterationStats(
+                    j, c, dt + dt_sync,
+                    **(step_bytes if j else dict(bytes_sorted=4 * n,
+                                                 bytes_scanned=4 * n))))
+                if early_stop and converged_at is None and f:
+                    converged_at = j
+            if clock:
+                clock.emit([j for j, _, _, _ in pending], converged_at)
+            pending.clear()
         return converged_at is not None
 
-    if not fused:
+    if path == "staged":
         drain()  # the count0 sync of the JAX package's staged path
     history = [pid0]
     sig_pairs = []
     pid_prev, count_prev = pid0, count0
     for j in range(1, k + 1):
-        t0 = time.perf_counter()
-        obs.event("build.dispatch", path=path, what="step", iteration=j)
-        pid_prev, count, hi, lo = bisim_step(
-            pid0, src, dst, elabel, pid_prev, num_nodes=n, mode=mode,
-            elabel_range=elabel_range)
-        history.append(pid_prev)
-        if with_store:
-            sig_pairs.append(torch.stack([hi, lo]))
-        pending.append((j, count, count == count_prev,
-                        time.perf_counter() - t0))
-        count_prev = count
+        with obs.span("build.iteration", level=j) as sp:
+            t0 = time.perf_counter()
+            if clock:
+                clock.start(j, sp)
+            obs.event("build.dispatch", path=path, what="step", iteration=j)
+            pid_prev, count, hi, lo = bisim_step(
+                pid0, src, dst, elabel, pid_prev, num_nodes=n, mode=mode,
+                elabel_range=elabel_range)
+            history.append(pid_prev)
+            if with_store:
+                sig_pairs.append(torch.stack([hi, lo]))
+            flag = count == count_prev
+            if clock:
+                clock.stop(j)
+            pending.append((j, count, flag, time.perf_counter() - t0))
+            count_prev = count
         if early_stop and j % sync_every == 0 and drain():
             break
     drain()
@@ -196,15 +273,20 @@ def build_bisim(graph: Graph, k: int, *, mode: str = "sorted",
         sig_pairs = sig_pairs[:keep - 1]
 
     # one bulk host transfer of the pid history (+ the stores if kept)
-    obs.event("build.sync", path=path, what="history")
-    pids = torch.stack(history).cpu().numpy()
+    with obs.span("build.fetch") as sp:
+        obs.event("build.sync", path=path, what="history")
+        pids = torch.stack(history).cpu().numpy()
+        sp.set(bytes=pids.nbytes)
+        obs.event("build.copy", what="history", to="host",
+                  bytes=pids.nbytes)
     stores, next_pid = None, None
     if with_store:
-        # level 0 keyed by node label, level j by the sig_j hash
-        stores = [SigStore.from_labels(graph.node_labels, pids[0])]
-        stores += [_store_of(pair, pid)
-                   for pair, pid in zip(sig_pairs, history[1:])]
-        next_pid = list(counts[: len(stores)])
+        with obs.span("build.stores", levels=len(history)):
+            # level 0 keyed by node label, level j by the sig_j hash
+            stores = [SigStore.from_labels(graph.node_labels, pids[0])]
+            stores += [_store_of(pair, pid)
+                       for pair, pid in zip(sig_pairs, history[1:])]
+            next_pid = list(counts[: len(stores)])
 
     return BisimResult(
         pids=pids, counts=counts, stats=stats,

@@ -55,7 +55,8 @@ default (``--device-maintenance``, the reference's opt-in);
 --workdir DIR`` makes the out-of-core build write a per-level
 checkpoint; ``--resume`` continues a killed build from the last
 finished level.  ``--trace PATH`` writes a Chrome-trace JSON and prints
-the phase table, with the ``build.dispatch`` / ``build.sync`` counts.
+the phase table, with the ``build.dispatch`` / ``build.sync`` counts; on
+a card each iteration's line adds its level's device ms (``build.level``).
 """
 from __future__ import annotations
 
@@ -333,12 +334,25 @@ def run_build(args, g: Graph):
     return res, time.perf_counter() - t0
 
 
+def _level_device_ms() -> dict:
+    """Each level's device ms from the installed tracer's ``build.level``
+    events (the last build's, on a card), or {} without them."""
+    tracer = obs.current_tracer()
+    if tracer is None:
+        return {}
+    return {e["attrs"]["level"]: e["attrs"]["device_ms"]
+            for e in tracer.find_events("build.level")}
+
+
 def report(args, res, dt: float) -> None:
     print(f"k={args.k} mode={args.mode} {_engine(args)}")
+    device_ms = _level_device_ms()
     for st in res.stats:
+        dev = device_ms.get(st.iteration)
         print(f"  iter {st.iteration:2d}: {st.num_partitions:9d} blocks "
               f"{st.seconds * 1e3:9.1f} ms  sortedB={st.bytes_sorted} "
-              f"scannedB={st.bytes_scanned}")
+              f"scannedB={st.bytes_scanned}"
+              + ("" if dev is None else f"  device={dev:.1f} ms"))
     print(f"total {dt:.2f}s; converged_at={res.converged_at}")
     if args.oocore:
         print(MetricsReport.format_io(res.io.as_dict()))

@@ -9,7 +9,8 @@ thread's fold/rank spans.
 
 `MetricsReport` is the aggregated view: per-phase totals (grouped by
 span name), a per-level table (spans carrying an integer ``level``
-attribute), and p50/p99 latencies per phase.  It also owns the
+attribute, with the device seconds of those carrying ``device_ms``), and
+p50/p99 latencies per phase.  It also owns the
 launcher's stable one-line text formats (`format_io`, `format_overlap`)
 so every subcommand reports through one code path.
 
@@ -25,8 +26,7 @@ from typing import Any, Dict, List, Optional
 
 from .tracer import Tracer
 
-__all__ = ["chrome_trace", "write_chrome_trace", "validate_chrome_trace",
-           "MetricsReport"]
+__all__ = ["chrome_trace", "write_chrome_trace", "MetricsReport"]
 
 
 def _jsonable(v: Any) -> Any:
@@ -114,42 +114,6 @@ def write_chrome_trace(tracer: Tracer, path: str) -> dict:
     return obj
 
 
-def validate_chrome_trace(obj: Any) -> bool:
-    """Validate the Chrome-trace JSON schema; raises ValueError on the
-    first violation, returns True when the object is loadable."""
-    if not isinstance(obj, dict):
-        raise ValueError("trace must be a JSON object")
-    evs = obj.get("traceEvents")
-    if not isinstance(evs, list) or not evs:
-        raise ValueError("traceEvents must be a non-empty list")
-    for i, ev in enumerate(evs):
-        where = f"traceEvents[{i}]"
-        if not isinstance(ev, dict):
-            raise ValueError(f"{where}: event must be an object")
-        if not isinstance(ev.get("name"), str) or not ev["name"]:
-            raise ValueError(f"{where}: missing event name")
-        ph = ev.get("ph")
-        if ph not in ("X", "i", "M"):
-            raise ValueError(f"{where}: unsupported phase {ph!r}")
-        for key in ("pid", "tid"):
-            if not isinstance(ev.get(key), int):
-                raise ValueError(f"{where}: {key} must be an int")
-        if ph in ("X", "i"):
-            ts = ev.get("ts")
-            if not isinstance(ts, (int, float)) or ts < 0:
-                raise ValueError(f"{where}: ts must be a number >= 0")
-        if ph == "X":
-            dur = ev.get("dur")
-            if not isinstance(dur, (int, float)) or dur < 0:
-                raise ValueError(f"{where}: dur must be a number >= 0")
-        if ph == "M" and not isinstance(ev.get("args"), dict):
-            raise ValueError(f"{where}: metadata event needs args")
-        args = ev.get("args")
-        if args is not None and not isinstance(args, dict):
-            raise ValueError(f"{where}: args must be an object")
-    return True
-
-
 def _percentile(durs_ns: List[int], q: float) -> float:
     """q-th percentile of span durations, in milliseconds (no numpy:
     nearest-rank on the sorted list is plenty for a report)."""
@@ -195,6 +159,9 @@ class MetricsReport:
             lvl = rec["attrs"].get("level")
             if isinstance(lvl, int) and not isinstance(lvl, bool):
                 levels[lvl][rec["name"]] += rec["dur"] / 1e9
+                dev_ms = rec["attrs"].get("device_ms")
+                if dev_ms is not None:
+                    levels[lvl][rec["name"] + ".device"] += dev_ms / 1e3
         phases = {
             name: {"count": len(d),
                    "total_s": sum(d) / 1e9,

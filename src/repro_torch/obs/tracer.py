@@ -20,6 +20,12 @@ thread (never hold a span open across a generator ``yield``): each
 thread keeps its own span stack, which is what gives the Chrome-trace
 export one lane per aio worker thread.
 
+While the torch profiler records, every span also opens a profiler range
+of its own name (`obs.ranges`), so the profiler's host timeline carries
+the program's phases beside the torch ops and the device's activity.
+That hook is looked up when the first tracer is made; this module
+imports nothing but the standard library.
+
 The port's own copy of `repro.obs.tracer` (stdlib only).
 """
 from __future__ import annotations
@@ -68,7 +74,7 @@ class Span:
     """A live span. Use as ``with tracer.span("layer.phase", ...):``."""
 
     __slots__ = ("_tracer", "name", "attrs", "_io", "_io0", "_start",
-                 "_tid", "_tname", "_depth", "_parent")
+                 "_tid", "_tname", "_depth", "_parent", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, io: Any,
                  attrs: Dict[str, Any]):
@@ -97,11 +103,15 @@ class Span:
         stack.append(self)
         if self._io is not None:
             self._io0 = _counters(self._io)
+        hook = _range_hook
+        self._range = hook(self.name) if hook is not None else None
         self._start = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         end = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         stack = self._tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -128,6 +138,8 @@ class Tracer:
     """
 
     def __init__(self, max_records: int = 1_000_000):
+        if _range_hook is _UNSET:
+            _load_range_hook()
         self._lock = threading.Lock()
         self._local = threading.local()
         self._origin = time.perf_counter_ns()
@@ -195,6 +207,19 @@ class Tracer:
 
 # -- process-global default tracer ---------------------------------------
 _ACTIVE: Optional[Tracer] = None
+# ``hook(name)`` opens and returns a profiler range named ``name``, or
+# returns None while no profiler records; looked up by the first tracer
+_UNSET = object()
+_range_hook: Any = _UNSET
+
+
+def _load_range_hook() -> None:
+    global _range_hook
+    try:
+        from .ranges import profiler_range
+    except ImportError:       # no torch: spans stay on this clock alone
+        profiler_range = None
+    _range_hook = profiler_range
 
 
 def current_tracer() -> Optional[Tracer]:

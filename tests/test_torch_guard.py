@@ -124,8 +124,8 @@ def test_launcher_runs_on_cpu(tmp_path, capsys):
                      r"scannedB=1200$", text, re.M)
     assert re.search(r"^total [\d.]+s; converged_at=\d+$", text, re.M)
     assert f"saved pid history to {out}" in text
-    assert re.search(r"^events: build.dispatch=\d+ build.sync=\d+$", text,
-                     re.M)
+    assert re.search(r"^events: build.copy=\d+ build.dispatch=\d+ "
+                     r"build.sync=\d+$", text, re.M)
     assert out.exists() and trace.exists()
 
 
