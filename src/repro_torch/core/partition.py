@@ -29,11 +29,13 @@ the port really does; the JAX package's one-sync contract does not carry
 over.  The build's phases are tracer spans under ``build.bisim``
 (``build.upload``, ``build.prepare``, ``build.iteration`` a level,
 ``build.drain``, ``build.fetch``, ``build.stores``); each copy emits a
-``build.copy`` event with the ``bytes`` it writes; on a card each level's
-device time, from CUDA events, is a ``build.level`` event.  With no
-tracer installed each of these is one branch.  Pid histories, counts,
-convergence, store columns and the `IterationStats` byte columns equal
-the JAX package's exactly.
+``build.copy`` event with the ``bytes`` it writes; on a card each
+level's device time, from CUDA events, is a ``build.level`` event.  A
+large graph goes to a card through a fixed ring of pinned buffers
+(`core.staging`), so the host's copy of one chunk overlaps the DMA of
+the last.  With no tracer installed each of these is one branch.  Pid
+histories, counts, convergence, store columns and the `IterationStats`
+byte columns equal the JAX package's exactly.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from .. import resolve_device
 from ..graph.storage import Graph
 from ..obs import tracer as obs
 from . import signatures as sig
+from . import staging
 from .sig_store import SigStore, lanes_to_keys
 
 # bytes of sort keys per edge, per mode (Table-7-style accounting)
@@ -172,11 +175,16 @@ class _LevelClock:
 
 def _upload(graph: Graph, dev) -> list:
     """The graph's columns on ``dev``; the bytes copied there are counted,
-    none on the CPU, whose tensors alias the graph's arrays."""
+    none on the CPU, whose tensors alias the graph's arrays.  A large
+    graph goes to a card through the pinned ring of `core.staging`, and
+    the span counts its chunks (``staged_chunks``, 0 on the direct
+    path)."""
     columns = (graph.node_labels, graph.src, graph.dst, graph.elabel)
     nbytes = sum(x.nbytes for x in columns) if dev.type != "cpu" else 0
-    with obs.span("build.upload", bytes=nbytes):
-        tensors = [torch.from_numpy(x).to(dev) for x in columns]
+    with obs.span("build.upload", bytes=nbytes) as sp:
+        tensors, chunks = staging.upload(columns, dev)
+        sp.set(staged_chunks=chunks, slots=staging.SLOTS,
+               slot_bytes=staging.SLOT_BYTES)
         obs.event("build.copy", what="upload", to="device", bytes=nbytes)
     return tensors
 

@@ -9,12 +9,14 @@ The in-memory build (`core.partition.build_bisim`) records, per call:
 
 * spans, each under ``build.bisim`` (``nodes``, ``edges``, ``k``,
   ``mode``, ``path``): ``build.upload`` (the graph's columns to the
-  device; ``bytes``), ``build.prepare`` (host work before the first
-  kernel: the edge labels' range), ``build.iteration`` (``level=j``: one
-  level's launches, iteration 0 included; on a card ``device_ms`` and
-  ``trimmed`` once drained), ``build.drain`` (``batched``, ``bytes``),
-  ``build.fetch`` (the pid history to the host; ``bytes``) and, with
-  ``with_store``, ``build.stores``;
+  device; ``bytes``, and ``staged_chunks``, ``slots``, ``slot_bytes``:
+  the chunks that went through the pinned ring of `core.staging`, 0 on
+  the direct path, and the ring's shape), ``build.prepare`` (host work
+  before the first kernel: the edge labels' range), ``build.iteration``
+  (``level=j``: one level's launches, iteration 0 included; on a card
+  ``device_ms`` and ``trimmed`` once drained), ``build.drain``
+  (``batched``, ``bytes``), ``build.fetch`` (the pid history to the
+  host; ``bytes``) and, with ``with_store``, ``build.stores``;
 * events: ``build.dispatch`` — one per launched iteration (``path=``
   ``fused`` or ``staged``, ``what=``, ``iteration=``); ``build.sync`` —
   one per device->host transfer (convergence scalars drained every

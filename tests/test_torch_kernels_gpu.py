@@ -15,6 +15,7 @@ from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.kernels import sig_fold as tfold  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     HEAD_DIMS, SQUARE_DIMS)
+from test_torch_staging import column_cases  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -1342,3 +1343,64 @@ def test_card_encdec_serve_equals_cpu_serve(cuda):
         + encdec.decode_launches(cfg) * st.decode_steps)
     assert got == ServeEngine(cpu, max_batch=2, max_seq=64).serve(
         reqs, max_new=8, extra={"frames": frames})
+
+
+# The pinned upload ring (`core/staging.py`): slots of 4 KiB, so small
+# columns run many chunks through few slots.  Each upload queues behind a
+# sleeping kernel, so every DMA waits on the stream: a slot the host
+# refilled before its copy had run would show in the result.
+STAGE_SLOT = 4096
+SLEEP_CYCLES = 50_000_000
+
+
+def _small_ring(monkeypatch, engage=True):
+    from repro_torch.core import staging
+    monkeypatch.setattr(staging, "SLOT_BYTES", STAGE_SLOT)
+    monkeypatch.setattr(staging, "ENGAGE_SLOTS", 0 if engage else 1 << 40)
+    return staging
+
+
+@pytest.mark.parametrize("case", sorted(column_cases(1)))
+def test_staged_upload_equals_direct_copy(cuda, monkeypatch, case):
+    staging = _small_ring(monkeypatch)
+    per = STAGE_SLOT // 4
+    columns = column_cases(per)[case]()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    staged, chunks = staging.upload(columns, cuda)
+    assert chunks == sum(-(-len(x) // per) for x in columns)
+    assert chunks > 0
+    for x, t in zip(columns, staged):
+        want = torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+        assert t.device.type == "cuda" and t.dtype == want.dtype
+        assert torch.equal(t, want)
+
+
+def test_back_to_back_staged_builds_equal_direct_builds(cuda, monkeypatch):
+    """Two graphs of one size, each built with its columns staged right
+    after the other's: each gives the pid history, counts and stores of
+    its own direct upload."""
+    from repro_torch import obs
+    from repro_torch.graph.storage import Graph
+    g1 = gen.powerlaw_graph(3000, 15000, 4, 3, seed=1)
+    rng = np.random.default_rng(2)
+    g2 = Graph(rng.integers(0, 4, g1.num_nodes), g1.src, g1.dst, g1.elabel)
+    _small_ring(monkeypatch, engage=False)
+    direct = [build_bisim(g, 6, with_store=True, device=cuda)
+              for g in (g1, g2)]
+    assert direct[0].pids.tobytes() != direct[1].pids.tobytes()
+    _small_ring(monkeypatch, engage=True)
+    with obs.tracing() as tracer:
+        staged = []
+        for g in (g1, g2):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            staged.append(build_bisim(g, 6, with_store=True, device=cuda))
+    ups = tracer.find("build.upload")
+    assert [u["attrs"]["staged_chunks"] for u in ups] == [
+        sum(-(-x.nbytes // STAGE_SLOT) for x in (
+            g.node_labels, g.src, g.dst, g.elabel)) for g in (g1, g2)]
+    for d, s in zip(direct, staged):
+        np.testing.assert_array_equal(d.pids, s.pids)
+        assert d.counts == s.counts and d.next_pid == s.next_pid
+        for a, b in zip(d.stores, s.stores):
+            np.testing.assert_array_equal(a.keys, b.keys)
+            np.testing.assert_array_equal(a.pids, b.pids)

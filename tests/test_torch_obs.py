@@ -118,6 +118,25 @@ def test_upload_counts_the_columns_where_they_are_copied():
     assert ev["attrs"] == {"what": "upload", "to": "device", "bytes": want}
 
 
+@pytest.mark.parametrize("dev", ["cpu", "meta"])
+def test_upload_span_carries_the_ring(dev):
+    """The ``build.upload`` span names the pinned ring's shape and the
+    chunks staged through it: none on ``cpu`` and ``meta``, where the
+    copy event keeps its attributes."""
+    from repro_torch.core import staging
+    g = _graph()
+    with obs.tracing() as tracer:
+        partition._upload(g, torch.device(dev))
+    (up,) = tracer.find("build.upload")
+    want = (0 if dev == "cpu" else
+            sum(x.nbytes for x in (g.node_labels, g.src, g.dst, g.elabel)))
+    assert up["attrs"] == {"bytes": want, "staged_chunks": 0,
+                           "slots": staging.SLOTS,
+                           "slot_bytes": staging.SLOT_BYTES}
+    (ev,) = tracer.find_events("build.copy")
+    assert ev["attrs"] == {"what": "upload", "to": "device", "bytes": want}
+
+
 def test_no_tracer_no_span_and_no_profiler_range():
     assert obs.current_tracer() is None
     assert obs.span("build.bisim") is obs.NOOP_SPAN
